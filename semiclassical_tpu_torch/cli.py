@@ -110,12 +110,12 @@ def _load_tasks(json_input, kind):
 
 def check_slice(task):
     """Raise ConfigurationError, naming the keyword, for a dynamics task
-    that asks for anything outside the ported slice (HK, molecular
-    harmonic PES, RK4, pseudo-random sampling)."""
+    that asks for anything outside the ported slice (HK, or dense WM with
+    `cell_width`; molecular harmonic PES, RK4, pseudo-random sampling)."""
     propagator = task.get("propagator", "HK")
-    if propagator != "HK":
+    if propagator not in ("HK", "WM"):
         raise ConfigurationError(
-            f"propagator '{propagator}' is not ported yet (ported: 'HK')")
+            f"propagator '{propagator}' is not ported (ported: 'HK', 'WM')")
     ptype = task["potential"]["type"]
     if ptype != "harmonic":
         raise ConfigurationError(
@@ -181,7 +181,8 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
     from semiclassical_tpu_torch.io.results import (accumulate_results,
                                                     init_results)
     from semiclassical_tpu_torch.profiling import PhaseTimer, RunMetrics
-    from semiclassical_tpu_torch.propagation import HermanKlukPropagator
+    from semiclassical_tpu_torch.propagation import (
+        HermanKlukPropagator, WaltonManolopoulosPropagator)
 
     check_slice(task)
     if precision != "f64":
@@ -226,7 +227,10 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
             "Multiple runs with the same sequence of random numbers make no "
             "sense! Do not use `manual_seed` and `overwrite=False` at the "
             "same time")
-    init_results(filename, "HK", times, adiabatic_gap, en_zpt,
+    propagator_name = task.get("propagator", "HK")
+    # WM: Filinov cell widths alpha = beta
+    cell_width = task.get("cell_width", 10000.0)
+    init_results(filename, propagator_name, times, adiabatic_gap, en_zpt,
                  overwrite=overwrite)
     if seed is None:
         seed = int(np.random.SeedSequence().entropy)
@@ -248,7 +252,12 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
         logger.info(f"*** Repetition {repetition + 1} ***")
         generator = torch.Generator(device=device)
         generator.manual_seed(_repetition_seed(seed, repetition))
-        propagator = HermanKlukPropagator(Gamma_i, Gamma_t, device=device)
+        if propagator_name == "WM":
+            propagator = WaltonManolopoulosPropagator(
+                Gamma_i, Gamma_t, cell_width, cell_width, device=device)
+        else:
+            propagator = HermanKlukPropagator(Gamma_i, Gamma_t,
+                                              device=device)
         with ptimer.phase("sample"):
             propagator.initial_conditions(q0, p0, Gamma_0, potential,
                                           ntraj=num_samples,

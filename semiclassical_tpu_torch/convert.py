@@ -18,10 +18,12 @@ from semiclassical_tpu_torch.potentials.molecular import \
     MolecularHarmonicPotential
 from semiclassical_tpu_torch.propagation.hk import BatchConstants, HKParams
 from semiclassical_tpu_torch.propagation.state import TrajState
+from semiclassical_tpu_torch.propagation.wm import WMBatchConstants, WMParams
 from semiclassical_tpu_torch.sampling import SamplingParams
 
 __all__ = ["molecular_harmonic_potential", "sampling_params", "hk_params",
-           "batch_constants", "traj_state"]
+           "batch_constants", "wm_params", "wm_batch_constants",
+           "traj_state"]
 
 
 def _t(x, device):
@@ -75,6 +77,32 @@ def batch_constants(f, device):
         logw_norm=t("logw_norm"),
         log_weight_scale=float(f["log_weight_scale"]), vi=t("vi"),
         obs_re=t("obs_re"), obs_im=t("obs_im"), nacq=t("nacq"))
+
+
+_WM_ARRAYS = ("Gt", "A_const", "BqU", "G0U", "UtG0U", "Cqq", "G0iGi0", "Dbal",
+              "U1", "U2", "A_const_b", "BqUb", "Fq", "C2b", "M0")
+
+
+def wm_params(f, device):
+    """From the fields of `WMParams` (the dense f64 pack; the HK pack is
+    nested under "hk", whose U, iGi0 and G0 the port keeps in the WM
+    pack)."""
+    hk = f["hk"]
+    return WMParams.from_arrays(
+        hk_params(hk, device), device, U=hk["U"], iGi0=hk["iGi0"],
+        G0=hk["G0"], **{name: f[name] for name in _WM_ARRAYS},
+        alpha=f["alpha"], beta=f["beta"], auto_pref=f["auto_pref"],
+        m_scale=f["m_scale"], m_log_det=f["m_log_det"], dim=f["dim"],
+        rank=f["rank"], scan_diag=f["scan_diag"])
+
+
+def wm_batch_constants(f, device):
+    """From the fields of `WMBatchConstants` (the HK constants nested
+    under "base")."""
+    t = lambda name: _t(f[name], device)
+    return WMBatchConstants(base=batch_constants(f["base"], device),
+                            eps=t("eps"), PIq=t("PIq"), n1q=t("n1q"),
+                            n2q=t("n2q"), z0=t("z0"))
 
 
 def traj_state(f, device):

@@ -3,5 +3,7 @@
 the build that compiles `csrc/` at first use.
 
   det    K1: batched complex determinant by unpivoted LU (csrc/det_lu.cu)
+  gj     K2: batched det + solve, K3: batched det + inverse, by unpivoted
+         Gauss-Jordan (csrc/gj_det.cu)
   _build nvcc -> build/kernels/*.so, bound with ctypes
 """

@@ -3,7 +3,8 @@
 
 The sources under `csrc/*.cu` are compiled by `nvcc` for Hopper (sm_90a)
 into one shared library with a plain C interface, at first use, into
-`build/kernels/` at the root of the checkout. The library's name carries a
+`build/kernels/` at the root of the checkout: one `nvcc -c` per source, all
+started together, then one link. The library's name carries a
 hash of the sources and of the compiler command, so an edited source is
 rebuilt and an unchanged one is loaded as it is. The library is bound with
 ctypes: every pointer and the stream pass as `c_void_p`, and every entry
@@ -28,15 +29,22 @@ __all__ = ["load", "build_log", "CSRC", "BUILD_DIR"]
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+LINK_FLAGS = (*ARCH, "-shared")
 
 # entry point -> argtypes (all return int: the cudaError_t of the launch)
+_P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ENTRY_POINTS = {
-    "semi_det_lu_c128": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                         ctypes.c_int, ctypes.c_void_p),
-    "semi_det_lu_c64": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_void_p),
+    # csrc/det_lu.cu (K1): a, det, n, r, stream
+    "semi_det_lu_c128": (_P, _P, _N, _I, _P),
+    "semi_det_lu_c64": (_P, _P, _N, _I, _P),
+    # csrc/gj_det.cu (K2): a, b, sol, det, n, m, k, stream
+    "semi_gj_det_solve_c128": (_P, _P, _P, _P, _N, _I, _I, _P),
+    "semi_gj_det_solve_c64": (_P, _P, _P, _P, _N, _I, _I, _P),
+    # csrc/gj_det.cu (K3): a, inv, det, n, m, stream
+    "semi_gj_det_inv_c128": (_P, _P, _P, _N, _I, _P),
+    "semi_gj_det_inv_c64": (_P, _P, _P, _N, _I, _P),
 }
 
 _lib = None
@@ -59,32 +67,56 @@ def _sources():
     return srcs
 
 
+def _run_all(cmds):
+    """Run the commands in parallel and wait for every one; return their
+    (returncode, output) in order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    return [(proc.returncode, out) for proc, out in zip(procs, outs)]
+
+
+def _compile(srcs, target):
+    """Compile each source to an object in parallel, link them into
+    `target`. The objects and the library are written under private names
+    first: concurrent first uses never load a half-written library."""
+    global _log
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in srcs]
+        lib = os.path.join(tmp, target.name)
+        steps = [
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+             for src, obj in zip(srcs, objs)],
+            [[nvcc, *LINK_FLAGS, "-o", lib, *objs]],
+        ]
+        _log = ""
+        for cmds in steps:
+            results = _run_all(cmds)
+            _log += "".join(out for _, out in results)
+            for cmd, (rc, out) in zip(cmds, results):
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n"
+                                       f"{' '.join(cmd)}\n{out}")
+        os.replace(lib, target)
+
+
 def load():
     """Build the kernel library if needed and return the loaded ctypes
     handle with its entry points declared."""
-    global _lib, _log
+    global _lib
     if _lib is not None:
         return _lib
     srcs = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *LINK_FLAGS)).encode())
     for src in srcs:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     target = BUILD_DIR / f"libsemi_kernels_{digest.hexdigest()[:16]}.so"
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # compile to a private name and rename: concurrent first uses never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        _log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{_log}")
-        os.replace(tmp, target)
+        _compile(srcs, target)
     lib = ctypes.CDLL(str(target))
     for name, argtypes in _ENTRY_POINTS.items():
         fn = getattr(lib, name)

@@ -1,0 +1,236 @@
+# coding: utf-8
+"""Batched complex Gauss-Jordan eliminations: the CUDA kernels K2
+(det + solve) and K3 (det + inverse), their plain versions and their
+wrappers.
+
+K2 replaces `semiclassical_tpu/ops/det_kernel.py::
+pallas_batched_det_solve_lanes`: (det A, A^{-1} B) for A (n, m, m) and
+B (n, m, k) by unpivoted augmented Gauss-Jordan on [A | B], updating only
+the live columns (A columns right of the pivot and every B column). It
+carries the WM fast path: three calls per step (`linalg.
+batched_det_solve_blocks` on the balanced A-matrix, `linalg.
+batched_det_solve` on the M-matrix).
+
+K3 replaces `pallas_batched_det_inv_lanes`: (det A, A^{-1}) for
+A (n, m, m) by in-place unpivoted Gauss-Jordan, column k collecting the
+inverse factors. It builds the WM trackers (`wm_derived`, twice per batch).
+
+Both eliminate in the TPU kernels' pivot order with the same complex
+arithmetic (reciprocal pivot conj(p)/|p|^2, rank-1 row updates). What
+bounds the kernels and how `csrc/gj_det.cu` is laid out is described at the
+top of that file: one warp per matrix in shared memory, the complex tensors
+read in place through their interleaved re/im layout.
+
+The wrappers launch the kernel for tensors on the card and raise on
+anything it does not take; they use the plain version only for tensors on
+the CPU. There is no fallback from a kernel to its plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["batched_det_solve_gj", "batched_det_inv_gj",
+           "batched_det_solve_gj_plain", "batched_det_inv_gj_plain",
+           "check_solve_args", "check_inv_args", "LAUNCHES", "MAX_M",
+           "MAX_WIDTH"]
+
+MAX_M = 64        # rows (and A columns) a kernel takes
+MAX_WIDTH = 192   # m + k of K2's augmented matrix
+
+# kernel launches made by the wrappers, per kernel (one per launch)
+LAUNCHES = {"det_solve": 0, "det_inv": 0}
+
+
+def _cmul(x_re, x_im, y_re, y_im):
+    return x_re * y_re - x_im * y_im, x_re * y_im + x_im * y_re
+
+
+def _recip(p_re, p_im):
+    """conj(p) / |p|^2 as (re, im)."""
+    inv_den = 1.0 / (p_re * p_re + p_im * p_im)
+    return p_re * inv_den, -p_im * inv_den
+
+
+def batched_det_solve_gj_plain(A: torch.Tensor, B: torch.Tensor):
+    """(det A, A^{-1} B) for A (n, m, m), B (n, m, k) by K2's unpivoted
+    augmented Gauss-Jordan, in plain PyTorch: same pivot order, same real
+    arithmetic on the re/im parts, live columns only."""
+    n, m, _ = A.shape
+    a = torch.view_as_real(torch.cat([A, B], dim=2))    # (n, m, w, 2) copy
+    det_re = torch.ones(n, dtype=a.dtype, device=a.device)
+    det_im = torch.zeros(n, dtype=a.dtype, device=a.device)
+    for kp in range(m):
+        p_re, p_im = a[:, kp, kp, 0], a[:, kp, kp, 1]
+        det_re, det_im = _cmul(det_re, det_im, p_re, p_im)
+        ip_re, ip_im = _recip(p_re[:, None], p_im[:, None])
+        # scaled pivot row over the live columns kp+1 .. w-1
+        rs_re, rs_im = _cmul(a[:, kp, kp + 1:, 0], a[:, kp, kp + 1:, 1],
+                             ip_re, ip_im)                # (n, live)
+        c_re = a[:, :, kp, 0][:, :, None]                 # (n, m, 1)
+        c_im = a[:, :, kp, 1][:, :, None]
+        x_re, x_im = a[:, :, kp + 1:, 0], a[:, :, kp + 1:, 1]
+        # rank-1 update of all rows (row kp becomes ~0 and is restored);
+        # column kp is not live, so c is not overwritten
+        new_re = x_re - c_re * rs_re[:, None] + c_im * rs_im[:, None]
+        new_im = x_im - c_re * rs_im[:, None] - c_im * rs_re[:, None]
+        a[:, :, kp + 1:, 0] = new_re
+        a[:, :, kp + 1:, 1] = new_im
+        a[:, kp, kp + 1:, 0] = rs_re
+        a[:, kp, kp + 1:, 1] = rs_im
+    sol = torch.view_as_complex(a[:, :, m:, :].contiguous())
+    return torch.complex(det_re, det_im), sol
+
+
+def batched_det_inv_gj_plain(A: torch.Tensor):
+    """(det A, A^{-1}) for A (n, m, m) by K3's unpivoted in-place
+    Gauss-Jordan, in plain PyTorch: same pivot order, same real arithmetic
+    on the re/im parts."""
+    n, m, _ = A.shape
+    a = torch.view_as_real(A.clone())                     # (n, m, m, 2)
+    det_re = torch.ones(n, dtype=a.dtype, device=a.device)
+    det_im = torch.zeros(n, dtype=a.dtype, device=a.device)
+    for kp in range(m):
+        p_re, p_im = a[:, kp, kp, 0], a[:, kp, kp, 1]
+        det_re, det_im = _cmul(det_re, det_im, p_re, p_im)
+        ip_re, ip_im = _recip(p_re, p_im)
+        rs_re, rs_im = _cmul(a[:, kp, :, 0], a[:, kp, :, 1],
+                             ip_re[:, None], ip_im[:, None])   # (n, m)
+        c_re = a[:, :, kp, 0].clone()                     # (n, m)
+        c_im = a[:, :, kp, 1].clone()
+        new_re = (a[..., 0] - c_re[:, :, None] * rs_re[:, None]
+                  + c_im[:, :, None] * rs_im[:, None])
+        new_im = (a[..., 1] - c_re[:, :, None] * rs_im[:, None]
+                  - c_im[:, :, None] * rs_re[:, None])
+        a[..., 0] = new_re
+        a[..., 1] = new_im
+        a[:, kp, :, 0] = rs_re
+        a[:, kp, :, 1] = rs_im
+        # column kp collects -c / p, the pivot entry 1 / p
+        f_re, f_im = _cmul(c_re, c_im, ip_re[:, None], ip_im[:, None])
+        a[:, :, kp, 0] = -f_re
+        a[:, :, kp, 1] = -f_im
+        a[:, kp, kp, 0] = ip_re
+        a[:, kp, kp, 1] = ip_im
+    return torch.complex(det_re, det_im), torch.view_as_complex(a)
+
+
+def _check_square(name, A):
+    if A.dtype not in (torch.complex128, torch.complex64):
+        raise ValueError(f"{name} takes complex128 or complex64, got "
+                         f"{A.dtype}")
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"{name} takes a (n, m, m) batch, got shape "
+                         f"{tuple(A.shape)}")
+    if not 1 <= A.shape[1] <= MAX_M:
+        raise ValueError(f"{name}'s kernel takes 1 <= m <= {MAX_M}, got "
+                         f"m = {A.shape[1]}")
+    if not A.is_contiguous():
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def check_solve_args(A: torch.Tensor, B: torch.Tensor):
+    """Raise ValueError unless K2 takes (A, B): complex128 or complex64 of
+    one type, A (n, m, m) with 1 <= m <= MAX_M, B (n, m, k) with k >= 1 and
+    m + k <= MAX_WIDTH, both contiguous on one device."""
+    name = "batched_det_solve_gj"
+    _check_square(name, A)
+    if B.dtype != A.dtype:
+        raise ValueError(f"{name} takes A and B of one type, got {A.dtype} "
+                         f"and {B.dtype}")
+    n, m, _ = A.shape
+    if B.dim() != 3 or B.shape[:2] != (n, m) or B.shape[2] < 1:
+        raise ValueError(f"{name} takes B of shape (n, m, k) = ({n}, {m}, k "
+                         f">= 1), got {tuple(B.shape)}")
+    if m + B.shape[2] > MAX_WIDTH:
+        raise ValueError(f"{name}'s kernel takes m + k <= {MAX_WIDTH}, got "
+                         f"m + k = {m + B.shape[2]}")
+    if not B.is_contiguous():
+        raise ValueError(f"{name} takes contiguous tensors")
+    if B.device != A.device:
+        raise ValueError(f"{name} takes A and B on one device, got "
+                         f"{A.device} and {B.device}")
+
+
+def check_inv_args(A: torch.Tensor):
+    """Raise ValueError unless K3 takes `A`: complex128 or complex64,
+    (n, m, m) with 1 <= m <= MAX_M, contiguous."""
+    _check_square("batched_det_inv_gj", A)
+
+
+def _entry(lib, kernel, dtype):
+    return getattr(lib, f"semi_gj_{kernel}_"
+                   f"{'c128' if dtype == torch.complex128 else 'c64'}")
+
+
+def _raise_on(err, kernel, A):
+    if err != 0:
+        raise RuntimeError(f"gj_{kernel} kernel launch failed: CUDA error "
+                           f"{err} (shape {tuple(A.shape)}, {A.dtype})")
+
+
+def _launch_solve(A, B):
+    from semiclassical_tpu_torch.ops import _build
+
+    n, m, _ = A.shape
+    det = torch.empty(n, dtype=A.dtype, device=A.device)
+    sol = torch.empty_like(B)
+    if n == 0:
+        return det, sol
+    fn = _entry(_build.load(), "det_solve", A.dtype)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = fn(A.data_ptr(), B.data_ptr(), sol.data_ptr(), det.data_ptr(),
+                 n, m, B.shape[2], stream)
+    _raise_on(err, "det_solve", A)
+    LAUNCHES["det_solve"] += 1
+    return det, sol
+
+
+def _launch_inv(A):
+    from semiclassical_tpu_torch.ops import _build
+
+    n, m, _ = A.shape
+    det = torch.empty(n, dtype=A.dtype, device=A.device)
+    inv = torch.empty_like(A)
+    if n == 0:
+        return det, inv
+    fn = _entry(_build.load(), "det_inv", A.dtype)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = fn(A.data_ptr(), inv.data_ptr(), det.data_ptr(), n, m, stream)
+    _raise_on(err, "det_inv", A)
+    LAUNCHES["det_inv"] += 1
+    return det, inv
+
+
+def _route(name, *tensors):
+    """'cpu' when every tensor is on the CPU, 'cuda' when every one is on
+    the card; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"} or kinds == {"cuda"}:
+        return kinds.pop()
+    raise ValueError(f"{name} runs on cuda or cpu tensors (all on one), got "
+                     f"{', '.join(str(t.device) for t in tensors)}")
+
+
+def batched_det_solve_gj(A: torch.Tensor, B: torch.Tensor):
+    """(det A, A^{-1} B) for A (n, m, m), B (n, m, k) -> ((n,), (n, m, k)).
+
+    Tensors on the card go to K2 (or raise if it does not take them);
+    tensors on the CPU go to the plain version."""
+    if _route("batched_det_solve_gj", A, B) == "cpu":
+        return batched_det_solve_gj_plain(A, B)
+    check_solve_args(A, B)
+    return _launch_solve(A, B)
+
+
+def batched_det_inv_gj(A: torch.Tensor):
+    """(det A, A^{-1}) for A (n, m, m) -> ((n,), (n, m, m)).
+
+    A tensor on the card goes to K3 (or raises if it does not take it); a
+    tensor on the CPU goes to the plain version."""
+    if _route("batched_det_inv_gj", A) == "cpu":
+        return batched_det_inv_gj_plain(A)
+    check_inv_args(A)
+    return _launch_inv(A)

@@ -324,9 +324,7 @@ class HermanKlukPropagator:
         Gamma_0 = np.asarray(Gamma_0, dtype=np.float64)
         sampling = SamplingParams.create(q0, p0, Gamma_0, self.Gamma_i,
                                          self.device)
-        self.params = build_hk_params(self.Gamma_i, self.Gamma_t, Gamma_0,
-                                      q0, p0, sampling.U, sampling.iGi0,
-                                      self.device)
+        self.params = self._make_params(Gamma_0, q0, p0, sampling)
         logger.info("== Initial Conditions ==")
         logger.info(f"number of dimensions   :  {self.params.dim}")
         logger.info(f"zero dimensions        :  "
@@ -341,11 +339,33 @@ class HermanKlukPropagator:
                 "the port propagates the dense monodromy of a constant-"
                 f"Hessian PES only; this potential gives {type(hess).__name__}")
         self.state = TrajState.initial(qi, pi)
-        self.bc = hk_batch_constants(self.params, qi, pi, log_prob, potential)
-        self.tracker = SignTracker.fresh(
-            hk_prefactor_det(self.params, self.state))
+        self.bc = self._make_batch_constants(qi, pi, log_prob, potential)
+        self.tracker = self._make_trackers(self.state)
         self.ntraj = ntraj
         self.t = 0.0
+
+    # -- hooks shared with the WM subclass -----------------------------------
+
+    def _make_params(self, Gamma_0, q0, p0, sampling):
+        """The constant parameter pack."""
+        return build_hk_params(self.Gamma_i, self.Gamma_t, Gamma_0, q0, p0,
+                               sampling.U, sampling.iGi0, self.device)
+
+    def _make_batch_constants(self, qi, pi, log_prob, potential):
+        """The per-batch constants of the sampled initial conditions."""
+        return hk_batch_constants(self.params, qi, pi, log_prob, potential)
+
+    def _make_trackers(self, state):
+        """The branch-cut tracking state at the initial conditions."""
+        return SignTracker.fresh(hk_prefactor_det(self.params, state))
+
+    def _observe(self, state, tracker, potential):
+        """One step's observables: the tracker advanced to `state` and the
+        (C_auto, k~ic) batch sums as 0-d device tensors."""
+        tracker = tracker.update(hk_prefactor_det(self.params, state))
+        cauto, kic = hk_observables(self.params, self.bc, state,
+                                    tracker.sqrt(), potential)
+        return tracker, cauto, kic
 
     def _run(self, potential, dt, nt, chunk=None, progress=None):
         """The time loop: `nt` steps from the current state. Returns the
@@ -357,9 +377,8 @@ class HermanKlukPropagator:
         energies = torch.empty(nt, dtype=torch.float64, device=self.device)
         state, tracker = self.state, self.tracker
         for i in range(nt):
-            tracker = tracker.update(hk_prefactor_det(self.params, state))
-            cauto[i], kic[i] = hk_observables(self.params, self.bc, state,
-                                              tracker.sqrt(), potential)
+            tracker, cauto[i], kic[i] = self._observe(state, tracker,
+                                                      potential)
             state, energies[i] = rk4_step(state, potential, dt, step_map)
             if progress is not None and chunk and (i + 1) % chunk == 0:
                 progress(i + 1, nt,

@@ -1,9 +1,9 @@
 # coding: utf-8
 """The port's CLI (`python -m semiclassical_tpu_torch.cli dynamics|rates`)
-on the CPU: methylium at 64 trajectories x 20 steps end to end, the npz
-contract against the JAX CLI's file for the same task, and the refusals —
-keywords and subcommands outside the ported slice, precisions other than
-f64, and a CUDA run without CUDA.
+on the CPU: methylium at 64 trajectories x 20 steps end to end with HK and
+with WM, the npz contract against the JAX CLI's file for the same task,
+and the refusals — keywords and subcommands outside the ported slice,
+precisions other than f64, and a CUDA run without CUDA.
 """
 
 import json
@@ -82,7 +82,6 @@ def test_dynamics_and_rates_on_cpu(config, tmp_path):
 
 
 OUT_OF_SLICE = [
-    ("propagator", "WM"),
     ("potential.type", "gdml"),
     ("potential.type", "anharmonic AS"),
     ("integrator", "exact"),
@@ -114,6 +113,30 @@ def test_out_of_slice_keyword_raises(config, tmp_path, key, value):
     path = _write(config, tmp_path / "semi.json")
     with pytest.raises(ConfigurationError, match=f"'{named}'.*not ported"):
         cli.main(["dynamics", path, "--device", "cpu"])
+
+
+def test_wm_dynamics_and_rates_on_cpu(config, tmp_path):
+    config["semi"][0].update(propagator="WM", cell_width=10000.0)
+    path = _write(config, tmp_path / "semi.json")
+    assert cli.main(["dynamics", path, "--device", "cpu"]) == 0
+    assert cli.main(["rates", path]) == 0
+    data = dict(np.load(config["semi"][0]["results"]["correlations"]))
+    assert str(data["propagator"]) == "WM"
+    assert int(data["trajectories"]) == 64
+    assert data["autocorrelation"].shape == (20,)
+    assert abs(data["autocorrelation"][0] - 1.0) < 1e-3
+    assert np.isfinite(data["ic_correlation"]).all()
+    assert data["ic_rate"].size and np.isfinite(data["ic_rate"]).all()
+
+
+def test_wm_micro_batch_raises(config, tmp_path):
+    """micro_batch is not ported, with WM as with HK."""
+    config["semi"][0].update(propagator="WM", micro_batch=16)
+    path = _write(config, tmp_path / "semi.json")
+    with pytest.raises(ConfigurationError, match="'micro_batch'.*not ported"):
+        cli.main(["dynamics", path, "--device", "cpu"])
+    assert not pathlib.Path(
+        config["semi"][0]["results"]["correlations"]).exists()
 
 
 @pytest.mark.parametrize("command", cli.NOT_PORTED_COMMANDS)

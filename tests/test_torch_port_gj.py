@@ -1,0 +1,222 @@
+# coding: utf-8
+"""The port's Gauss-Jordan kernels K2 (det + solve) and K3 (det + inverse)
+(semiclassical_tpu_torch.ops.gj) and the WM eliminations of its `linalg`
+against LAPACK and the JAX package.
+
+On the CPU the port runs the kernels' plain PyTorch versions (the same
+unpivoted eliminations in the same pivot order). They are held against
+
+* numpy's LAPACK det / solve / inv at complex128, rtol 1e-10 on
+  well-conditioned matrices (the two differ only in rounding order), and
+* the Pallas kernels themselves (`pallas_batched_det_solve_lanes`,
+  `pallas_batched_det_inv_lanes`, which always compute in complex64) in
+  interpret mode, at complex64 and 1e-4 relative, the tolerance of
+  tests/test_ops.py.
+
+The CUDA kernels themselves are compared with the plain versions on the
+card by tests/test_torch_port_cuda.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from semiclassical_tpu import linalg as jax_linalg
+from semiclassical_tpu.ops import (pallas_batched_det_inv_lanes,
+                                   pallas_batched_det_solve_lanes)
+from semiclassical_tpu_torch import linalg
+from semiclassical_tpu_torch.ops import gj
+
+
+def _well_conditioned(rng, n, m):
+    return (np.eye(m)[None] + 0.3 * (rng.standard_normal((n, m, m))
+                                     + 1j * rng.standard_normal((n, m, m)))
+            / np.sqrt(m))
+
+
+def _rhs(rng, n, m, k):
+    return rng.standard_normal((n, m, k)) + 1j * rng.standard_normal((n, m, k))
+
+
+def _rel(got, ref):
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("k", [5, 6, 12])
+@pytest.mark.parametrize("m", [2, 6, 12, 45])
+def test_solve_plain_c128_matches_lapack(m, k):
+    rng = np.random.default_rng(10 * m + k)
+    A, B = _well_conditioned(rng, 20, m), _rhs(rng, 20, m, k)
+    det, sol = gj.batched_det_solve_gj_plain(torch.from_numpy(A),
+                                             torch.from_numpy(B))
+    np.testing.assert_allclose(det.numpy(), np.linalg.det(A), rtol=1e-10,
+                               atol=0)
+    assert _rel(sol.numpy(), np.linalg.solve(A, B)) < 1e-10
+
+
+@pytest.mark.parametrize("m", [2, 6, 12, 45])
+def test_inv_plain_c128_matches_lapack(m):
+    A = _well_conditioned(np.random.default_rng(m), 20, m)
+    det, inv = gj.batched_det_inv_gj_plain(torch.from_numpy(A))
+    np.testing.assert_allclose(det.numpy(), np.linalg.det(A), rtol=1e-10,
+                               atol=0)
+    assert _rel(inv.numpy(), np.linalg.inv(A)) < 1e-10
+
+
+# n = 20 is deliberately not a multiple of the Pallas tile (16)
+@pytest.mark.parametrize("m, k", [(6, 12), (6, 6), (6, 5)])
+def test_solve_plain_c64_matches_pallas_interpret(m, k):
+    rng = np.random.default_rng(100 + m + k)
+    A = _well_conditioned(rng, 20, m).astype(np.complex64)
+    B = _rhs(rng, 20, m, k).astype(np.complex64)
+    det_ref, sol_ref = pallas_batched_det_solve_lanes(
+        jnp.asarray(A), jnp.asarray(B), tile=16)
+    det, sol = gj.batched_det_solve_gj_plain(torch.from_numpy(A),
+                                             torch.from_numpy(B))
+    assert det.dtype == sol.dtype == torch.complex64
+    assert _rel(det.numpy(), np.asarray(det_ref)) < 1e-4
+    assert _rel(sol.numpy(), np.asarray(sol_ref)) < 1e-4
+
+
+@pytest.mark.parametrize("m", [6, 12])
+def test_inv_plain_c64_matches_pallas_interpret(m):
+    A = _well_conditioned(np.random.default_rng(200 + m), 20, m).astype(
+        np.complex64)
+    det_ref, inv_ref = pallas_batched_det_inv_lanes(jnp.asarray(A), tile=16)
+    det, inv = gj.batched_det_inv_gj_plain(torch.from_numpy(A))
+    assert det.dtype == inv.dtype == torch.complex64
+    assert _rel(det.numpy(), np.asarray(det_ref)) < 1e-4
+    assert _rel(inv.numpy(), np.asarray(inv_ref)) < 1e-4
+
+
+@pytest.fixture()
+def jax_xla():
+    """JAX's linalg on its LAPACK ("xla") implementation, restored after."""
+    old = jax_linalg._LINALG_IMPL
+    jax_linalg.set_linalg_impl("xla")
+    yield jax_linalg
+    jax_linalg.set_linalg_impl(old)
+
+
+def _blocks(M, r):
+    return M[:, :r, :r], M[:, :r, r:], M[:, r:, :r], M[:, r:, r:]
+
+
+def test_linalg_det_solve_blocks_matches_jax(jax_xla):
+    """The WM A-solve shape: m = 12 split into two 6 x 6 leaves, k = 6."""
+    rng = np.random.default_rng(12)
+    A, B = _well_conditioned(rng, 20, 12), _rhs(rng, 20, 12, 6)
+    det_ref, Y_ref = jax_xla.batched_det_solve_blocks(
+        *_blocks(jnp.asarray(A), 6), jnp.asarray(B[:, :6]),
+        jnp.asarray(B[:, 6:]))
+    At = torch.from_numpy(A)
+    det, Y = linalg.batched_det_solve_blocks(
+        *_blocks(At, 6), torch.from_numpy(B[:, :6]),
+        torch.from_numpy(B[:, 6:]))
+    np.testing.assert_allclose(det.numpy(), np.asarray(det_ref), rtol=1e-10,
+                               atol=0)
+    assert _rel(Y.numpy(), np.asarray(Y_ref)) < 1e-10
+
+
+@pytest.mark.parametrize("shape", [(20,), (4, 5)], ids=["n", "batch-2d"])
+def test_linalg_det_inv_and_solve_match_jax(jax_xla, shape):
+    rng = np.random.default_rng(len(shape))
+    A = _well_conditioned(rng, 20, 12).reshape(shape + (12, 12))
+    B = _rhs(rng, 20, 12, 5).reshape(shape + (12, 5))
+    det_ref, inv_ref = jax_xla.batched_det_inv(jnp.asarray(A))
+    det, inv = linalg.batched_det_inv(torch.from_numpy(A))
+    assert det.shape == shape and inv.shape == A.shape
+    np.testing.assert_allclose(det.numpy(), np.asarray(det_ref), rtol=1e-10,
+                               atol=0)
+    assert _rel(inv.numpy(), np.asarray(inv_ref)) < 1e-10
+    det_ref, Y_ref = jax_xla.batched_det_solve(jnp.asarray(A), jnp.asarray(B))
+    det, Y = linalg.batched_det_solve(torch.from_numpy(A),
+                                      torch.from_numpy(B))
+    assert Y.shape == B.shape
+    np.testing.assert_allclose(det.numpy(), np.asarray(det_ref), rtol=1e-10,
+                               atol=0)
+    assert _rel(Y.numpy(), np.asarray(Y_ref)) < 1e-10
+
+
+def test_linalg_above_the_leaf_matches_lapack():
+    """m = 80 > 64: one block-Schur level splits it into 40 x 40 leaves."""
+    rng = np.random.default_rng(80)
+    A, B = _well_conditioned(rng, 6, 80), _rhs(rng, 6, 80, 7)
+    det, inv = linalg.batched_det_inv(torch.from_numpy(A))
+    np.testing.assert_allclose(det.numpy(), np.linalg.det(A), rtol=1e-10,
+                               atol=0)
+    assert _rel(inv.numpy(), np.linalg.inv(A)) < 1e-10
+    det, Y = linalg.batched_det_solve(torch.from_numpy(A),
+                                      torch.from_numpy(B))
+    np.testing.assert_allclose(det.numpy(), np.linalg.det(A), rtol=1e-10,
+                               atol=0)
+    assert _rel(Y.numpy(), np.linalg.solve(A, B)) < 1e-10
+    det, Y = linalg.batched_det_solve_blocks(
+        *_blocks(torch.from_numpy(A), 40), torch.from_numpy(B[:, :40]),
+        torch.from_numpy(B[:, 40:]))
+    assert _rel(Y.numpy(), np.linalg.solve(A, B)) < 1e-10
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    rng = np.random.default_rng(3)
+    A = torch.from_numpy(_well_conditioned(rng, 9, 6))
+    B = torch.from_numpy(_rhs(rng, 9, 6, 5))
+    before = dict(gj.LAUNCHES)
+    det, sol = gj.batched_det_solve_gj(A, B)
+    det_p, sol_p = gj.batched_det_solve_gj_plain(A, B)
+    assert torch.equal(det, det_p) and torch.equal(sol, sol_p)
+    det, inv = gj.batched_det_inv_gj(A)
+    det_p, inv_p = gj.batched_det_inv_gj_plain(A)
+    assert torch.equal(det, det_p) and torch.equal(inv, inv_p)
+    linalg.batched_det_solve_blocks(*_blocks(A, 3), B[:, :3], B[:, 3:])
+    assert gj.LAUNCHES == before
+
+
+def test_other_devices_raise():
+    A = torch.empty((4, 6, 6), dtype=torch.complex128, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        gj.batched_det_inv_gj(A)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        gj.batched_det_solve_gj(A, torch.zeros((4, 6, 2),
+                                               dtype=torch.complex128))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+@pytest.mark.parametrize("m, k", [(1, 1), (6, 12), (64, 128), (60, 120)])
+def test_arg_checks_accept(dtype, m, k):
+    gj.check_solve_args(torch.zeros((3, m, m), dtype=dtype),
+                        torch.zeros((3, m, k), dtype=dtype))
+    gj.check_inv_args(torch.zeros((3, m, m), dtype=dtype))
+
+
+_c128 = lambda *s: torch.zeros(s, dtype=torch.complex128)
+
+
+@pytest.mark.parametrize("A, B, match", [
+    (_c128(3, 65, 65), _c128(3, 65, 5), "m <= 64"),
+    (_c128(3, 64, 64), _c128(3, 64, 129), "m \\+ k <= 192"),
+    (torch.zeros((3, 6, 6)), torch.zeros((3, 6, 5)), "complex128 or complex64"),
+    (_c128(3, 6, 7)[:, :, :6], _c128(3, 6, 5), "contiguous"),
+    (_c128(3, 6, 6), _c128(3, 6, 9)[:, :, :5], "contiguous"),
+    (_c128(3, 6, 5), _c128(3, 6, 5), "batch"),
+    (_c128(3, 6, 6), _c128(3, 5, 5), "B of shape"),
+    (_c128(3, 6, 6), torch.zeros((3, 6, 5), dtype=torch.complex64), "one type"),
+], ids=["m65", "width193", "float64", "A-non-contiguous", "B-non-contiguous",
+        "non-square", "B-rows", "mixed-types"])
+def test_solve_arg_check_rejects(A, B, match):
+    with pytest.raises(ValueError, match=match):
+        gj.check_solve_args(A, B)
+
+
+@pytest.mark.parametrize("A, match", [
+    (_c128(3, 65, 65), "m <= 64"),
+    (torch.zeros((3, 6, 6)), "complex128 or complex64"),
+    (_c128(3, 6, 7)[:, :, :6], "contiguous"),
+    (_c128(3, 6, 5), "batch"),
+    (_c128(6, 6), "batch"),
+], ids=["m65", "float64", "non-contiguous", "non-square", "2d"])
+def test_inv_arg_check_rejects(A, match):
+    with pytest.raises(ValueError, match=match):
+        gj.check_inv_args(A)
