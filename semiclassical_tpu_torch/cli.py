@@ -110,17 +110,26 @@ def _load_tasks(json_input, kind):
 
 def check_slice(task):
     """Raise ConfigurationError, naming the keyword, for a dynamics task
-    that asks for anything outside the ported slice (HK, or dense WM with
-    `cell_width`; molecular harmonic PES, RK4, pseudo-random sampling)."""
+    that asks for anything outside the ported slice (HK, or WM with
+    `cell_width`; molecular harmonic PES or the anharmonic AS model with
+    the 4-stage Hessian, RK4, pseudo-random sampling)."""
     propagator = task.get("propagator", "HK")
     if propagator not in ("HK", "WM"):
         raise ConfigurationError(
             f"propagator '{propagator}' is not ported (ported: 'HK', 'WM')")
     ptype = task["potential"]["type"]
-    if ptype != "harmonic":
+    if ptype not in ("harmonic", "anharmonic AS"):
         raise ConfigurationError(
             f"potential type '{ptype}' is not ported yet (ported: "
-            "'harmonic')")
+            "'harmonic', 'anharmonic AS')")
+    hessian_eval = task["potential"].get("hessian_eval", "stage")
+    if hessian_eval != "stage":
+        raise ConfigurationError(
+            f"hessian_eval '{hessian_eval}' is not ported yet (ported: "
+            "'stage')")
+    if task["potential"].get("taylor_every", 1) != 1:
+        raise ConfigurationError(
+            "potential keyword 'taylor_every' is not ported yet")
     integrator = task.get("integrator", "rk4")
     if integrator != "rk4":
         raise ConfigurationError(
@@ -137,14 +146,29 @@ def check_slice(task):
 
 def _build_potential(task, device):
     """(potential, q0, p0, Gamma_0, en_zpt, adiabatic_gap) from the task's
-    harmonic `potential` section; the energy origin is moved to the minimum
-    of the final PES."""
+    `potential` section. For the harmonic PES the energy origin is moved to
+    the minimum of the final PES; the AS model has no adiabatic gap
+    (NaN)."""
     from semiclassical_tpu_torch import units
     from semiclassical_tpu_torch.io import FormattedCheckpointFile
     from semiclassical_tpu_torch.potentials import (MolecularHarmonicPotential,
-                                                    minimize)
+                                                    MorsePotential, minimize)
 
     p = task["potential"]
+    if p["type"] == "anharmonic AS":
+        data = np.loadtxt(p["model_file"])
+        if data.ndim == 1:
+            data = data.reshape(1, -1)
+        logger.info("vibrational modes (cm^-1):")
+        logger.info(f"{data[:, 0]}")
+        omega = data[:, 0] / units.hartree_to_wavenumbers
+        S, nac, chi = data[:, 1], data[:, 2], data[:, 3]
+        # horizontal shift dQ from the Huang-Rhys factor S = dQ^2 omega / 2
+        dQ = np.sqrt(2.0 * np.abs(S) / omega) * np.sign(S)
+        dQ[omega == 0.0] = 0.0
+        potential = MorsePotential.create(omega, chi, nac, device=device)
+        return (potential, dQ, 0.0 * dQ, np.diag(omega),
+                float(np.sum(0.5 * omega)), np.nan)
     with open(p["ground"]) as f:
         freq_fchk = FormattedCheckpointFile(f)
     with open(p["coupling"]) as f:
@@ -238,8 +262,11 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
         logger.warning("The random number generator should not be seeded "
                        "manually unless for debugging!")
 
-    # progress readout every scan_chunk steps (one host read per chunk)
-    scan_chunk = task.get("scan_chunk", 100)
+    # progress readout every scan_chunk steps (one host read per chunk);
+    # the separable AS steps are short, so they read back less often
+    default_chunk = (500 if task["potential"]["type"] == "anharmonic AS"
+                     else 100)
+    scan_chunk = task.get("scan_chunk", default_chunk)
 
     def _progress(done, total, cauto_last):
         t_fs = times[min(done, nt) - 1] * units.autime_to_fs

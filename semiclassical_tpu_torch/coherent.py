@@ -33,6 +33,10 @@ class OverlapParams:
     Gj_iGij: torch.Tensor     # (d, d)   Gj [Gi+Gj]^{-1}
     fac: complex              # normalisation prefactor
     rank: int
+    # (3, d) stack of the three matrices' diagonals when all of them are
+    # exactly diagonal (diagonal widths): the exponent quadratic forms
+    # are then elementwise products and a mode sum. None otherwise.
+    diag_w: torch.Tensor | None = None
 
     @staticmethod
     def create(Gi, Gj, device):
@@ -60,16 +64,23 @@ class OverlapParams:
         fac = np.sqrt(
             2.0**ranki * np.sqrt(detGi + 0j) * np.sqrt(detGj + 0j) / detGij
         )
-        return OverlapParams.from_arrays(Gi @ iGij @ Gj, iGij, Gj @ iGij,
-                                         complex(fac), ranki, device)
+        m1, m2, m3 = Gi @ iGij @ Gj, iGij, Gj @ iGij
+        offdiag = max(float(np.abs(m - np.diag(np.diag(m))).max())
+                      for m in (m1, m2, m3))
+        diag_w = (np.stack([np.diag(m) for m in (m1, m2, m3)])
+                  if offdiag == 0.0 else None)
+        return OverlapParams.from_arrays(m1, m2, m3, complex(fac), ranki,
+                                         device, diag_w=diag_w)
 
     @staticmethod
-    def from_arrays(Gi_iGij_Gj, iGij, Gj_iGij, fac, rank, device):
+    def from_arrays(Gi_iGij_Gj, iGij, Gj_iGij, fac, rank, device,
+                    diag_w=None):
         t = lambda x: torch.tensor(np.asarray(x, dtype=np.float64),
                                    device=device)
         return OverlapParams(Gi_iGij_Gj=t(Gi_iGij_Gj), iGij=t(iGij),
                              Gj_iGij=t(Gj_iGij), fac=complex(fac),
-                             rank=int(rank))
+                             rank=int(rank),
+                             diag_w=None if diag_w is None else t(diag_w))
 
 
 def _quad(x, A, y):
@@ -82,6 +93,12 @@ def overlap_exponent_vector(ov: OverlapParams, qi, pi, qj, pj):
     bra states qi, pi (n, d) and one ket qj, pj (d,)."""
     dq = qj[None, :] - qi
     dp = pj[None, :] - pi
+    if ov.diag_w is not None:
+        w1, w2, w3 = ov.diag_w
+        re_part = (-0.5 * torch.sum(dq * w1 * dq, dim=-1)
+                   - (0.5 / hbar**2) * torch.sum(dp * w2 * dp, dim=-1))
+        im_part = (torch.sum(dq * w3 * dp, dim=-1) - dq @ pj) / hbar
+        return re_part, im_part
     re_part = (-0.5 * _quad(dq, ov.Gi_iGij_Gj, dq)
                - (0.5 / hbar**2) * _quad(dp, ov.iGij, dp))
     im_part = (_quad(dq, ov.Gj_iGij, dp) - dq @ pj) / hbar

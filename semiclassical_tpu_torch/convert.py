@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from semiclassical_tpu_torch.coherent import OverlapParams
+from semiclassical_tpu_torch.potentials.model import (MorsePotential,
+                                                      NonHarmonicPotential)
 from semiclassical_tpu_torch.potentials.molecular import \
     MolecularHarmonicPotential
 from semiclassical_tpu_torch.propagation.hk import BatchConstants, HKParams
@@ -21,7 +23,8 @@ from semiclassical_tpu_torch.propagation.state import TrajState
 from semiclassical_tpu_torch.propagation.wm import WMBatchConstants, WMParams
 from semiclassical_tpu_torch.sampling import SamplingParams
 
-__all__ = ["molecular_harmonic_potential", "sampling_params", "hk_params",
+__all__ = ["molecular_harmonic_potential", "morse_potential",
+           "nonharmonic_potential", "sampling_params", "hk_params",
            "batch_constants", "wm_params", "wm_batch_constants",
            "traj_state"]
 
@@ -40,6 +43,21 @@ def molecular_harmonic_potential(f, device):
         origin=float(f["origin"]), device=device)
 
 
+def morse_potential(f, device):
+    """From the fields of `MorsePotential` (the 4-stage Hessian mode)."""
+    if f.get("hessian_eval", "stage") != "stage" or f.get("taylor_every",
+                                                           1) != 1:
+        raise ValueError("reduced-cost Hessian evaluation is not ported")
+    return MorsePotential.from_arrays(f["omega"], f["a"], f["D"], f["nac"],
+                                      f["harmonic"], device)
+
+
+def nonharmonic_potential(f, device):
+    """From the fields of `NonHarmonicPotential`."""
+    return NonHarmonicPotential(eps=_t(f["eps"], device),
+                                b=_t(f["b"], device))
+
+
 def sampling_params(f, device):
     """From the fields of `SamplingParams`."""
     return SamplingParams.from_arrays(
@@ -51,22 +69,27 @@ def sampling_params(f, device):
 def _overlap_params(f, device):
     return OverlapParams.from_arrays(
         f["Gi_iGij_Gj"], f["iGij"], f["Gj_iGij"], complex(f["fac"]),
-        int(f["rank"]), device)
+        int(f["rank"]), device, diag_w=f.get("diag_w"))
 
 
 def hk_params(f, device):
     """From the fields of `HKParams` (the f64 mode: no comp32 residuals);
-    the re/im planes of the factors are joined into complex factors."""
+    the re/im planes of the factors are joined into complex factors, and
+    the separable-path scales diag_ka .. diag_ke are stacked."""
     if f.get("q0c") is not None:
         raise ValueError("comp32 parameter packs are not ported")
     plane = lambda name: (np.asarray(f[name + "_re"])
                           + 1j * np.asarray(f[name + "_im"]))
+    scales = [f.get(f"diag_k{x}") for x in "abce"]
+    diag = {"diag_k": None if scales[0] is None else np.stack(scales),
+            "R_diag": f.get("R_diag"), "shift_diag": f.get("shift_diag")}
     return HKParams.from_factors(
         Lt_s=plane("Lt_s"), Lt_i=plane("Lt_i"), Ri_s=plane("Ri_s"),
         Ri_i=plane("Ri_i"), q0=f["q0"], p0=f["p0"], G0=f["G0"],
         iGi0=f["iGi0"], R=f["R"],
         csoi0=_overlap_params(f["csoi0"], device),
-        csot0=_overlap_params(f["csot0"], device), device=device)
+        csot0=_overlap_params(f["csot0"], device), device=device,
+        diag=diag)
 
 
 def batch_constants(f, device):
@@ -84,16 +107,16 @@ _WM_ARRAYS = ("Gt", "A_const", "BqU", "G0U", "UtG0U", "Cqq", "G0iGi0", "Dbal",
 
 
 def wm_params(f, device):
-    """From the fields of `WMParams` (the dense f64 pack; the HK pack is
-    nested under "hk", whose U, iGi0 and G0 the port keeps in the WM
-    pack)."""
+    """From the fields of `WMParams` (the f64 pack; the HK pack is nested
+    under "hk", whose U, iGi0 and G0 the port keeps in the WM pack, and the
+    separable path's WMDiagConsts under "diag")."""
     hk = f["hk"]
     return WMParams.from_arrays(
         hk_params(hk, device), device, U=hk["U"], iGi0=hk["iGi0"],
         G0=hk["G0"], **{name: f[name] for name in _WM_ARRAYS},
         alpha=f["alpha"], beta=f["beta"], auto_pref=f["auto_pref"],
         m_scale=f["m_scale"], m_log_det=f["m_log_det"], dim=f["dim"],
-        rank=f["rank"], scan_diag=f["scan_diag"])
+        rank=f["rank"], scan_diag=f["scan_diag"], diag=f.get("diag"))
 
 
 def wm_batch_constants(f, device):
@@ -106,15 +129,16 @@ def wm_batch_constants(f, device):
 
 
 def traj_state(f, device):
-    """From the fields of a dense f64 `TrajState` (the four monodromy
-    blocks are stacked into Z)."""
+    """From the fields of an f64 `TrajState`: the four dense monodromy
+    blocks are stacked into Z (n, 2d, 2d), the (n, d) diagonal ones into
+    the planes Z (4, n, d)."""
     if f.get("qc") is not None:
         raise ValueError("comp32 trajectory states are not ported")
     blocks = [np.asarray(f[k]) for k in ("Mqq", "Mqp", "Mpq", "Mpp")]
-    if blocks[0].ndim != 3:
-        raise ValueError("the diagonal monodromy representation is not "
-                         "ported")
-    Z = np.concatenate([np.concatenate(blocks[:2], axis=2),
-                        np.concatenate(blocks[2:], axis=2)], axis=1)
+    if blocks[0].ndim == 2:
+        Z = np.stack(blocks)
+    else:
+        Z = np.concatenate([np.concatenate(blocks[:2], axis=2),
+                            np.concatenate(blocks[2:], axis=2)], axis=1)
     return TrajState(q=_t(f["q"], device), p=_t(f["p"], device),
                      Z=_t(Z, device), S=_t(f["S"], device))

@@ -7,7 +7,9 @@
   `semiclassical_tpu.linalg`. They run once per propagator construction, so
   the rank of Gamma is a Python int and the null-space projector U a fixed
   (d, r) matrix.
-* **Device-side** `batched_det`, the per-step determinant of the HK
+* **Device-side** `logspace_mode_product`, the range-safe product over
+  modes that the separable (diagonal) path uses for every determinant;
+  `batched_det`, the per-step determinant of the HK
   prefactor matrices, which goes to the hand-written kernel in `ops.det`;
   and the WM eliminations `batched_det_inv`, `batched_det_solve` and
   `batched_det_solve_blocks`, which go to the Gauss-Jordan kernels of
@@ -36,6 +38,7 @@ __all__ = [
     "pseudo_det",
     "pseudo_logdet",
     "nonzero_subspace",
+    "logspace_mode_product",
     "batched_det",
     "batched_det_inv",
     "batched_det_solve",
@@ -109,6 +112,16 @@ def nonzero_subspace(A: np.ndarray, positive_only: bool = True) -> np.ndarray:
     e, V = sym_eigh(A)
     nz = (e > ZERO) if positive_only else (np.abs(e) > ZERO)
     return np.ascontiguousarray(V[:, nz])
+
+
+def logspace_mode_product(z_re, z_im, dim=1):
+    """prod of (z_re + i z_im) over the mode axis `dim`, in log space:
+    magnitudes as a sum of logs, phases as a sum of angles — range-safe at
+    any mode count. The determinant of every diagonal-path matrix (the HK
+    prefactor, WM's detA and detM)."""
+    log_mag = 0.5 * torch.sum(torch.log(z_re**2 + z_im**2), dim=dim)
+    ang = torch.sum(torch.atan2(z_im, z_re), dim=dim)
+    return torch.polar(torch.exp(log_mag), ang)
 
 
 def batched_det(A):

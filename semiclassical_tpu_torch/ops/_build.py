@@ -45,6 +45,9 @@ _ENTRY_POINTS = {
     # csrc/gj_det.cu (K3): a, inv, det, n, m, stream
     "semi_gj_det_inv_c128": (_P, _P, _P, _N, _I, _P),
     "semi_gj_det_inv_c64": (_P, _P, _P, _N, _I, _P),
+    # csrc/wm_diag.cu (K5): ten planes, pack, scal, det_planes, n, d, stream
+    "semi_wm_diag_f64": (*(_P,) * 13, _N, _I, _P),
+    "semi_wm_diag_f32": (*(_P,) * 13, _N, _I, _P),
 }
 
 _lib = None

@@ -3,8 +3,11 @@
 
 from semiclassical_tpu_torch.potentials.base import (ConstHessian,
                                                      DenseHessian, DiagHessian)
+from semiclassical_tpu_torch.potentials.model import (MorsePotential,
+                                                      NonHarmonicPotential)
 from semiclassical_tpu_torch.potentials.molecular import (
     MolecularHarmonicPotential, minimize)
 
 __all__ = ["ConstHessian", "DenseHessian", "DiagHessian",
-           "MolecularHarmonicPotential", "minimize"]
+           "MolecularHarmonicPotential", "MorsePotential",
+           "NonHarmonicPotential", "minimize"]

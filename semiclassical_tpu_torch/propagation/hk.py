@@ -3,14 +3,19 @@
 
 [HK] E. Kluk, M. Herman, H. Davis, J. Chem. Phys. 84, 326 (1986)
 
-The port of `semiclassical_tpu.propagation.hk` on the dense-prefactor path
-(molecular harmonic PES, any width matrix):
+The port of `semiclassical_tpu.propagation.hk` on two paths:
 
-* `HKParams` / `BatchConstants` are precomputed once: the null-space
+* the dense-prefactor path (molecular harmonic PES, any width matrix):
+  `HKParams` / `BatchConstants` are precomputed once: the null-space
   projector U of singular width matrices is folded into the constant left
   and right factors of the prefactor matrix, so the per-step work is two
   real matmuls over the stacked monodromy plus one batched (n, r, r)
   complex determinant — the CUDA kernel of `ops.det` on the card;
+* the separable path (model potentials, diagonal Hessians and diagonal
+  widths): the monodromy is kept in the diagonal representation, the
+  prefactor matrix is diagonal and its determinant a log-space product
+  over modes, and the overlap exponents and NAC forms are elementwise —
+  no matmul and no determinant kernel in the step;
 * everything that depends only on the initial phase-space points (the
   overlap <qi,pi|phi(0)>, the Monte-Carlo log-weights, the initial-point
   NAC factor of k~ic) is computed once per batch;
@@ -32,7 +37,7 @@ from semiclassical_tpu_torch import linalg
 from semiclassical_tpu_torch.coherent import (OverlapParams,
                                               overlap_exponent_vector,
                                               overlap_vector)
-from semiclassical_tpu_torch.potentials.base import ConstHessian
+from semiclassical_tpu_torch.potentials.base import ConstHessian, DiagHessian
 from semiclassical_tpu_torch.propagation.eom import const_step_map, rk4_step
 from semiclassical_tpu_torch.propagation.state import SignTracker, TrajState
 from semiclassical_tpu_torch.sampling import (SamplingParams,
@@ -85,11 +90,29 @@ class HKParams:
     csot0: OverlapParams  # <.,Gt | .,G0>
     dim: int
     rank: int
+    # separable path (`factors_diag`: real factors whose Lt_x Ri_y products
+    # are all diagonal — diagonal widths, up to the mode permutation in U —
+    # so the prefactor matrix of a diagonal monodromy is diagonal):
+    # diag_K (4, d, r) holds K = Lt * Ri^T for the pairs (Lt_s, Ri_i),
+    # (Lt_s, Ri_s), (Lt_i, Ri_s), (Lt_i, Ri_i), and mat_aa = (m @ K)_a;
+    # at full rank, when all four share one permutation, diag_k (4, d)
+    # holds their nonzero entries in unpermuted mode order (the mode
+    # product is permutation-invariant). None where they do not apply.
+    diag_K: torch.Tensor | None = None
+    diag_k: torch.Tensor | None = None
+    R_diag: torch.Tensor | None = None      # (d,) diagonal of R, if diagonal
+    shift_diag: torch.Tensor | None = None  # (d,) diagonal of shift, ditto
+
+    @property
+    def factors_diag(self):
+        return self.diag_K is not None
 
     @staticmethod
     def from_factors(Lt_s, Lt_i, Ri_s, Ri_i, q0, p0, G0, iGi0, R,
-                     csoi0, csot0, device):
-        """Pack the complex factors (host numpy) for the device."""
+                     csoi0, csot0, device, diag=None):
+        """Pack the complex factors (host numpy) for the device. The
+        separable-path fields diag_k, R_diag and shift_diag are derived
+        here unless given (as the dict `diag`)."""
         Lt_s, Lt_i = np.asarray(Lt_s), np.asarray(Lt_i)      # (r, d)
         Ri_s, Ri_i = np.asarray(Ri_s), np.asarray(Ri_i)      # (d, r)
         r, d = Lt_s.shape
@@ -98,15 +121,46 @@ class HKParams:
         lint[1::2, d:] = Lt_i
         rst = 0.5 * np.concatenate([Ri_i, -1j * hbar * Ri_s,
                                     (1j / hbar) * Ri_i, Ri_s], axis=0)
-        t = lambda x: torch.tensor(np.asarray(x, dtype=np.float64),
-                                   device=device)
+        t = lambda x: None if x is None else torch.tensor(
+            np.asarray(x, dtype=np.float64), device=device)
         G0 = np.asarray(G0, dtype=np.float64)
         iGi0 = np.asarray(iGi0, dtype=np.float64)
+        shift = (G0 @ iGi0).T
+        diag_K, diag_k = _diag_factors(Lt_s, Lt_i, Ri_s, Ri_i)
+        if diag is None:
+            diag = {"diag_k": diag_k}
+            for name, M in (("R_diag", np.asarray(R)), ("shift_diag", shift)):
+                diag[name] = np.diag(M) if _is_diag(M) else None
         return HKParams(
             left=t(np.concatenate([lint.real, lint.imag], axis=0)),
             right=t(np.concatenate([rst.real, rst.imag], axis=1)),
-            q0=t(q0), p0=t(p0), R=t(R), shift=t((G0 @ iGi0).T),
-            csoi0=csoi0, csot0=csot0, dim=int(d), rank=int(r))
+            q0=t(q0), p0=t(p0), R=t(R), shift=t(shift),
+            csoi0=csoi0, csot0=csot0, dim=int(d), rank=int(r),
+            diag_K=t(diag_K), **{k: t(v) for k, v in diag.items()})
+
+
+def _is_diag(M):
+    """Exact-zero off-diagonals, as the JAX package tests them."""
+    return float(np.abs(M - np.diag(np.diag(M))).max()) == 0.0
+
+
+def _diag_factors(Lt_s, Lt_i, Ri_s, Ri_i):
+    """(diag_K, diag_k) of the separable path (see HKParams), or None for
+    what does not apply."""
+    pairs = ((Lt_s, Ri_i), (Lt_s, Ri_s), (Lt_i, Ri_s), (Lt_i, Ri_i))
+    if any(float(np.abs(np.imag(m)).max()) != 0.0
+           for m in (Lt_s, Lt_i, Ri_s, Ri_i)):
+        return None, None
+    if not all(_is_diag(np.abs(L.real) @ np.abs(R.real)) for L, R in pairs):
+        return None, None
+    K = np.stack([(L.real * R.real.T).T for L, R in pairs])  # (4, d, r)
+    if K.shape[1] != K.shape[2]:
+        return K, None
+    d = K.shape[1]
+    perms = [np.argmax(np.abs(k), axis=1) for k in K]
+    if not all((perm == perms[0]).all() for perm in perms[1:]):
+        return K, None
+    return K, np.stack([k[np.arange(d), perm] for k, perm in zip(K, perms)])
 
 
 def build_hk_params(Gamma_i, Gamma_t, Gamma_0, q0, p0, U, iGi0, device):
@@ -170,17 +224,34 @@ def hk_prefactor_mat(params: HKParams, state: TrajState):
     left factor is row-interleaved for this), separately for the real and
     imaginary planes of the factor; W @ right then contracts all four
     blocks with their right factors at once, and the four plane products
-    combine into the complex matrix."""
+    combine into the complex matrix. A diagonal-representation state is
+    expanded to its dense blocks first."""
     n = state.q.shape[0]
     r, d = params.rank, params.dim
-    W = torch.matmul(params.left, state.Z)                  # (n, 4r, 2d)
+    W = torch.matmul(params.left, state.dense_Z())          # (n, 4r, 2d)
     X = torch.matmul(W.view(n, 2, r, 4 * d), params.right)  # (n, 2, r, 2r)
     return torch.complex(X[:, 0, :, :r] - X[:, 1, :, r:],
                          X[:, 0, :, r:] + X[:, 1, :, :r])
 
 
 def hk_prefactor_det(params: HKParams, state: TrajState):
-    """C^2(t) for every trajectory, shape (n,) complex."""
+    """C^2(t) for every trajectory, shape (n,) complex.
+
+    When the width factors are diagonal (`factors_diag`) and the monodromy
+    is in the diagonal representation, the prefactor matrix is diagonal
+    and its determinant a log-space product over modes; otherwise the
+    batched determinant (the CUDA kernel K1 on the card)."""
+    if params.factors_diag and state.diag_monodromy:
+        mqq, mqp, mpq, mpp = state.Z
+        if params.diag_k is not None:
+            ka, kb, kc, ke = params.diag_k
+            diag_re = 0.5 * (mqq * ka + mpp * kc)
+            diag_im = 0.5 * (mpq * ke / hbar - hbar * (mqp * kb))
+        else:
+            Ka, Kb, Kc, Ke = params.diag_K
+            diag_re = 0.5 * (mqq @ Ka + mpp @ Kc)           # (n, r)
+            diag_im = 0.5 * (mpq @ Ke / hbar - hbar * (mqp @ Kb))
+        return linalg.logspace_mode_product(diag_re, diag_im)
     return linalg.batched_det(hk_prefactor_mat(params, state))
 
 
@@ -202,13 +273,19 @@ def _nac_factor(params: HKParams, potential, x, pvec, sign):
     n1 = -(hbar**2) * tau1 * inv_m[None, :]                 # (n, d)
     n2 = -(hbar**2) * 0.5 * torch.sum(tau2 * inv_m[None, :], dim=1)
     dq = params.q0[None, :] - x
-    core = n2 + _quad(dq, params.R, n1)
+    if params.R_diag is not None:
+        core = n2 + torch.sum(dq * params.R_diag * n1, dim=1)
+    else:
+        core = n2 + _quad(dq, params.R, n1)
     return torch.complex(core, (sign / hbar) * torch.sum(pvec * n1, dim=1))
 
 
 def _shifted_momentum(params: HKParams, p):
     """p0 + Gamma_0 [Gi+G0]^{-1} (p - p0)."""
-    return params.p0[None, :] + (p - params.p0[None, :]) @ params.shift
+    dp = p - params.p0[None, :]
+    if params.shift_diag is not None:
+        return params.p0[None, :] + dp * params.shift_diag
+    return params.p0[None, :] + dp @ params.shift
 
 
 def hk_batch_constants(params: HKParams, qi, pi, log_prob,
@@ -313,7 +390,8 @@ class HermanKlukPropagator:
         q0, p0 : (d,) center and momentum of the initial wavepacket
         Gamma_0 : (d, d) width matrix of the initial wavepacket
         potential : the PES; its Hessian operator decides the monodromy
-            representation (a `ConstHessian` gives the dense one)
+            representation (a `ConstHessian` gives the dense one, a
+            `DiagHessian` the diagonal one)
         ntraj : number of trajectories
         generator : torch.Generator on the propagator's device
         normals : optional (ntraj, 2 rank) standard normals used in place
@@ -334,11 +412,14 @@ class HermanKlukPropagator:
         qi, pi, log_prob = sample_initial_conditions(
             sampling, ntraj, generator=generator, normals=normals)
         hess = potential.local_expansion(qi[:1])[2]
-        if not isinstance(hess, ConstHessian):
+        if not isinstance(hess, (ConstHessian, DiagHessian)):
             raise NotImplementedError(
                 "the port propagates the dense monodromy of a constant-"
-                f"Hessian PES only; this potential gives {type(hess).__name__}")
-        self.state = TrajState.initial(qi, pi)
+                "Hessian PES and the diagonal monodromy of a separable PES; "
+                f"this potential gives {type(hess).__name__} (a per-"
+                "trajectory dense Hessian, as sGDML's, is not ported yet)")
+        self.state = TrajState.initial(
+            qi, pi, diag_monodromy=isinstance(hess, DiagHessian))
         self.bc = self._make_batch_constants(qi, pi, log_prob, potential)
         self.tracker = self._make_trackers(self.state)
         self.ntraj = ntraj
@@ -370,8 +451,10 @@ class HermanKlukPropagator:
     def _run(self, potential, dt, nt, chunk=None, progress=None):
         """The time loop: `nt` steps from the current state. Returns the
         device tensors (cauto, kic, energies) of length nt."""
-        hess = potential.local_expansion(self.state.q[:1])[2]
-        step_map = const_step_map(hess, potential.masses(), dt)
+        step_map = None
+        if not self.state.diag_monodromy:
+            hess = potential.local_expansion(self.state.q[:1])[2]
+            step_map = const_step_map(hess, potential.masses(), dt)
         cauto = torch.empty(nt, dtype=torch.complex128, device=self.device)
         kic = torch.empty(nt, dtype=torch.complex128, device=self.device)
         energies = torch.empty(nt, dtype=torch.float64, device=self.device)

@@ -10,8 +10,9 @@ widths ~ alpha^{-1/2}, beta^{-1/2} is carried out analytically, giving
 per-trajectory Gaussian parameter tensors (eqns. 50-84) and modified
 observables (eqns. 85-100).
 
-The port of `semiclassical_tpu.propagation.wm` on the dense path (any width
-matrix, rank-deficient included; float64/complex128):
+The port of `semiclassical_tpu.propagation.wm` (float64/complex128) on the
+dense path (any width matrix, rank-deficient included) and on the separable
+path (all widths diagonal at full rank, `scan_diag`):
 
 * everything that touches the 2d-dimensional phase space is built in the
   projected non-zero subspace of dimension 2r (U from the sampling);
@@ -27,11 +28,15 @@ matrix, rank-deficient included; float64/complex128):
   K2 call). No (n, d, d) tensor is formed per step;
 * the full-tensor `wm_derived` (eqns. 50-84, with the det + inverse kernel
   K3 on the A- and M-matrices) builds the sign trackers once per batch and
-  is the oracle of the fast path (`wm_observables`).
+  is the oracle of the fast path (`wm_observables`);
+* on the separable path the A- and M-matrices decouple into per-mode 2x2
+  complex systems (`WMDiagConsts`, `_wm_diag_core`), and the whole
+  time-dependent chain of a step — the 2x2 algebra, the mode-sum Gram
+  forms and the per-mode det planes — is one call of `ops.wm_diag`: the
+  fused CUDA kernel K5 on the card (`_wm_scan_derived_diag`).
 
-Not ported: the separable all-diagonal path (`scan_diag`: per-mode 2x2
-algebra and the K5 kernel), the comp32 residuals, coefficients,
-wavefunction, norm, micro-batching and the exact integrators.
+Not ported: the comp32 residuals, coefficients, wavefunction, norm,
+micro-batching and the exact integrators.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from semiclassical_tpu_torch import linalg
+from semiclassical_tpu_torch.ops import wm_diag as _wm_diag_ops
 from semiclassical_tpu_torch.propagation.hk import (BatchConstants, HKParams,
                                                     HermanKlukPropagator,
                                                     hk_batch_constants,
@@ -50,14 +56,68 @@ from semiclassical_tpu_torch.propagation.hk import (BatchConstants, HKParams,
 from semiclassical_tpu_torch.propagation.state import SignTracker, TrajState
 from semiclassical_tpu_torch.units import hbar
 
-__all__ = ["WMParams", "WMBatchConstants", "WMDerived", "WMScanDerived",
-           "WMTrackers", "WaltonManolopoulosPropagator", "wm_batch_constants",
-           "wm_derived", "wm_scan_derived", "wm_scan_observables",
-           "wm_autocorr_qp", "wm_observables"]
+__all__ = ["WMParams", "WMDiagConsts", "WMBatchConstants", "WMDerived",
+           "WMScanDerived", "WMTrackers", "WaltonManolopoulosPropagator",
+           "wm_batch_constants", "wm_derived", "wm_scan_derived",
+           "wm_scan_observables", "wm_autocorr_qp", "wm_observables",
+           "wm_diag_inputs"]
 
 
 def _c(x):
     return x.to(torch.complex128)
+
+
+@dataclass(frozen=True)
+class WMDiagConsts:
+    """Per-mode constants of the separable all-diagonal WM path.
+
+    Valid when Gamma_0, Gamma_i, Gamma_t are all diagonal and rank == dim:
+    every block of the balanced A-matrix (eqn. 50) is then diagonal, so A
+    decouples into d independent 2x2 complex systems per trajectory, and
+    the projections, solves and determinants of `wm_scan_derived` collapse
+    to elementwise (n, d) arithmetic and mode products. Every field is a
+    real (d,) vector; purely imaginary constants are kept as their
+    imaginary part (`*_im`).
+    """
+
+    u1: torch.Tensor        # Dbal q-column scale / sqrt(s) = 1/sqrt(g0 s)
+    u2: torch.Tensor        # Dbal p-column scale / sqrt(s) = sqrt(g0 / s)
+    gt: torch.Tensor        # Gamma_t diagonal
+    g0: torch.Tensor        # Gamma_0 diagonal
+    cb11: torch.Tensor      # A_const_b^T [0,0] = (2 alpha g0 + gi)/(g0 s)
+    cb12_im: torch.Tensor   # A_const_b^T [0,1] / i = -2/(hbar s)
+    cb22: torch.Tensor      # A_const_b^T [1,1] = 2 beta / s
+    fq1: torch.Tensor       # Fq q-column: g0 gi u1 / (g0 + gi)
+    fq2_im: torch.Tensor    # Fq p-column / i: -g0 u2 / (hbar (g0 + gi))
+    bq1: torch.Tensor       # BqUb q-column: gi u1
+    bq2_im: torch.Tensor    # BqUb p-column / i: -u2 / hbar
+    c2_11: torch.Tensor     # C2b [0,0] = gi^2 u1^2 / (g0 + gi)
+    c2_12_im: torch.Tensor  # C2b [0,1] / i = -gi u1 u2 / (hbar (g0 + gi))
+    c2_22: torch.Tensor     # C2b [1,1] = -u2^2 / (hbar^2 (g0 + gi))
+    m0: torch.Tensor        # M0 diagonal: g0 + gt
+    cqq: torch.Tensor       # Cqq diagonal: g0 gi / (g0 + gi)
+    ig0i: torch.Tensor      # [Gi + G0]^{-1} diagonal: 1 / (g0 + gi)
+
+
+def _diag_consts(Gamma_i, Gamma_t, Gamma_0, alpha, beta):
+    """The WMDiagConsts fields (host numpy) of diagonal widths."""
+    g0, gi, gt = (np.diag(G).astype(np.float64)
+                  for G in (Gamma_0, Gamma_i, Gamma_t))
+    s_ab = 2.0 * np.sqrt(alpha * beta)
+    sc = 1.0 / np.sqrt(s_ab)
+    u1 = 1.0 / np.sqrt(g0) * sc
+    u2 = np.sqrt(g0) * sc
+    gi0 = g0 + gi
+    vec = lambda x: np.broadcast_to(x, g0.shape)
+    return dict(
+        u1=u1, u2=u2, gt=gt, g0=g0,
+        cb11=(2.0 * alpha * g0 + gi) / (g0 * s_ab),
+        cb12_im=vec(-2.0 / (hbar * s_ab)), cb22=vec(2.0 * beta / s_ab),
+        fq1=g0 * gi * u1 / gi0, fq2_im=-g0 * u2 / (hbar * gi0),
+        bq1=gi * u1, bq2_im=-u2 / hbar,
+        c2_11=gi**2 * u1**2 / gi0, c2_12_im=-gi * u1 * u2 / (hbar * gi0),
+        c2_22=-u2**2 / (hbar**2 * gi0),
+        m0=g0 + gt, cqq=g0 * gi / gi0, ig0i=1.0 / gi0)
 
 
 @dataclass(frozen=True)
@@ -104,23 +164,31 @@ class WMParams:
     dim: int
     rank: int
     scan_diag: bool          # all widths diagonal at full rank: the
-                             # separable path, not ported
+                             # separable path (per-mode 2x2 algebra)
+    diag: WMDiagConsts | None = None     # per-mode constants (scan_diag)
+    diag_pack: torch.Tensor | None = None  # (17, d) K5's constant pack
 
     @staticmethod
     def from_arrays(hk, device, *, alpha, beta, auto_pref, m_scale,
-                    m_log_det, dim, rank, scan_diag, **arrays):
+                    m_log_det, dim, rank, scan_diag, diag=None, **arrays):
         """Pack host arrays (real -> float64, complex -> complex128) for
-        the device; `arrays` holds every tensor field."""
+        the device; `arrays` holds every tensor field, `diag` the
+        WMDiagConsts fields (scan_diag only)."""
         def t(x):
             x = np.asarray(x)
             dtype = np.complex128 if np.iscomplexobj(x) else np.float64
             return torch.tensor(x.astype(dtype), device=device)
 
+        dg = pack = None
+        if diag is not None:
+            dg = WMDiagConsts(**{k: t(v) for k, v in diag.items()})
+            pack = _wm_diag_ops.build_const_pack(dg, hk.p0, float(m_scale))
         return WMParams(hk=hk, **{k: t(v) for k, v in arrays.items()},
                         alpha=float(alpha), beta=float(beta),
                         auto_pref=float(auto_pref), m_scale=float(m_scale),
                         m_log_det=float(m_log_det), dim=int(dim),
-                        rank=int(rank), scan_diag=bool(scan_diag))
+                        rank=int(rank), scan_diag=bool(scan_diag), diag=dg,
+                        diag_pack=pack)
 
 
 def _build_wm_params(hk, Gamma_i, Gamma_t, Gamma_0, U, iGi0, alpha, beta,
@@ -195,7 +263,9 @@ def _build_wm_params(hk, Gamma_i, Gamma_t, Gamma_0, U, iGi0, alpha, beta,
         M0=U.T @ (Gamma_0 + Gamma_t) @ U,
         alpha=alpha, beta=beta, auto_pref=auto_pref,
         m_scale=2.0 * np.pi * np.exp(m_log_det / r), m_log_det=m_log_det,
-        dim=d, rank=r, scan_diag=scan_diag)
+        dim=d, rank=r, scan_diag=scan_diag,
+        diag=(_diag_consts(Gamma_i, Gamma_t, Gamma_0, alpha, beta)
+              if scan_diag else None))
 
 
 @dataclass(frozen=True)
@@ -286,6 +356,12 @@ def wm_batch_constants(params: WMParams, qi, pi, log_prob,
 # full-tensor derived quantities (trackers, oracle)
 # ---------------------------------------------------------------------------
 
+def _mono_proj(M, U):
+    """M @ U for a dense (n, d, d) monodromy block, or the row scale
+    diag(M) U for the (n, d) diagonal representation."""
+    return M @ U if M.dim() == 3 else M[:, :, None] * U[None]
+
+
 def wm_derived(params: WMParams, bc: WMBatchConstants,
                state: TrajState) -> WMDerived:
     """All per-trajectory WM tensors for the current state (eqns. 50-84)."""
@@ -294,8 +370,9 @@ def wm_derived(params: WMParams, bc: WMBatchConstants,
     p0 = params.hk.p0
 
     # project monodromy blocks once: (n, d, r)
-    MqzU = torch.cat([state.Mqq @ U, state.Mqp @ U], dim=2)  # (n, d, 2r)
-    MpqU, MppU = state.Mpq @ U, state.Mpp @ U
+    MqzU = torch.cat([_mono_proj(state.Mqq, U), _mono_proj(state.Mqp, U)],
+                     dim=2)                                 # (n, d, 2r)
+    MpqU, MppU = _mono_proj(state.Mpq, U), _mono_proj(state.Mpp, U)
     MpzU = torch.cat([MpqU, MppU], dim=2)                   # (n, d, 2r)
     MqqU, MqpU = MqzU.split(U.shape[1], dim=2)
 
@@ -373,26 +450,82 @@ def wm_derived(params: WMParams, bc: WMBatchConstants,
 # r-vector), and the projected vectors come from ONE per-step (n, 2r, r)
 # solve Y = At^{-1} P.
 
-def _not_ported_diag():
-    return NotImplementedError(
-        "the separable WM path (all width matrices diagonal at full rank: "
-        "per-mode 2x2 algebra, scan_diag=True) is not ported yet; the port "
-        "runs the dense WM path")
+def _wm_diag_core(params: WMParams, state: TrajState):
+    """Per-mode 2x2 A/M algebra of the separable path: returns (detA,
+    detM, y1, y2, iM) with every batched tensor (n, d); the plain chain of
+    `ops.wm_diag`, which also builds the trackers on the card."""
+    det_i, Mps, y1, y2, iM = _wm_diag_ops.wm_diag_core_plain(
+        *state.Z, params.diag_pack)
+    detA = linalg.logspace_mode_product(det_i.real, det_i.imag)
+    detM = linalg.logspace_mode_product(Mps.real, Mps.imag)
+    return detA, detM, y1, y2, iM
+
+
+def wm_diag_inputs(params: WMParams, bc: WMBatchConstants, state: TrajState,
+                   potential):
+    """The ten (n, d) input planes of K5 for the current state — Mqq, Mqp,
+    Mpq, Mpp, dQ = q0 - q(t), dp = p(t) - p0, dq = q0 - q(0), n1q, n1Q,
+    v0c = [Gi+G0]^{-1} (p0 - pi) — and n2Q (n,)."""
+    p0 = params.hk.p0[None, :]
+    dq, dQ = _displacements(params, bc, state)
+    n1Q, n2Q = _nac_terms(potential, state.q)
+    v0c = params.diag.ig0i[None, :] * (p0 - bc.base.pi)
+    return (*state.Z, dQ, state.p - p0, dq, bc.n1q, n1Q, v0c), n2Q
+
+
+def _wm_scan_derived_diag(params: WMParams, bc: WMBatchConstants,
+                          state: TrajState, potential) -> WMScanDerived:
+    """Per-mode 2x2 evaluation of `wm_scan_derived` (see WMDiagConsts):
+    the same scalar forms as the generic path to rounding (the projection
+    basis U is orthogonal and the balancing det-preserving). The whole
+    time-dependent chain is one call of `ops.wm_diag.wm_diag_derived` —
+    the fused kernel K5 on the card — over the (n, d) planes; the
+    log-space mode products and the constant bilinear pieces follow."""
+    dg = params.diag
+    inputs, n2Q = wm_diag_inputs(params, bc, state, potential)
+    _, _, _, _, dQ, _, dq, n1q, _, _ = inputs
+    scal, planes = _wm_diag_ops.wm_diag_derived(*inputs, params.diag_pack)
+    detA = linalg.logspace_mode_product(planes[0], planes[1])
+    detM = linalg.logspace_mode_product(planes[2], planes[3])
+    gram = {pair: torch.complex(scal[:, 2 * i], scal[:, 2 * i + 1])
+            for i, pair in enumerate(_wm_diag_ops.GRAM_PAIRS)}
+    g_DD, g_Dn, p0_dQ, p0_n = (_c(scal[:, _wm_diag_ops.scal_col(name)])
+                               for name in ("g_DD", "g_Dn", "p0_dQ", "p0_n"))
+
+    # constant-matrix bilinear pieces, diagonal weights
+    cqq = dg.cqq[None, :]
+    c_dd = _c(torch.sum(dq * cqq * dq, dim=1))
+    c_dn = _c(torch.sum(dq * cqq * n1q, dim=1))
+    piq_dq = _c(torch.sum(bc.PIq * dq, dim=1))
+    piq_n = _c(torch.sum(bc.PIq * n1q, dim=1))
+    nacqQ = gram[1, 3]
+    nacQ = (_c(n2Q) + (g_Dn - gram[2, 3]) - gram[0, 3]
+            - 1j * ((p0_n + gram[3, 4]) / hbar))
+    nacq = (_c(bc.n2q) + (c_dn - gram[0, 1]) - gram[1, 2]
+            + 1j * ((piq_n - gram[1, 4]) / hbar))
+    return WMScanDerived(
+        detA=detA, detM=detM,
+        gamma=bc.eps - (0.5 / hbar**2) * gram[4, 4],
+        rqq=c_dd - gram[0, 0], rQQ=g_DD - gram[2, 2], rqQ=gram[0, 2],
+        Pq_dq=piq_dq - gram[0, 4], PQ_dQ=p0_dQ + gram[2, 4],
+        kfac=nacqQ + nacQ * nacq)
 
 
 def wm_scan_derived(params: WMParams, bc: WMBatchConstants, state: TrajState,
                     potential) -> WMScanDerived:
     """The scalar forms of eqns. 79-100 for the current state, through the
-    projected, balanced A- and M-solves (no (n, d, d) tensors)."""
-    if params.scan_diag:
-        raise _not_ported_diag()
+    projected, balanced A- and M-solves (no (n, d, d) tensors); on the
+    separable path through the per-mode 2x2 chain."""
+    if params.scan_diag and state.diag_monodromy:
+        return _wm_scan_derived_diag(params, bc, state, potential)
     r = params.rank
     U = params.U
 
     # balanced projections: U1/U2 carry D and 1/sqrt(s)
-    X2 = state.Mqp @ params.U2                              # (n, d, r)
-    XL = torch.cat([state.Mqq @ params.U1, X2], dim=2)      # (n, d, 2r)
-    ZL = torch.cat([state.Mpq @ params.U1, state.Mpp @ params.U2], dim=2)
+    X2 = _mono_proj(state.Mqp, params.U2)                   # (n, d, r)
+    XL = torch.cat([_mono_proj(state.Mqq, params.U1), X2], dim=2)
+    ZL = torch.cat([_mono_proj(state.Mpq, params.U1),
+                    _mono_proj(state.Mpp, params.U2)], dim=2)  # (n, d, 2r)
     W = torch.einsum("ij,njb->nib", params.Gt, XL)          # (n, d, 2r)
 
     # Gram blocks of the TRANSPOSED balanced A-matrix:
@@ -567,24 +700,26 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
         self.beta = float(beta)
 
     def _make_params(self, Gamma_0, q0, p0, sampling):
-        params = _build_wm_params(
+        return _build_wm_params(
             super()._make_params(Gamma_0, q0, p0, sampling), self.Gamma_i,
             self.Gamma_t, Gamma_0, sampling.U, sampling.iGi0, self.alpha,
             self.beta, self.device)
-        if params.scan_diag:
-            raise _not_ported_diag()
-        return params
 
     def _make_batch_constants(self, qi, pi, log_prob, potential):
         return wm_batch_constants(self.params, qi, pi, log_prob, potential)
 
     def _make_trackers(self, state):
-        derived = wm_derived(self.params, self.bc, state)
+        if self.params.scan_diag and state.diag_monodromy:
+            # per-mode core only: the full-tensor wm_derived would form
+            # (n, d, d) complex tensors
+            detA, detM, _, _, _ = _wm_diag_core(self.params, state)
+        else:
+            derived = wm_derived(self.params, self.bc, state)
+            detA, detM = derived.detA, derived.detM
         return WMTrackers(
             prefactorC=SignTracker.fresh(hk_prefactor_det(self.params.hk,
                                                           state)),
-            detA=SignTracker.fresh(derived.detA),
-            detM=SignTracker.fresh(derived.detM))
+            detA=SignTracker.fresh(detA), detM=SignTracker.fresh(detM))
 
     def _observe(self, state, tracker, potential):
         prefactorC = tracker.prefactorC.update(

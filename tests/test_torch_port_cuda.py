@@ -12,7 +12,9 @@ K1 (`ops.det.batched_det`, csrc/det_lu.cu), K2 and K3
 held against their plain PyTorch versions on the same inputs: 1e-12
 relative in complex128 and 1e-5 in complex64 (rounding-order differences
 of the same elimination, FMA contraction included), on well-conditioned
-matrices I + 0.3 noise/sqrt(r).
+matrices I + 0.3 noise/sqrt(r). K5 (`ops.wm_diag.wm_diag_derived`,
+csrc/wm_diag.cu) likewise, 1e-12 in float64 and 1e-5 in float32 of each
+output's largest entry, on identity-plus-noise monodromy planes.
 """
 
 import numpy as np
@@ -128,3 +130,63 @@ def test_gj_wrappers_raise_on_card(card, make):
         with pytest.raises(ValueError):
             gj.batched_det_inv_gj(A)
     assert gj.LAUNCHES == before
+
+
+def _wm_diag_inputs(n, d, dtype, device, seed):
+    """K5's ten planes (identity-plus-noise monodromy, O(1) vectors) and the
+    constant pack of diagonal widths omega in [0.001, 0.014], cell 1e4."""
+    from semiclassical_tpu_torch.ops import wm_diag
+    from semiclassical_tpu_torch.propagation import wm
+
+    rng = np.random.default_rng(seed)
+    eye = np.array([1.0, 0.0, 0.0, 1.0])[:, None, None]
+    planes = list(eye + 0.3 * rng.standard_normal((4, n, d)))
+    planes += list(rng.standard_normal((6, n, d)))
+    G = np.diag(rng.uniform(0.001, 0.014, size=d))
+    consts = wm.WMDiagConsts(**{
+        k: torch.tensor(np.asarray(v, dtype=np.float64))
+        for k, v in wm._diag_consts(G, G, G, 1e4, 1e4).items()})
+    pack = wm_diag.build_const_pack(
+        consts, torch.from_numpy(rng.standard_normal(d)), 2.5e-3)
+    to = lambda x: torch.as_tensor(x).to(device=device, dtype=dtype)
+    return [to(p) for p in planes], to(pack)
+
+
+@pytest.mark.parametrize("dtype, n, d, rtol", [
+    (torch.float64, 1000, 60, 1e-12), (torch.float64, 257, 5, 1e-12),
+    (torch.float64, 33, 1, 1e-12), (torch.float64, 100, 256, 1e-12),
+    (torch.float64, 77, 33, 1e-12), (torch.float32, 300, 12, 1e-5),
+    (torch.float32, 1000, 60, 1e-5)])
+def test_wm_diag_kernel_matches_plain(card, dtype, n, d, rtol):
+    """K5 against its plain version: every scal column and det plane within
+    rtol of its own largest entry."""
+    from semiclassical_tpu_torch.ops import wm_diag
+
+    planes, pack = _wm_diag_inputs(n, d, dtype, card, seed=d)
+    before = wm_diag.LAUNCHES
+    scal, det_planes = wm_diag.wm_diag_derived(*planes, pack)
+    torch.cuda.synchronize()
+    assert wm_diag.LAUNCHES == before + 1
+    assert scal.shape == (n, wm_diag.N_SCAL) and det_planes.shape == (4, n, d)
+    scal_p, det_p = wm_diag.wm_diag_derived_plain(*planes, pack)
+    err = ((scal - scal_p).abs().amax(0) / scal_p.abs().amax(0)).max()
+    assert float(err) <= rtol
+    err = ((det_planes - det_p).abs().amax((1, 2))
+           / det_p.abs().amax((1, 2))).max()
+    assert float(err) <= rtol
+
+
+@pytest.mark.parametrize("case", ["d257", "float-pack", "non-contiguous"])
+def test_wm_diag_wrapper_raises_on_card(card, case):
+    from semiclassical_tpu_torch.ops import wm_diag
+
+    planes, pack = _wm_diag_inputs(8, 257 if case == "d257" else 6,
+                                   torch.float64, card, seed=1)
+    if case == "float-pack":
+        pack = pack.float()
+    if case == "non-contiguous":
+        planes[4] = planes[4].T.contiguous().T
+    before = wm_diag.LAUNCHES
+    with pytest.raises(ValueError):
+        wm_diag.wm_diag_derived(*planes, pack)
+    assert wm_diag.LAUNCHES == before

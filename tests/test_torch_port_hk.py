@@ -191,6 +191,8 @@ def test_convert_reproduces_port_objects(setup, monkeypatch, kind):
             for f in dataclasses.fields(a):
                 compare(getattr(a, f.name), getattr(b, f.name),
                         f"{name}.{f.name}")
+        elif a is None or b is None:
+            assert a is None and b is None, name
         elif isinstance(a, torch.Tensor):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
                                        atol=1e-12, err_msg=name)

@@ -114,6 +114,8 @@ def _compare(a, b, name):
         for f in dataclasses.fields(a):
             _compare(getattr(a, f.name), getattr(b, f.name),
                      f"{name}.{f.name}")
+    elif a is None or b is None:
+        assert a is None and b is None, name
     elif isinstance(a, torch.Tensor):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
                                    atol=1e-12, err_msg=name)
@@ -208,14 +210,26 @@ def test_propagate_parity(setup, monkeypatch):
 
 
 def test_scan_diag_raises_by_name(setup):
-    """Diagonal widths at full rank select the separable WM path, which is
-    not ported: the pack says so and the propagator and the fast path
-    raise."""
+    """Diagonal widths at full rank select the separable WM path (the pack
+    carries its per-mode constants); a PES whose Hessian is a dense matrix
+    per trajectory (sGDML's kind) is not ported, and the propagator raises
+    naming it."""
+    from semiclassical_tpu_torch.potentials import DenseHessian
+
+    class DenseHessianPES:
+        def masses(self):
+            return torch.ones(3, dtype=torch.float64)
+
+        def local_expansion(self, q):
+            n, d = q.shape
+            return (torch.zeros(n, dtype=q.dtype), torch.zeros_like(q),
+                    DenseHessian(torch.eye(d, dtype=q.dtype).expand(n, d, d)))
+
     G = np.diag([0.5, 1.0, 2.0])
     prop = WaltonManolopoulosPropagator(G, G, CELL, CELL, device="cpu")
-    with pytest.raises(NotImplementedError, match="separable WM path"):
-        prop.initial_conditions(np.zeros(3), np.zeros(3), G, None, ntraj=4)
-    port = _port_propagator(setup)
-    with pytest.raises(NotImplementedError, match="separable WM path"):
-        wm.wm_scan_derived(dataclasses.replace(port.params, scan_diag=True),
-                           port.bc, port.state, setup["pot"])
+    with pytest.raises(NotImplementedError, match="DenseHessian"):
+        prop.initial_conditions(np.zeros(3), np.zeros(3), G,
+                                DenseHessianPES(), ntraj=4)
+    assert prop.params.scan_diag and prop.params.diag is not None
+    assert prop.params.diag_pack.shape == (17, 3)
+    assert not _port_propagator(setup).params.scan_diag
