@@ -29,12 +29,19 @@ each, each with its wall time:
              (10000, 6, 6 | 12), (10000, 6, 6 | 6), (10000, 6, 6 | 5) in
              complex128 and complex64 and at the flagship leaf
              (2048, 60, 60 | 120) in complex128; times at (10000, 6, 6 | 12)
-             complex128;
+             complex128; checks and times at coumarin's WM leaves (2048, 45,
+             45 | 90), (| 45) and (| 5) in complex128;
 4. K3      — the Gauss-Jordan det + inverse kernel the same way against
              torch.linalg.det / inv at (10000, 12, 12) and (10000, 6, 6) in
              complex128 and complex64 and at (2048, 60, 60) in complex128;
-             times at (10000, 12, 12) complex128;
-4b. K5     — the fused separable WM kernel against its plain version on
+             times at (10000, 12, 12) complex128; checks and times at
+             coumarin's leaf (2048, 45, 45) in complex128;
+4b. K4     — the block-per-matrix determinant kernel against its plain
+             version (K1's) and torch.linalg.det at the sGDML prefactor's
+             shape (2048, 45, 45) and at (2048, 64, 64) in complex128 and
+             (2048, 45, 45) in complex64; times of K4, K1, the plain version
+             and torch.linalg.det at (2048, 45, 45) complex128, in turns;
+4c. K5     — the fused separable WM kernel against its plain version on
              the 60-mode AS example's WM state after 10 steps, at
              (98304, 60), (8192, 60) and (1000, 5) in float64 and (98304,
              60) in float32, every output row within 1e-12 (float64) / 1e-5
@@ -63,8 +70,29 @@ each, each with its wall time:
              same gates, the rate at its maximum within 4.1e-4 of the HK AS
              run's (10x the JAX package's WM - HK gap at the same draws,
              scripts/as_wm_hk_gap.py), and K5 launched on every step;
-9. the kernels' JSON line, then the result line
+9. coumarin reference — the committed JAX f64 CPU curves
+             (tests/data/coumarin_jax_reference.npz, written by
+             scripts/coumarin_jax_reference.py) against the port on cuda
+             from the file's standard normals and energy origin, with the
+             example's potential at an f64 Hessian: HK and WM with
+             hessian_eval "taylor", taylor_every 8, scan segments of 500
+             over 2000 steps, and HK with hessian_eval "stage" over 200
+             steps; every step of C(t) and k~ic(t) within 1e-6 of the file
+             curve's largest modulus;
+10. HK coumarin — examples/coumarin_gdml/semi.json at its own size (2048
+             trajectories x 2000 steps, float32 Hessian, taylor_every 8)
+             through `dynamics` + `rates` on cuda: finite correlations,
+             |C(0) - 1| < 1e-3, 2048 trajectories, and K4 launched on every
+             step;
+11. WM coumarin — semi_wm.json (cell width 1e4) at the same seed and size:
+             the same gates, the rate at the HK run's maximum within 10x the
+             JAX package's WM - HK gap at the same draws (the reference
+             file's `wm_hk_gap`), K4 launched on every step, K2 three times
+             per step and K3 twice per batch;
+12. the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+TF32 stays off: the script fails if float32 matmuls would run in TF32.
 """
 
 import json
@@ -79,6 +107,13 @@ EXAMPLE = ROOT / "examples" / "methylium_AH" / "semi.json"
 REFERENCE_RATE = ROOT / "tests" / "data" / "methylium_reference_rate_10k.npz"
 AS_EXAMPLE = ROOT / "examples" / "as_model"
 AS_REFERENCE = AS_EXAMPLE / "correlations_100k_reference.npz"
+COUMARIN = ROOT / "examples" / "coumarin_gdml"
+COUMARIN_REFERENCE = ROOT / "tests" / "data" / "coumarin_jax_reference.npz"
+# card f64 against the JAX package's CPU f64: only the order of sums
+# differs (the port on the CPU sits 3.9e-7 from the file over 2000 steps)
+REFERENCE_GATE = 1e-6
+# WM - HK at the same draws, in multiples of the JAX package's own gap
+WM_HK_GAP_FACTOR = 10.0
 RATE_GATE = 0.03
 WM_HK_GATE = 1e-3
 WM_HK_GATE_AS = 4.1e-4
@@ -106,6 +141,15 @@ K2_CASES = [
     (10000, 6, 5, "complex64", 1e-5, 1e-4),
     (2048, 60, 120, "complex128", 1e-12, 1e-10),
 ]
+# (n, r, dtype name, limit kernel-vs-plain, limit vs the c128 oracle)
+K4_CASES = [
+    (2048, 45, "complex128", 1e-12, 1e-10),
+    (2048, 64, "complex128", 1e-12, 1e-10),
+    (2048, 45, "complex64", 1e-5, 1e-4),
+]
+# coumarin's WM leaves (2r = 90 split at m = 45): K2 (n, m, k), K3 (n, m)
+K2_LEAVES = [(2048, 45, 90), (2048, 45, 45), (2048, 45, 5)]
+K3_LEAVES = [(2048, 45)]
 # (n, d, dtype name, limit kernel-vs-plain per output row)
 K5_CASES = [
     (98304, 60, "float64", 1e-12),
@@ -179,19 +223,22 @@ def median_ms(fn, *args, loops=10, calls=20):
     return samples
 
 
-def in_turns(kernel, plain, library, *args):
-    """Median per-call ms of the kernel, the plain version and the library
-    call (None: not timed), timed in turns: plain, library, kernel, kernel,
+def in_turns(kernel, plain, library, *args, others=None):
+    """Median per-call ms of the kernel, the plain version, the library
+    call (None: not timed) and any `others` (name: callable), timed in
+    turns: plain, library, others, kernel, kernel, others reversed,
     library, plain."""
     import numpy as np
-    fns = {"plain": plain, "library": library, "kernel": kernel}
+    fns = {"plain": plain, "library": library, **(others or {}),
+           "kernel": kernel}
     t = {name: [] for name in fns}
-    for name in ("plain", "library", "kernel", "kernel", "library", "plain"):
+    for name in list(fns) + list(reversed(fns)):
         if fns[name] is not None:
             t[name] += median_ms(fns[name], *args)
     med = {name: float(np.median(v)) if v else None for name, v in t.items()}
     return {"ms": med["kernel"], "plain_ms": med["plain"],
-            "library_ms": med["library"], "windows": len(t["kernel"])}
+            "library_ms": med["library"], "windows": len(t["kernel"]),
+            **{f"{name}_ms": med[name] for name in (others or {})}}
 
 
 def bound(nbytes, flops):
@@ -212,43 +259,120 @@ def timing_line(label, shape, timed, bound_ms, bound_by, library):
             f"{100 * bound_ms / timed['ms']:.1f}% of it reached")
 
 
+def lu_flops(n, r):
+    """The unpivoted LU determinant's flops: per pivot a reciprocal, r-k-1
+    column scalings and the (r-k-1)^2 trailing update, complex (6 and 8
+    flops), and the pivot product."""
+    return n * sum(8 * (r - k - 1) ** 2 + 6 * (r - k - 1) + 12
+                   for k in range(r))
+
+
+def check_cases(label, cases, run, oracle, main_case):
+    """Kernel vs plain vs the complex128 oracle on every case; returns the
+    largest absolute kernel-plain difference at `main_case`. `run(case,
+    dtype)` returns (kernel outputs, plain outputs, oracle inputs), each a
+    tuple; `oracle(*inputs)` the complex128 oracle's outputs."""
+    import torch
+
+    main_abs_err = None
+    for case in cases:
+        *shape, dname, lim_kp, lim_oracle = case
+        got, plain, inputs = run(shape, getattr(torch, dname))
+        ref = oracle(*(x.to(torch.complex128) for x in inputs))
+        torch.cuda.synchronize()
+        err = lambda xs, ys: max(
+            max_rel(x, y) if x.dim() == 1 else max_rel_mat(x, y)
+            for x, y in zip(xs, ys))
+        e_kp, e_ko, e_po = err(got, plain), err(got, ref), err(plain, ref)
+        if tuple(shape) + (dname,) == main_case:
+            main_abs_err = max(float((x - y).abs().max())
+                               for x, y in zip(got, plain))
+        print(f"{label} {tuple(shape)} {dname}: max rel err kernel-plain "
+              f"{e_kp:.3e} (limit {lim_kp:g}), kernel-oracle {e_ko:.3e}, "
+              f"plain-oracle {e_po:.3e} (limit {lim_oracle:g})", flush=True)
+        check(all(bool(torch.isfinite(x).all()) for x in got),
+              f"{label} non-finite at {shape} {dname}")
+        check(e_kp <= lim_kp, f"{label} kernel vs plain {e_kp} > {lim_kp}")
+        check(e_ko <= lim_oracle and e_po <= lim_oracle,
+              f"{label} vs oracle {e_ko}, {e_po} > {lim_oracle}")
+    return main_abs_err
+
+
 def k1_phase(det):
     import torch
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
-    main_abs_err = None
-    for n, r, dname, lim_kp, lim_oracle in K1_CASES:
-        dtype = getattr(torch, dname)
-        A = well_conditioned(n, r, dtype, g)
-        k = det.batched_det(A)
-        p = det.batched_det_lu_plain(A)
-        oracle = torch.linalg.det(A.to(torch.complex128))
-        torch.cuda.synchronize()
-        e_kp, e_ko, e_po = max_rel(k, p), max_rel(k, oracle), max_rel(p, oracle)
-        if (n, r, dname) == (10000, 6, "complex128"):
-            main_abs_err = float((k - p).abs().max())
-        print(f"K1 ({n}, {r}, {r}) {dname}: max rel err kernel-plain {e_kp:.3e} "
-              f"(limit {lim_kp:g}), kernel-oracle {e_ko:.3e}, plain-oracle "
-              f"{e_po:.3e} (limit {lim_oracle:g})", flush=True)
-        check(bool(torch.isfinite(k).all()), f"K1 non-finite at r={r} {dname}")
-        check(e_kp <= lim_kp, f"K1 kernel vs plain {e_kp} > {lim_kp}")
-        check(e_ko <= lim_oracle and e_po <= lim_oracle,
-              f"K1 vs oracle {e_ko}, {e_po} > {lim_oracle}")
 
+    def run(shape, dtype):
+        A = well_conditioned(*shape, dtype, g)
+        return (det.batched_det(A),), (det.batched_det_lu_plain(A),), (A,)
+
+    main_abs_err = check_cases("K1", K1_CASES, run,
+                               lambda A: (torch.linalg.det(A),),
+                               (10000, 6, "complex128"))
     n, r = 10000, 6
     A = well_conditioned(n, r, torch.complex128, g)
     timed = in_turns(det.batched_det, det.batched_det_lu_plain,
                      torch.linalg.det, A)
-    # LU: per pivot a reciprocal, r-k-1 column scalings and the (r-k-1)^2
-    # trailing update, complex (6 and 8 flops)
-    flops = n * sum(8 * (r - k - 1) ** 2 + 6 * (r - k - 1) + 12
-                    for k in range(r))
-    b = bound(n * (r * r + 1) * 16, flops)
+    b = bound(n * (r * r + 1) * 16, lu_flops(n, r))
     print(timing_line("K1", "(10000, 6, 6) complex128", timed, *b,
                       "torch.linalg.det"), flush=True)
     return dict(timed, max_abs_err=main_abs_err, bound_ms=b[0],
                 bound_by=b[1])
+
+
+def k4_phase(det, det_block):
+    """K4 against its plain version and torch.linalg.det; K4, K1, the plain
+    version and torch.linalg.det timed in turns at coumarin's prefactor
+    shape (2048, 45, 45) complex128."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 4)
+
+    def run(shape, dtype):
+        A = well_conditioned(*shape, dtype, g)
+        return ((det_block.batched_det_block(A),),
+                (det_block.batched_det_lu_plain(A),), (A,))
+
+    main_abs_err = check_cases("K4", K4_CASES, run,
+                               lambda A: (torch.linalg.det(A),),
+                               (2048, 45, "complex128"))
+    n, r = 2048, 45
+    A = well_conditioned(n, r, torch.complex128, g)
+    timed = in_turns(det_block.batched_det_block,
+                     det_block.batched_det_lu_plain, torch.linalg.det, A,
+                     others={"K1": det.batched_det})
+    b = bound(n * (r * r + 1) * 16, lu_flops(n, r))
+    print(timing_line("K4", "(2048, 45, 45) complex128", timed, *b,
+                      "torch.linalg.det")
+          + f"; K1 at the same shape {timed['K1_ms']:.4f} ms", flush=True)
+    return dict(timed, max_abs_err=main_abs_err, bound_ms=b[0],
+                bound_by=b[1])
+
+
+def gj_solve_flops(n, m, k):
+    """Gauss-Jordan on [A | B]: per pivot a reciprocal, the live columns of
+    the pivot row scaled and those of the m - 1 other rows updated."""
+    return n * sum(6 * (m + k - kp - 1) + 8 * (m - 1) * (m + k - kp - 1)
+                   + 12 for kp in range(m))
+
+
+def gj_inv_flops(n, m):
+    """In-place Gauss-Jordan: per pivot the row scaled, m - 1 rows
+    updated."""
+    return n * sum(6 * m + 8 * (m - 1) * m + 12 for _ in range(m))
+
+
+def solve_library(A, B):
+    import torch
+    return torch.linalg.solve(A, B), torch.linalg.det(A)
+
+
+def inv_library(A):
+    import torch
+    return torch.linalg.inv_ex(A), torch.linalg.det(A)
 
 
 def k2_phase(gj):
@@ -256,47 +380,30 @@ def k2_phase(gj):
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 2)
-    main_abs_err = None
-    for n, m, k, dname, lim_kp, lim_oracle in K2_CASES:
-        dtype = getattr(torch, dname)
+
+    def run(shape, dtype):
+        n, m, k = shape
         A = well_conditioned(n, m, dtype, g)
         B = gaussian((n, m, k), dtype, g)
-        det_k, sol_k = gj.batched_det_solve_gj(A, B)
-        det_p, sol_p = gj.batched_det_solve_gj_plain(A, B)
-        A128, B128 = A.to(torch.complex128), B.to(torch.complex128)
-        det_o = torch.linalg.det(A128)
-        sol_o = torch.linalg.solve(A128, B128)
-        torch.cuda.synchronize()
-        e_kp = max(max_rel(det_k, det_p), max_rel_mat(sol_k, sol_p))
-        e_ko = max(max_rel(det_k, det_o), max_rel_mat(sol_k, sol_o))
-        e_po = max(max_rel(det_p, det_o), max_rel_mat(sol_p, sol_o))
-        if (n, m, k, dname) == (10000, 6, 12, "complex128"):
-            main_abs_err = max(float((det_k - det_p).abs().max()),
-                               float((sol_k - sol_p).abs().max()))
-        print(f"K2 ({n}, {m}, {m} | {k}) {dname}: max rel err kernel-plain "
-              f"{e_kp:.3e} (limit {lim_kp:g}), kernel-oracle {e_ko:.3e}, "
-              f"plain-oracle {e_po:.3e} (limit {lim_oracle:g})", flush=True)
-        check(bool(torch.isfinite(det_k).all() and torch.isfinite(sol_k).all()),
-              f"K2 non-finite at m={m} k={k} {dname}")
-        check(e_kp <= lim_kp, f"K2 kernel vs plain {e_kp} > {lim_kp}")
-        check(e_ko <= lim_oracle and e_po <= lim_oracle,
-              f"K2 vs oracle {e_ko}, {e_po} > {lim_oracle}")
+        return (gj.batched_det_solve_gj(A, B),
+                gj.batched_det_solve_gj_plain(A, B), (A, B))
 
-    n, m, k = 10000, 6, 12
-    A = well_conditioned(n, m, torch.complex128, g)
-    B = gaussian((n, m, k), torch.complex128, g)
-    timed = in_turns(gj.batched_det_solve_gj, gj.batched_det_solve_gj_plain,
-                     lambda A, B: (torch.linalg.solve(A, B),
-                                   torch.linalg.det(A)), A, B)
-    # Gauss-Jordan on [A | B]: per pivot a reciprocal, the live columns of
-    # the pivot row scaled and those of the m - 1 other rows updated
-    flops = n * sum(6 * (m + k - kp - 1) + 8 * (m - 1) * (m + k - kp - 1)
-                    + 12 for kp in range(m))
-    b = bound(n * (m * m + 2 * m * k + 1) * 16, flops)
-    print(timing_line("K2", "(10000, 6, 6 | 12) complex128", timed, *b,
-                      "torch.linalg.solve + det"), flush=True)
-    return dict(timed, max_abs_err=main_abs_err, bound_ms=b[0],
-                bound_by=b[1])
+    oracle = lambda A, B: (torch.linalg.det(A), torch.linalg.solve(A, B))
+    main_abs_err = check_cases("K2", K2_CASES, run, oracle,
+                               (10000, 6, 12, "complex128"))
+    check_cases("K2", [(*leaf, "complex128", 1e-12, 1e-10)
+                       for leaf in K2_LEAVES], run, oracle, None)
+    results = {}
+    for n, m, k in [(10000, 6, 12)] + K2_LEAVES:
+        A = well_conditioned(n, m, torch.complex128, g)
+        B = gaussian((n, m, k), torch.complex128, g)
+        timed = in_turns(gj.batched_det_solve_gj,
+                         gj.batched_det_solve_gj_plain, solve_library, A, B)
+        b = bound(n * (m * m + 2 * m * k + 1) * 16, gj_solve_flops(n, m, k))
+        print(timing_line("K2", f"({n}, {m}, {m} | {k}) complex128", timed,
+                          *b, "torch.linalg.solve + det"), flush=True)
+        results[(n, m, k)] = dict(timed, bound_ms=b[0], bound_by=b[1])
+    return dict(results[(10000, 6, 12)], max_abs_err=main_abs_err)
 
 
 def k3_phase(gj):
@@ -304,47 +411,33 @@ def k3_phase(gj):
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 3)
-    main_abs_err = None
-    for n, m, dname, lim_kp, lim_oracle in K3_CASES:
-        dtype = getattr(torch, dname)
-        A = well_conditioned(n, m, dtype, g)
-        det_k, inv_k = gj.batched_det_inv_gj(A)
-        det_p, inv_p = gj.batched_det_inv_gj_plain(A)
-        A128 = A.to(torch.complex128)
-        det_o, inv_o = torch.linalg.det(A128), torch.linalg.inv(A128)
-        torch.cuda.synchronize()
-        e_kp = max(max_rel(det_k, det_p), max_rel_mat(inv_k, inv_p))
-        e_ko = max(max_rel(det_k, det_o), max_rel_mat(inv_k, inv_o))
-        e_po = max(max_rel(det_p, det_o), max_rel_mat(inv_p, inv_o))
-        if (n, m, dname) == (10000, 12, "complex128"):
-            main_abs_err = max(float((det_k - det_p).abs().max()),
-                               float((inv_k - inv_p).abs().max()))
-        print(f"K3 ({n}, {m}, {m}) {dname}: max rel err kernel-plain "
-              f"{e_kp:.3e} (limit {lim_kp:g}), kernel-oracle {e_ko:.3e}, "
-              f"plain-oracle {e_po:.3e} (limit {lim_oracle:g})", flush=True)
-        check(bool(torch.isfinite(det_k).all() and torch.isfinite(inv_k).all()),
-              f"K3 non-finite at m={m} {dname}")
-        check(e_kp <= lim_kp, f"K3 kernel vs plain {e_kp} > {lim_kp}")
-        check(e_ko <= lim_oracle and e_po <= lim_oracle,
-              f"K3 vs oracle {e_ko}, {e_po} > {lim_oracle}")
 
-    n, m = 10000, 12
-    A = well_conditioned(n, m, torch.complex128, g)
-    timed = in_turns(gj.batched_det_inv_gj, gj.batched_det_inv_gj_plain,
-                     lambda A: (torch.linalg.inv_ex(A), torch.linalg.det(A)),
-                     A)
-    # in-place Gauss-Jordan: per pivot the row scaled, m - 1 rows updated
-    flops = n * sum(6 * m + 8 * (m - 1) * m + 12 for _ in range(m))
-    b = bound(n * (2 * m * m + 1) * 16, flops)
-    print(timing_line("K3", "(10000, 12, 12) complex128", timed, *b,
-                      "torch.linalg.inv_ex + det"), flush=True)
-    return dict(timed, max_abs_err=main_abs_err, bound_ms=b[0],
-                bound_by=b[1])
+    def run(shape, dtype):
+        A = well_conditioned(*shape, dtype, g)
+        return (gj.batched_det_inv_gj(A), gj.batched_det_inv_gj_plain(A),
+                (A,))
+
+    oracle = lambda A: (torch.linalg.det(A), torch.linalg.inv(A))
+    main_abs_err = check_cases("K3", K3_CASES, run, oracle,
+                               (10000, 12, "complex128"))
+    check_cases("K3", [(*leaf, "complex128", 1e-12, 1e-10)
+                       for leaf in K3_LEAVES], run, oracle, None)
+    results = {}
+    for n, m in [(10000, 12)] + K3_LEAVES:
+        A = well_conditioned(n, m, torch.complex128, g)
+        timed = in_turns(gj.batched_det_inv_gj, gj.batched_det_inv_gj_plain,
+                         inv_library, A)
+        b = bound(n * (2 * m * m + 1) * 16, gj_inv_flops(n, m))
+        print(timing_line("K3", f"({n}, {m}, {m}) complex128", timed, *b,
+                          "torch.linalg.inv_ex + det"), flush=True)
+        results[(n, m)] = dict(timed, bound_ms=b[0], bound_by=b[1])
+    return dict(results[(10000, 12)], max_abs_err=main_abs_err)
 
 
 def reset_counts(ops):
     """Set every kernel's launch count to 0."""
     ops["det"].LAUNCHES = 0
+    ops["det_block"].LAUNCHES = 0
     for name in ops["gj"].LAUNCHES:
         ops["gj"].LAUNCHES[name] = 0
     ops["wm_diag"].LAUNCHES = 0
@@ -352,7 +445,8 @@ def reset_counts(ops):
 
 def read_counts(ops):
     return {"K1": ops["det"].LAUNCHES, "K2": ops["gj"].LAUNCHES["det_solve"],
-            "K3": ops["gj"].LAUNCHES["det_inv"], "K5": ops["wm_diag"].LAUNCHES}
+            "K3": ops["gj"].LAUNCHES["det_inv"],
+            "K4": ops["det_block"].LAUNCHES, "K5": ops["wm_diag"].LAUNCHES}
 
 
 def run_path(cli, ops, config, dynamics_keys, tmp):
@@ -573,6 +667,112 @@ def k5_phase(cli, wm_diag, model):
                 bound_by=b[1])
 
 
+def coumarin_task(file):
+    """examples/coumarin_gdml/`file` with its paths made absolute."""
+    with open(COUMARIN / file) as f:
+        config = json.load(f)
+    for task in config["semi"]:
+        if task["task"] == "dynamics":
+            for key in ("ground", "excited", "coupling"):
+                task["potential"][key] = str(
+                    (COUMARIN / task["potential"][key]).resolve())
+    return config
+
+
+def reference_phase(cli):
+    """The committed JAX f64 CPU curves of the coumarin example against the
+    port on cuda, from the file's standard normals and energy origin, with
+    the example's potential at an f64 Hessian."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.propagation import (
+        HermanKlukPropagator, WaltonManolopoulosPropagator)
+
+    ref = np.load(COUMARIN_REFERENCE)
+    task = next(t for t in coumarin_task("semi.json")["semi"]
+                if t["task"] == "dynamics")
+    task["potential"].pop("hess_dtype")
+    check(task["potential"]["taylor_every"] == int(ref["taylor_every"]),
+          "the reference file's taylor_every is not the example's")
+    potential, q0, p0, G, zpe, _ = cli._build_potential(task, "cuda")
+    print(f"coumarin reference: energy origin on the card "
+          f"{potential.origin:.10f} Ha, the file's {float(ref['origin']):.10f}"
+          f" Ha (the file's is used)", flush=True)
+    potential = dataclasses.replace(potential, origin=float(ref["origin"]))
+    dt = task["time_step_fs"] / units.autime_to_fs
+    normals = torch.as_tensor(ref["normals"], device="cuda")
+    stage = dataclasses.replace(potential, hessian_eval="stage",
+                                taylor_every=1)
+    cell = float(ref["cell_width"])
+    runs = [("HK", HermanKlukPropagator(G, G, device="cuda"), potential,
+             int(ref["steps"]), "hk"),
+            ("WM", WaltonManolopoulosPropagator(G, G, cell, cell,
+                                                device="cuda"),
+             potential, int(ref["steps"]), "wm"),
+            ("HK stage", HermanKlukPropagator(G, G, device="cuda"), stage,
+             int(ref["stage_steps"]), "stage")]
+    for label, prop, pot, nt, tag in runs:
+        prop.initial_conditions(q0, p0, G, pot, ntraj=int(ref["ntraj"]),
+                                normals=normals)
+        t0 = time.perf_counter()
+        cauto, kic = prop.propagate(pot, dt, nt, energy0_es=zpe,
+                                    chunk=int(ref["chunk"]))
+        wall = time.perf_counter() - t0
+        errs = []
+        for got, name in ((cauto, f"cauto_{tag}"), (kic, f"kic_{tag}")):
+            want = ref[name]
+            check(got.shape == want.shape, f"{label} reference {name} shape")
+            errs.append(float(np.abs(got - want).max() / np.abs(want).max()))
+        print(f"coumarin reference {label} {prop.ntraj} x {nt} steps "
+              f"({wall:.1f} s): max |C - C_ref| / max |C_ref| {errs[0]:.3e},"
+              f" k~ic {errs[1]:.3e} (gate {REFERENCE_GATE:g})", flush=True)
+        check(max(errs) <= REFERENCE_GATE,
+              f"coumarin reference {label}: {errs} > {REFERENCE_GATE}")
+        del prop
+    torch.cuda.empty_cache()
+    return float(ref["wm_hk_gap"])
+
+
+def coumarin_run(cli, ops, smi, label, file):
+    """examples/coumarin_gdml/`file` at its own size through the port's CLI
+    on cuda. Returns (the rates npz as a dict, the kernels' launches during
+    the dynamics command)."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, launches, task, wall = run_path(cli, ops, coumarin_task(file),
+                                              {}, tmp)
+    nsteps, ntraj = task["num_steps"], task["num_trajectories"]
+    nrep = max(ntraj // task["batch_size"], 1)
+    print(f"{label} coumarin {ntraj} x {nsteps} steps ({nrep} batch): "
+          f"dynamics command {wall:.3f} s wall, {ntraj * nsteps / wall:.0f} "
+          f"traj-steps/s [{smi}]; launches {json.dumps(launches)}",
+          flush=True)
+    cauto, kic = data["autocorrelation"], data["ic_correlation"]
+    check(cauto.shape == (nsteps,) and kic.shape == (nsteps,),
+          f"{label} coumarin correlation shapes {cauto.shape}, {kic.shape}")
+    check(bool(np.isfinite(cauto).all() and np.isfinite(kic).all()
+               and np.isfinite(data["ic_rate"]).all()),
+          f"{label} coumarin non-finite correlations or rate")
+    c0_dev = abs(cauto[0] - 1.0)
+    check(c0_dev < 1e-3, f"{label} coumarin |C(0) - 1| = {c0_dev}")
+    check(int(data["trajectories"]) == ntraj,
+          f"{label} coumarin accumulated {data['trajectories']} trajectories")
+    check(launches["K4"] >= nsteps * nrep,
+          f"{label} coumarin: K4 launched {launches['K4']} times for "
+          f"{nsteps} x {nrep} steps")
+    imax = int(np.argmax(data["ic_rate"]))
+    print(f"{label} coumarin: |C(0) - 1| = {c0_dev:.2e}, rate at max "
+          f"{data['ic_rate'][imax]:.6e} at {data['energies'][imax]:.6f}",
+          flush=True)
+    data.update(imax=imax, nsteps=nsteps, nrep=nrep)
+    return data, launches
+
+
 def main():
     import torch
 
@@ -581,9 +781,9 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from semiclassical_tpu_torch import cli
-    from semiclassical_tpu_torch.ops import _build, det, gj, wm_diag
+    from semiclassical_tpu_torch.ops import _build, det, det_block, gj, wm_diag
 
-    ops = {"det": det, "gj": gj, "wm_diag": wm_diag}
+    ops = {"det": det, "det_block": det_block, "gj": gj, "wm_diag": wm_diag}
     t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -591,6 +791,13 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"device: {smi}", flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls would run in TF32")
+    print(f"TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+          f"{torch.backends.cudnn.allow_tf32} (no convolution runs), "
+          f"float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()}", flush=True)
     t0 = time.perf_counter()
     _build.load()
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.3f} s "
@@ -611,6 +818,7 @@ def main():
         k1 = phase("K1", k1_phase, det)
         k2 = phase("K2", k2_phase, gj)
         k3 = phase("K3", k3_phase, gj)
+        k4 = phase("K4", k4_phase, det, det_block)
         k5 = phase("K5", k5_phase, cli, wm_diag, model)
         hk, hk_launches = phase("HK methylium", methylium_run, cli, ops, smi,
                                 "HK")
@@ -624,6 +832,19 @@ def main():
     check(wm_as_launches["K5"] >= steps,
           f"WM AS: K5 launched {wm_as_launches['K5']} times for {steps} "
           "steps")
+    gap = phase("coumarin reference", reference_phase, cli)
+    hk_c, hk_c_launches = phase("HK coumarin", coumarin_run, cli, ops, smi,
+                                "HK", "semi.json")
+    wm_c, wm_c_launches = phase("WM coumarin", coumarin_run, cli, ops, smi,
+                                "WM", "semi_wm.json")
+    wm_vs_hk("coumarin", wm_c, hk_c, WM_HK_GAP_FACTOR * gap)
+    steps = wm_c["nsteps"] * wm_c["nrep"]
+    check(wm_c_launches["K2"] >= 3 * steps,
+          f"WM coumarin: K2 launched {wm_c_launches['K2']} times for "
+          f"{steps} steps")
+    check(wm_c_launches["K3"] >= 2 * wm_c["nrep"],
+          f"WM coumarin: K3 launched {wm_c_launches['K3']} times for "
+          f"{wm_c['nrep']} batches")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -643,6 +864,8 @@ def main():
               wm_launches["K2"], k2),
         entry("batched_det_inv_gj", "gj_det.cu", "det_kernel.py:532",
               wm_launches["K3"], k3),
+        entry("batched_det_lu_block", "det_lu_block.cu", "det_kernel.py:113",
+              hk_c_launches["K4"], k4),
         entry("wm_diag_derived", "wm_diag.cu", "wm_kernel.py:273",
               wm_as_launches["K5"], k5),
     ]}))

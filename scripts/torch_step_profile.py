@@ -1,12 +1,19 @@
 #!/usr/bin/env python
 # coding: utf-8
 """Per-step time, kernel launches and device idle share of the port's HK
-and WM steps on the 60-mode anharmonic AS example, on one NVIDIA GPU.
+and WM steps on one NVIDIA GPU, on one of two examples:
 
-Builds examples/as_model's model (make_model.py: rng seed 42, 60 modes,
-chi 0.02) and the task's potential through the port's CLI, samples one
-batch (default 98,304 trajectories, the example's own) with HK and with
-WM (cell width 1e4), and for each:
+* `--example as` (default): the 60-mode anharmonic AS example
+  (examples/as_model: make_model.py's model, rng seed 42, 60 modes, chi
+  0.02), 98,304 trajectories by default, the example's own;
+* `--example coumarin`: the sGDML example (examples/coumarin_gdml/
+  semi.json: float32 Hessian, hessian_eval "taylor", taylor_every 8), 2048
+  trajectories by default, the example's own; the window restarts at the
+  head of every timed or traced run, so make `--window` and `--steps`
+  multiples of 8.
+
+It builds the task's potential through the port's CLI, samples one batch
+with HK and with WM (cell width 1e4), and for each:
 
 * times `--window` steps on the host clock around a synchronised run
   (twice, in turns HK, WM, WM, HK);
@@ -17,8 +24,8 @@ WM (cell width 1e4), and for each:
 
 Prints one JSON object, and writes it to `--out` if given.
 
-    python scripts/torch_as_profile.py [--ntraj 98304] [--steps 50]
-        [--window 200] [--out as_profile.json]
+    python scripts/torch_step_profile.py [--example as|coumarin]
+        [--ntraj N] [--steps 48] [--window 200] [--out profile.json]
 """
 
 import argparse
@@ -87,23 +94,8 @@ def _trace(prop, potential, dt, steps):
     }
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--ntraj", type=int, default=98304)
-    parser.add_argument("--steps", type=int, default=50)
-    parser.add_argument("--window", type=int, default=200)
-    parser.add_argument("--seed", type=int, default=1234)
-    parser.add_argument("--out", default=None)
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("torch_as_profile: needs an NVIDIA GPU", file=sys.stderr)
-        return 1
-    from semiclassical_tpu_torch import cli, units
-    from semiclassical_tpu_torch.ops import wm_diag
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+def _as_potential(cli):
+    """The AS example's potential, wavepacket centre and widths."""
     with tempfile.TemporaryDirectory() as tmp:
         model = pathlib.Path(tmp) / "AS_model.dat"
         with open(model, "w") as f:
@@ -113,6 +105,43 @@ def main(argv=None):
         task = {"potential": {"type": "anharmonic AS",
                               "model_file": str(model)}}
         potential, q0, _, G, _, _ = cli._build_potential(task, "cuda")
+    return potential, q0, G
+
+
+def _coumarin_potential(cli):
+    """The sGDML example's potential (semi.json), wavepacket centre and
+    widths."""
+    example = ROOT / "examples" / "coumarin_gdml"
+    with open(example / "semi.json") as f:
+        task = json.load(f)["semi"][0]
+    for key in ("ground", "excited", "coupling"):
+        task["potential"][key] = str(example / task["potential"][key])
+    potential, q0, _, G, _, _ = cli._build_potential(task, "cuda")
+    return potential, q0, G
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--example", choices=("as", "coumarin"), default="as")
+    parser.add_argument("--ntraj", type=int, default=None)
+    parser.add_argument("--steps", type=int, default=48)
+    parser.add_argument("--window", type=int, default=200)
+    parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_step_profile: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from semiclassical_tpu_torch import cli, units
+    from semiclassical_tpu_torch.ops import det, det_block, gj, wm_diag
+
+    if args.ntraj is None:
+        args.ntraj = 98304 if args.example == "as" else 2048
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    potential, q0, G = (_as_potential if args.example == "as"
+                        else _coumarin_potential)(cli)
     dt = 0.005 / units.autime_to_fs
 
     props = {name: _propagator(name, G, q0, potential, args.ntraj, args.seed)
@@ -123,17 +152,26 @@ def main(argv=None):
     for name in ("HK", "WM", "WM", "HK"):
         windows[name].append(_window_ms(props[name], potential, dt,
                                         args.window))
-    result = {"device": smi, "ntraj": args.ntraj, "dim": int(q0.shape[0]),
+    result = {"device": smi, "example": args.example,
+              "ntraj": args.ntraj, "dim": int(q0.shape[0]),
               "window_steps": args.window, "traced_steps": args.steps}
+
+    def counts():
+        return {"K1": det.LAUNCHES, "K2": gj.LAUNCHES["det_solve"],
+                "K3": gj.LAUNCHES["det_inv"], "K4": det_block.LAUNCHES,
+                "K5": wm_diag.LAUNCHES}
+
     for name, prop in props.items():
-        launches = wm_diag.LAUNCHES
+        before = counts()
         trace = _trace(prop, potential, dt, args.steps)
+        after = counts()
         ms = windows[name]
         trace.update(
             ms_per_step_windows=ms,
             busy_share_untraced=trace["device_ms_per_step"] / min(ms),
             traj_steps_per_s=args.ntraj / (min(ms) / 1e3),
-            k5_launches_per_step=(wm_diag.LAUNCHES - launches) / args.steps)
+            launches_per_step={k: (after[k] - before[k]) / args.steps
+                               for k in after})
         result[name] = trace
     result["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
     text = json.dumps(result, indent=1)

@@ -33,6 +33,10 @@ __all__ = ["main", "run_semiclassical_dynamics", "calculate_rates",
 
 # subcommands of `semi` that the port does not have yet
 NOT_PORTED_COMMANDS = ("spectrum", "show", "export", "plot")
+# potential types of the ported slice
+PORTED_POTENTIALS = ("harmonic", "anharmonic AS", "gdml")
+_SLICE = ("the port runs HK and WM on the 'harmonic', 'anharmonic AS' and "
+          "'gdml' potentials")
 # dynamics task keywords whose features the port does not have yet
 NOT_PORTED_KEYS = ("checkpoint", "checkpoint_every", "error_bars",
                    "calc_norm_every", "norm_samples", "micro_batch",
@@ -78,7 +82,7 @@ def main(argv=None):
     if args.command in NOT_PORTED_COMMANDS:
         raise ConfigurationError(
             f"subcommand '{args.command}' is not ported yet (ported: "
-            "dynamics, rates)")
+            f"dynamics, rates; {_SLICE})")
     if args.command == "dynamics":
         tasks = _load_tasks(args.json_input, "dynamics")
         for task in tasks:
@@ -111,25 +115,37 @@ def _load_tasks(json_input, kind):
 def check_slice(task):
     """Raise ConfigurationError, naming the keyword, for a dynamics task
     that asks for anything outside the ported slice (HK, or WM with
-    `cell_width`; molecular harmonic PES or the anharmonic AS model with
-    the 4-stage Hessian, RK4, pseudo-random sampling)."""
+    `cell_width`; the molecular harmonic PES and the anharmonic AS model
+    with the 4-stage Hessian, the sGDML PES with `hess_dtype`,
+    `hessian_eval`, `taylor_every` and `eg_mode`; RK4, pseudo-random
+    sampling)."""
     propagator = task.get("propagator", "HK")
     if propagator not in ("HK", "WM"):
         raise ConfigurationError(
             f"propagator '{propagator}' is not ported (ported: 'HK', 'WM')")
-    ptype = task["potential"]["type"]
-    if ptype not in ("harmonic", "anharmonic AS"):
+    pot = task["potential"]
+    ptype = pot["type"]
+    if ptype not in PORTED_POTENTIALS:
         raise ConfigurationError(
             f"potential type '{ptype}' is not ported yet (ported: "
-            "'harmonic', 'anharmonic AS')")
-    hessian_eval = task["potential"].get("hessian_eval", "stage")
-    if hessian_eval != "stage":
-        raise ConfigurationError(
-            f"hessian_eval '{hessian_eval}' is not ported yet (ported: "
-            "'stage')")
-    if task["potential"].get("taylor_every", 1) != 1:
-        raise ConfigurationError(
-            "potential keyword 'taylor_every' is not ported yet")
+            + ", ".join(f"'{t}'" for t in PORTED_POTENTIALS) + ")")
+    hessian_eval = pot.get("hessian_eval", "stage")
+    if ptype == "gdml":
+        hess_dtype = pot.get("hess_dtype") or "float64"
+        if hess_dtype not in ("float32", "float64"):
+            raise ConfigurationError(
+                f"hess_dtype '{hess_dtype}' is not ported (ported: "
+                "'float32', 'float64')")
+    else:
+        if hessian_eval != "stage":
+            raise ConfigurationError(
+                f"hessian_eval '{hessian_eval}' is not ported yet for the "
+                f"'{ptype}' potential (ported: 'stage'; the 'gdml' "
+                "potential takes 'stage', 'step' and 'taylor')")
+        if pot.get("taylor_every", 1) != 1:
+            raise ConfigurationError(
+                f"potential keyword 'taylor_every' is not ported yet for "
+                f"the '{ptype}' potential (the 'gdml' potential takes it)")
     integrator = task.get("integrator", "rk4")
     if integrator != "rk4":
         raise ConfigurationError(
@@ -141,17 +157,20 @@ def check_slice(task):
     for key in NOT_PORTED_KEYS:
         if key in task:
             raise ConfigurationError(
-                f"task keyword '{key}' is not ported yet")
+                f"task keyword '{key}' is not ported yet ({_SLICE}, with "
+                "RK4 and pseudo-random sampling)")
 
 
 def _build_potential(task, device):
     """(potential, q0, p0, Gamma_0, en_zpt, adiabatic_gap) from the task's
-    `potential` section. For the harmonic PES the energy origin is moved to
-    the minimum of the final PES; the AS model has no adiabatic gap
-    (NaN)."""
+    `potential` section. For the molecular PES (harmonic, gdml) the energy
+    origin is moved to the minimum of the final PES and the wavepacket is
+    the vibrational ground state of the excited-state fchk; the AS model
+    has no adiabatic gap (NaN)."""
     from semiclassical_tpu_torch import units
     from semiclassical_tpu_torch.io import FormattedCheckpointFile
-    from semiclassical_tpu_torch.potentials import (MolecularHarmonicPotential,
+    from semiclassical_tpu_torch.potentials import (MolecularGDMLPotential,
+                                                    MolecularHarmonicPotential,
                                                     MorsePotential, minimize)
 
     p = task["potential"]
@@ -169,12 +188,25 @@ def _build_potential(task, device):
         potential = MorsePotential.create(omega, chi, nac, device=device)
         return (potential, dQ, 0.0 * dQ, np.diag(omega),
                 float(np.sum(0.5 * omega)), np.nan)
-    with open(p["ground"]) as f:
-        freq_fchk = FormattedCheckpointFile(f)
     with open(p["coupling"]) as f:
         nacs_fchk = FormattedCheckpointFile(f)
-    potential = MolecularHarmonicPotential.from_fchk(freq_fchk, nacs_fchk,
-                                                     device=device)
+    if p["type"] == "gdml":
+        model_pot = np.load(p["ground"], allow_pickle=True)
+        potential = MolecularGDMLPotential.create(
+            model_pot, nacs_fchk, device,
+            hess_dtype=p.get("hess_dtype") or None,
+            hessian_eval=p.get("hessian_eval", "stage"),
+            taylor_every=p.get("taylor_every", 1),
+            eg_mode=p.get("eg_mode", "f64"))
+        logger.info("  hessian_eval                              : "
+                    f"{potential.hessian_eval}"
+                    + (f" (re-expansion every {potential.taylor_every} steps)"
+                       if potential.taylor_every > 1 else ""))
+    else:
+        with open(p["ground"]) as f:
+            freq_fchk = FormattedCheckpointFile(f)
+        potential = MolecularHarmonicPotential.from_fchk(freq_fchk, nacs_fchk,
+                                                         device=device)
     with open(p["excited"]) as f:
         excited_fchk = FormattedCheckpointFile(f)
     x0, Gamma_0, en_zpt = excited_fchk.vibrational_groundstate()
@@ -262,9 +294,13 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
         logger.warning("The random number generator should not be seeded "
                        "manually unless for debugging!")
 
-    # progress readout every scan_chunk steps (one host read per chunk);
-    # the separable AS steps are short, so they read back less often
-    default_chunk = (500 if task["potential"]["type"] == "anharmonic AS"
+    # scan segments of scan_chunk steps (one host read each, and the
+    # restart of a taylor_every window): the separable AS steps are short,
+    # so they read back less often, and taylor-mode gdml takes the JAX
+    # CLI's 500, which its window phase depends on
+    default_chunk = (500 if (task["potential"]["type"] == "anharmonic AS"
+                             or getattr(potential, "hessian_eval", "stage")
+                             == "taylor")
                      else 100)
     scan_chunk = task.get("scan_chunk", default_chunk)
 

@@ -14,16 +14,19 @@ import numpy as np
 import torch
 
 from semiclassical_tpu_torch.coherent import OverlapParams
+from semiclassical_tpu_torch.gdml import GDMLParams
 from semiclassical_tpu_torch.potentials.model import (MorsePotential,
                                                       NonHarmonicPotential)
-from semiclassical_tpu_torch.potentials.molecular import \
-    MolecularHarmonicPotential
+from semiclassical_tpu_torch.potentials.molecular import (
+    MolecularGDMLPotential, MolecularHarmonicPotential)
+from semiclassical_tpu_torch.propagation.eom import LocalQuadratic
 from semiclassical_tpu_torch.propagation.hk import BatchConstants, HKParams
 from semiclassical_tpu_torch.propagation.state import TrajState
 from semiclassical_tpu_torch.propagation.wm import WMBatchConstants, WMParams
 from semiclassical_tpu_torch.sampling import SamplingParams
 
-__all__ = ["molecular_harmonic_potential", "morse_potential",
+__all__ = ["molecular_harmonic_potential", "gdml_params",
+           "molecular_gdml_potential", "local_quadratic", "morse_potential",
            "nonharmonic_potential", "sampling_params", "hk_params",
            "batch_constants", "wm_params", "wm_batch_constants",
            "traj_state"]
@@ -41,6 +44,39 @@ def molecular_harmonic_potential(f, device):
         pos0=f["pos0"], energy0=float(f["energy0"]), grad0=f["grad0"],
         hess0=f["hess0"], nac0=f["nac0"], mass=f["mass"],
         origin=float(f["origin"]), device=device)
+
+
+def gdml_params(f, device):
+    """From the fields of `GDMLParams` (the f64 pack; the sliced operands
+    of eg_mode "ozaki" are not carried: the port runs f64)."""
+    t = lambda name: _t(f[name], device)
+    return GDMLParams(
+        xs_train=t("xs_train"), Jx_alphas=t("Jx_alphas"),
+        pair_k=t("pair_k").long(), pair_l=t("pair_l").long(),
+        incidence=t("incidence"), pair_outer=t("pair_outer"),
+        sig=float(f["sig"]), c=float(f["c"]), std=float(f["std"]),
+        n_atoms=int(f["n_atoms"]))
+
+
+def molecular_gdml_potential(f, device):
+    """From the fields of `MolecularGDMLPotential` (its `hess_dtype` name,
+    "" for the pack's own)."""
+    hess_dtype = f.get("hess_dtype", "")
+    return MolecularGDMLPotential(
+        gdml=gdml_params(f["gdml"], device), nac0=_t(f["nac0"], device),
+        mass=_t(f["mass"], device), origin=float(f["origin"]),
+        hess_dtype=(getattr(torch, hess_dtype)
+                    if hess_dtype and hess_dtype != "float64" else None),
+        hessian_eval=f.get("hessian_eval", "stage"),
+        taylor_every=int(f.get("taylor_every", 1)))
+
+
+def local_quadratic(f, device):
+    """From the fields of the JAX package's `eom.LocalQuadratic`."""
+    t = lambda name: None if f.get(name) is None else _t(f[name], device)
+    return LocalQuadratic(q_mid=t("q_mid"), v0=t("v0"), g0=t("g0"), H=t("H"),
+                          mass=t("mass"), nac0=t("nac0"), Tmono=t("Tmono"),
+                          hessian_eval=f.get("hessian_eval", "taylor"))
 
 
 def morse_potential(f, device):

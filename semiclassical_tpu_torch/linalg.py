@@ -9,8 +9,10 @@
   (d, r) matrix.
 * **Device-side** `logspace_mode_product`, the range-safe product over
   modes that the separable (diagonal) path uses for every determinant;
-  `batched_det`, the per-step determinant of the HK
-  prefactor matrices, which goes to the hand-written kernel in `ops.det`;
+  `batched_det`, the per-step determinant of the HK prefactor matrices,
+  which goes by its size r to one of two hand-written kernels: K1
+  (`ops.det`, one warp per matrix) for r <= `DET_WARP_MAX_R`, K4
+  (`ops.det_block`, one thread block per matrix) above;
   and the WM eliminations `batched_det_inv`, `batched_det_solve` and
   `batched_det_solve_blocks`, which go to the Gauss-Jordan kernels of
   `ops.gj` at leaves of m <= 64 (the structure of the JAX package's lanes
@@ -20,17 +22,23 @@
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
 from semiclassical_tpu_torch.ops import det as _det_ops
+from semiclassical_tpu_torch.ops import det_block as _det_block_ops
 from semiclassical_tpu_torch.ops import gj as _gj_ops
+
+logger = logging.getLogger(__name__)
 
 # small float, threshold for considering eigenvalues as 0
 ZERO = 1.0e-8
 
 __all__ = [
     "ZERO",
+    "DET_WARP_MAX_R",
     "sym_eigh",
     "sym_sqrtm",
     "is_symmetric_non_negative",
@@ -124,11 +132,21 @@ def logspace_mode_product(z_re, z_im, dim=1):
     return torch.polar(torch.exp(log_mag), ang)
 
 
+# The size rule of `batched_det`: K1 gives a matrix one warp, whose 32
+# lanes cover a row up to r = 32; above that, to r = 64, K4 gives it a
+# thread block (methylium's r = 6 takes K1, coumarin's r = 45 K4).
+DET_WARP_MAX_R = 32
+
+
 def batched_det(A):
-    """Determinant of a batch of complex matrices, shape (n, r, r): the
-    CUDA kernel for a tensor on the card, its plain version on the CPU
-    (see `ops.det.batched_det`)."""
-    return _det_ops.batched_det(A)
+    """Determinant of a batch of complex matrices, shape (n, r, r): K1
+    (`ops.det.batched_det`) for r <= DET_WARP_MAX_R, K4
+    (`ops.det_block.batched_det_block`) above; each launches its CUDA
+    kernel for a tensor on the card and runs the same plain elimination on
+    the CPU."""
+    if A.shape[-1] <= DET_WARP_MAX_R:
+        return _det_ops.batched_det(A)
+    return _det_block_ops.batched_det_block(A)
 
 
 # Largest leaf the Gauss-Jordan kernels take; above it one block-Schur level
@@ -137,6 +155,9 @@ def batched_det(A):
 # matmuls wins, and 2r = 120 at the 60-mode flagship splits into two r = 60
 # leaves).
 _GJ_LEAF = _gj_ops.MAX_M
+# (m, k) of the K2 leaves seen so far, each logged once (K2 takes
+# m + k <= `ops.gj.MAX_WIDTH`)
+_K2_LEAVES = set()
 
 
 def _det_inv_blocked(A):
@@ -164,6 +185,10 @@ def _det_solve(A, B):
     block elimination above `_GJ_LEAF`."""
     m = A.shape[-1]
     if m <= _GJ_LEAF:
+        if (m, B.shape[-1]) not in _K2_LEAVES:
+            _K2_LEAVES.add((m, B.shape[-1]))
+            logger.info(f"K2 leaf (m | k) = ({m} | {B.shape[-1]}), batch "
+                        f"{A.shape[0]}")
         return _gj_ops.batched_det_solve_gj(A.contiguous(), B.contiguous())
     r1 = m // 2
     return batched_det_solve_blocks(A[..., :r1, :r1], A[..., :r1, r1:],

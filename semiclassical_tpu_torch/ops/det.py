@@ -4,9 +4,12 @@ its wrapper.
 
 Replaces `semiclassical_tpu/ops/det_kernel.py::pallas_batched_det_lanes`,
 the per-step determinant of the dense HK prefactor matrix
-(`hk_prefactor_det` -> `linalg.batched_det`). Both compute det A for a batch
-of complex (n, r, r) matrices by unpivoted right-looking LU in the same
-pivot order, with the pivots multiplied into the determinant.
+(`hk_prefactor_det` -> `linalg.batched_det`), which sends r <= 32 here
+(methylium, r = 6) and 32 < r <= 64 to K4 (`ops.det_block`, the same
+elimination with one thread block per matrix, whose plain version is this
+module's). Both compute det A for a batch of complex (n, r, r) matrices by
+unpivoted right-looking LU in the same pivot order, with the pivots
+multiplied into the determinant.
 
 What bounds the kernel (`csrc/det_lu.cu`): at the methylium shape
 (n = 10^4, r = 6, complex128) one call reads 5.8 MB and does ~600 flops per
@@ -28,7 +31,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["batched_det", "batched_det_lu_plain", "check_det_args",
-           "LAUNCHES", "MAX_R"]
+           "launch", "LAUNCHES", "MAX_R"]
 
 MAX_R = 64
 
@@ -87,8 +90,11 @@ def check_det_args(A: torch.Tensor):
         raise ValueError("batched_det takes a contiguous tensor")
 
 
-def _launch(A: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
+def launch(A: torch.Tensor, entry: str) -> torch.Tensor:
+    """Launch the determinant kernel `entry` ("semi_det_lu": K1 here,
+    "semi_det_lu_block": K4 in `ops.det_block`) on a CUDA tensor that
+    `check_det_args` accepted; returns the (n,) determinants. Nothing is
+    launched for n = 0; the caller counts its launches."""
     from semiclassical_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -96,15 +102,14 @@ def _launch(A: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=A.dtype, device=A.device)
     if n == 0:
         return out
-    fn = (lib.semi_det_lu_c128 if A.dtype == torch.complex128
-          else lib.semi_det_lu_c64)
+    suffix = "c128" if A.dtype == torch.complex128 else "c64"
+    fn = getattr(lib, f"{entry}_{suffix}")
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = fn(A.data_ptr(), out.data_ptr(), n, r, stream)
     if err != 0:
-        raise RuntimeError(f"det_lu kernel launch failed: CUDA error {err} "
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err} "
                            f"(n={n}, r={r}, {A.dtype})")
-    LAUNCHES += 1
     return out
 
 
@@ -113,10 +118,14 @@ def batched_det(A: torch.Tensor) -> torch.Tensor:
 
     A tensor on the card goes to the CUDA kernel (or raises if the kernel
     does not take it); a tensor on the CPU goes to the plain version."""
+    global LAUNCHES
     if A.device.type == "cpu":
         return batched_det_lu_plain(A)
     if A.device.type != "cuda":
         raise ValueError(f"batched_det runs on cuda or cpu tensors, got "
                          f"{A.device}")
     check_det_args(A)
-    return _launch(A)
+    out = launch(A, "semi_det_lu")
+    if A.shape[0]:
+        LAUNCHES += 1
+    return out

@@ -1,0 +1,59 @@
+# coding: utf-8
+"""Batched complex determinant with one thread block per matrix: the CUDA
+kernel K4, its plain version and its wrapper.
+
+Replaces `semiclassical_tpu/ops/det_kernel.py::pallas_batched_det` (kernel
+body `_lu_det_kernel`): det A for a batch of complex (n, r, r) matrices by
+unpivoted right-looking LU in K1's pivot order, with the pivots multiplied
+into the determinant. `linalg.batched_det` sends 32 < r <= 64 here (the
+sGDML prefactor, r = 45 on coumarin) and r <= 32 to K1 (`ops.det`), whose
+one warp per matrix covers a row with its lanes.
+
+What bounds the kernel (`csrc/det_lu_block.cu`): at (2048, 45, 45)
+complex128 one call reads 66.4 MB and does 0.49 GFLOP, so bytes and FP64
+throughput are within a factor 1.4 of each other. The design gives each matrix
+a block of 256 threads that tile the trailing update in 2-D over the
+matrix in shared memory (row stride r + 1), so an SM runs many warps
+where K1 runs one per matrix; it reads the interleaved re/im layout in
+place and writes one complex number per matrix. In practice neither
+bound is reached: every pivot's trailing update moves each remaining
+element through shared memory (two reads and a write of 16 bytes), so
+shared-memory traffic sets the time (PERF.md).
+
+The elimination is K1's, so the plain version is `ops.det`'s
+`batched_det_lu_plain`, re-exported here. `batched_det_block` launches the
+kernel for a tensor on the card and raises on anything it does not take;
+it uses the plain version only for a tensor on the CPU. There is no
+fallback to the plain version or to K1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from semiclassical_tpu_torch.ops.det import (MAX_R, batched_det_lu_plain,
+                                             check_det_args, launch)
+
+__all__ = ["batched_det_block", "batched_det_lu_plain", "LAUNCHES", "MAX_R"]
+
+# kernel launches made by `batched_det_block` (plain Python int)
+LAUNCHES = 0
+
+
+def batched_det_block(A: torch.Tensor) -> torch.Tensor:
+    """Determinant of a batch of complex matrices, shape (n, r, r) -> (n,).
+
+    A tensor on the card goes to the CUDA kernel K4 (or raises if the
+    kernel does not take it); a tensor on the CPU goes to the plain
+    version."""
+    global LAUNCHES
+    if A.device.type == "cpu":
+        return batched_det_lu_plain(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"batched_det_block runs on cuda or cpu tensors, "
+                         f"got {A.device}")
+    check_det_args(A)
+    out = launch(A, "semi_det_lu_block")
+    if A.shape[0]:
+        LAUNCHES += 1
+    return out

@@ -6,8 +6,9 @@ from semiclassical_tpu_torch.potentials.base import (ConstHessian,
 from semiclassical_tpu_torch.potentials.model import (MorsePotential,
                                                       NonHarmonicPotential)
 from semiclassical_tpu_torch.potentials.molecular import (
-    MolecularHarmonicPotential, minimize)
+    MolecularGDMLPotential, MolecularHarmonicPotential, minimize)
 
 __all__ = ["ConstHessian", "DenseHessian", "DiagHessian",
-           "MolecularHarmonicPotential", "MorsePotential",
+           "MolecularGDMLPotential", "MolecularHarmonicPotential",
+           "MorsePotential",
            "NonHarmonicPotential", "minimize"]

@@ -47,6 +47,10 @@ class DenseHessian:
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         return torch.matmul(self.mat.to(v.dtype), v[:, :, None])[:, :, 0]
 
+    def dense(self) -> torch.Tensor:
+        """The (n, d, d) matrices."""
+        return self.mat
+
 
 @dataclass(frozen=True)
 class ConstHessian:
@@ -60,3 +64,7 @@ class ConstHessian:
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         return v @ self.mat.to(v.dtype).T
+
+    def dense(self) -> torch.Tensor:
+        """The matrix as a batch of one, (1, d, d)."""
+        return self.mat[None]

@@ -5,12 +5,13 @@
 
 The port of `semiclassical_tpu.propagation.hk` on two paths:
 
-* the dense-prefactor path (molecular harmonic PES, any width matrix):
-  `HKParams` / `BatchConstants` are precomputed once: the null-space
-  projector U of singular width matrices is folded into the constant left
-  and right factors of the prefactor matrix, so the per-step work is two
-  real matmuls over the stacked monodromy plus one batched (n, r, r)
-  complex determinant — the CUDA kernel of `ops.det` on the card;
+* the dense-prefactor path (molecular harmonic and sGDML PES, any width
+  matrix): `HKParams` / `BatchConstants` are precomputed once: the
+  null-space projector U of singular width matrices is folded into the
+  constant left and right factors of the prefactor matrix, so the
+  per-step work is two real matmuls over the stacked monodromy plus one
+  batched (n, r, r) complex determinant — on the card the CUDA kernel that
+  `linalg.batched_det` picks by r (K1 in `ops.det`, K4 in `ops.det_block`);
 * the separable path (model potentials, diagonal Hessians and diagonal
   widths): the monodromy is kept in the diagonal representation, the
   prefactor matrix is diagonal and its determinant a log-space product
@@ -19,10 +20,12 @@ The port of `semiclassical_tpu.propagation.hk` on two paths:
 * everything that depends only on the initial phase-space points (the
   overlap <qi,pi|phi(0)>, the Monte-Carlo log-weights, the initial-point
   NAC factor of k~ic) is computed once per batch;
-* `propagate` runs the time loop in Python with every per-step result
-  written into preallocated device tensors — no host synchronisation per
-  step. C(t), k~ic(t) and the batch-mean energies come to the host once per
-  call, where the energy-conservation guard and the separable phases apply.
+* `propagate` runs the time loop in Python, in scan segments of `chunk`
+  steps (a `taylor_every` window of an sGDML potential restarts at each,
+  as in the JAX package), with every per-step result written into
+  preallocated device tensors — no host synchronisation per step. C(t),
+  k~ic(t) and the batch-mean energies come to the host once per call,
+  where the energy-conservation guard and the separable phases apply.
 """
 
 from __future__ import annotations
@@ -37,8 +40,12 @@ from semiclassical_tpu_torch import linalg
 from semiclassical_tpu_torch.coherent import (OverlapParams,
                                               overlap_exponent_vector,
                                               overlap_vector)
-from semiclassical_tpu_torch.potentials.base import ConstHessian, DiagHessian
-from semiclassical_tpu_torch.propagation.eom import const_step_map, rk4_step
+from semiclassical_tpu_torch.potentials.base import (ConstHessian,
+                                                     DenseHessian,
+                                                     DiagHessian)
+from semiclassical_tpu_torch.propagation.eom import (const_step_map,
+                                                     make_taylor_window,
+                                                     rk4_step)
 from semiclassical_tpu_torch.propagation.state import SignTracker, TrajState
 from semiclassical_tpu_torch.sampling import (SamplingParams,
                                               sample_initial_conditions)
@@ -390,8 +397,8 @@ class HermanKlukPropagator:
         q0, p0 : (d,) center and momentum of the initial wavepacket
         Gamma_0 : (d, d) width matrix of the initial wavepacket
         potential : the PES; its Hessian operator decides the monodromy
-            representation (a `ConstHessian` gives the dense one, a
-            `DiagHessian` the diagonal one)
+            representation (a `ConstHessian` or a `DenseHessian` gives the
+            dense one, a `DiagHessian` the diagonal one)
         ntraj : number of trajectories
         generator : torch.Generator on the propagator's device
         normals : optional (ntraj, 2 rank) standard normals used in place
@@ -412,12 +419,12 @@ class HermanKlukPropagator:
         qi, pi, log_prob = sample_initial_conditions(
             sampling, ntraj, generator=generator, normals=normals)
         hess = potential.local_expansion(qi[:1])[2]
-        if not isinstance(hess, (ConstHessian, DiagHessian)):
+        if not isinstance(hess, (ConstHessian, DenseHessian, DiagHessian)):
             raise NotImplementedError(
-                "the port propagates the dense monodromy of a constant-"
-                "Hessian PES and the diagonal monodromy of a separable PES; "
-                f"this potential gives {type(hess).__name__} (a per-"
-                "trajectory dense Hessian, as sGDML's, is not ported yet)")
+                "the port propagates the dense monodromy under ConstHessian "
+                "or DenseHessian expansions and the diagonal monodromy under "
+                f"DiagHessian ones; this potential gives "
+                f"{type(hess).__name__}")
         self.state = TrajState.initial(
             qi, pi, diag_monodromy=isinstance(hess, DiagHessian))
         self.bc = self._make_batch_constants(qi, pi, log_prob, potential)
@@ -449,23 +456,53 @@ class HermanKlukPropagator:
         return tracker, cauto, kic
 
     def _run(self, potential, dt, nt, chunk=None, progress=None):
-        """The time loop: `nt` steps from the current state. Returns the
-        device tensors (cauto, kic, energies) of length nt."""
-        step_map = None
-        if not self.state.diag_monodromy:
-            hess = potential.local_expansion(self.state.q[:1])[2]
-            step_map = const_step_map(hess, potential.masses(), dt)
+        """The time loop: `nt` steps from the current state, in scan
+        segments of at most `chunk` steps. Returns the device tensors
+        (cauto, kic, energies) of length nt.
+
+        A `taylor_every` window (`eom.make_taylor_window`) restarts at the
+        head of every segment, as the JAX package's scans do, so `chunk`
+        is part of the result there; `progress`, if given, is called at
+        the end of every segment (one host read per segment)."""
+        every = int(getattr(potential, "taylor_every", 1) or 1)
+        if every > 1:
+            if getattr(potential, "hessian_eval", "stage") != "taylor":
+                raise ValueError(
+                    "taylor_every > 1 requires hessian_eval='taylor'")
+            fresh, advance = make_taylor_window(potential, dt, every)
+        else:
+            step_map = None
+            if not self.state.diag_monodromy:
+                hess = potential.local_expansion(self.state.q[:1])[2]
+                if isinstance(hess, ConstHessian):
+                    step_map = const_step_map(hess, potential.masses(), dt)
+
+            def fresh(state):
+                return None
+
+            def advance(state, carry):
+                return (*rk4_step(state, potential, dt, step_map), carry)
+
+        if chunk is None or chunk >= nt:
+            segments = [nt]
+        else:
+            segments = [chunk] * (nt // chunk) + ([nt % chunk]
+                                                   if nt % chunk else [])
         cauto = torch.empty(nt, dtype=torch.complex128, device=self.device)
         kic = torch.empty(nt, dtype=torch.complex128, device=self.device)
         energies = torch.empty(nt, dtype=torch.float64, device=self.device)
         state, tracker = self.state, self.tracker
-        for i in range(nt):
-            tracker, cauto[i], kic[i] = self._observe(state, tracker,
-                                                      potential)
-            state, energies[i] = rk4_step(state, potential, dt, step_map)
-            if progress is not None and chunk and (i + 1) % chunk == 0:
-                progress(i + 1, nt,
-                         complex(cauto[i]) * self.bc.weight_scale)
+        done = 0
+        for seg in segments:
+            carry = fresh(state)
+            for i in range(done, done + seg):
+                tracker, cauto[i], kic[i] = self._observe(state, tracker,
+                                                          potential)
+                state, energies[i], carry = advance(state, carry)
+            done += seg
+            if progress is not None and chunk:
+                progress(done, nt, complex(cauto[done - 1])
+                         * self.bc.weight_scale)
         self.state, self.tracker = state, tracker
         self.t += nt * float(dt)
         return cauto, kic, energies
@@ -476,10 +513,11 @@ class HermanKlukPropagator:
 
         Returns (autocorrelation (nt,), ic_correlation (nt,)) as numpy
         arrays sampled at t0, t0 + dt, ..., t0 + (nt-1) dt; the state
-        advances by nt steps. `progress`, if given, is called every `chunk`
-        steps with (steps_done, nt, C(t) at the last step) — the one host
-        read per chunk. The per-step batch-mean energies of the run are
-        kept in `self.last_energies`.
+        advances by nt steps. The run goes in segments of at most `chunk`
+        steps (a `taylor_every` window restarts at each); `progress`, if
+        given, is called after every segment with (steps_done, nt, C(t) at
+        the last step) — the one host read per segment. The per-step
+        batch-mean energies of the run are kept in `self.last_energies`.
         """
         t_start = self.t
         cauto, kic, energies = self._run(potential, dt, nt, chunk, progress)

@@ -14,7 +14,11 @@ relative in complex128 and 1e-5 in complex64 (rounding-order differences
 of the same elimination, FMA contraction included), on well-conditioned
 matrices I + 0.3 noise/sqrt(r). K5 (`ops.wm_diag.wm_diag_derived`,
 csrc/wm_diag.cu) likewise, 1e-12 in float64 and 1e-5 in float32 of each
-output's largest entry, on identity-plus-noise monodromy planes.
+output's largest entry, on identity-plus-noise monodromy planes. K4
+(`ops.det_block.batched_det_block`, csrc/det_lu_block.cu, one thread block
+per matrix) is held against the same plain version as K1 at the same
+limits, and `linalg.batched_det` is checked to launch K1 for r <= 32 and
+K4 above.
 """
 
 import numpy as np
@@ -190,3 +194,65 @@ def test_wm_diag_wrapper_raises_on_card(card, case):
     with pytest.raises(ValueError):
         wm_diag.wm_diag_derived(*planes, pack)
     assert wm_diag.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype, r, n, rtol", [
+    (torch.complex128, 45, 2048, 1e-12), (torch.complex64, 45, 2048, 1e-5),
+    (torch.complex128, 64, 300, 1e-12), (torch.complex64, 64, 300, 1e-5),
+    (torch.complex128, 33, 257, 1e-12), (torch.complex128, 1, 33, 1e-12),
+    (torch.complex128, 6, 1000, 1e-12)])
+def test_block_kernel_matches_plain(card, dtype, r, n, rtol):
+    """K4 against the plain elimination it shares with K1, and against
+    torch.linalg.det (a pivoted LU: 1e-10 in complex128, 1e-4 in
+    complex64)."""
+    from semiclassical_tpu_torch.ops import det_block
+
+    A = _well_conditioned(n, r, dtype, card, seed=100 + r)
+    before = det_block.LAUNCHES
+    got = det_block.batched_det_block(A)
+    torch.cuda.synchronize()
+    assert det_block.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == (n,)
+    ref = det_block.batched_det_lu_plain(A)
+    assert float(((got - ref).abs() / ref.abs()).max()) <= rtol
+    oracle = torch.linalg.det(A.to(torch.complex128))
+    lim = 1e-10 if dtype == torch.complex128 else 1e-4
+    assert float(((got - oracle).abs() / oracle.abs()).max()) <= lim
+
+
+@pytest.mark.parametrize("r, kernel", [(6, "K1"), (32, "K1"), (33, "K4"),
+                                       (45, "K4"), (64, "K4")])
+def test_size_rule_launches(card, r, kernel):
+    from semiclassical_tpu_torch import linalg
+    from semiclassical_tpu_torch.ops import det_block
+
+    A = _well_conditioned(40, r, torch.complex128, card, seed=r)
+    k1, k4 = det.LAUNCHES, det_block.LAUNCHES
+    linalg.batched_det(A)
+    assert (det.LAUNCHES - k1, det_block.LAUNCHES - k4) == (
+        (1, 0) if kernel == "K1" else (0, 1))
+
+
+@pytest.mark.parametrize("make", [
+    lambda d: torch.zeros((4, 65, 65), dtype=torch.complex128, device=d),
+    lambda d: torch.zeros((4, 45, 46), dtype=torch.complex128,
+                          device=d)[:, :, :45],
+    lambda d: torch.zeros((4, 45, 45), dtype=torch.float64, device=d),
+    lambda d: torch.zeros((45, 45), dtype=torch.complex128, device=d),
+], ids=["r65", "non-contiguous", "float64", "unbatched"])
+def test_block_wrapper_raises_on_card(card, make):
+    from semiclassical_tpu_torch.ops import det_block
+
+    before = det_block.LAUNCHES
+    with pytest.raises(ValueError):
+        det_block.batched_det_block(make(card))
+    assert det_block.LAUNCHES == before
+
+
+def test_block_empty_batch_launches_nothing(card):
+    from semiclassical_tpu_torch.ops import det_block
+
+    before = det_block.LAUNCHES
+    got = det_block.batched_det_block(
+        torch.empty((0, 45, 45), dtype=torch.complex128, device=card))
+    assert got.shape == (0,) and det_block.LAUNCHES == before

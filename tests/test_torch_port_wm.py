@@ -211,25 +211,44 @@ def test_propagate_parity(setup, monkeypatch):
 
 def test_scan_diag_raises_by_name(setup):
     """Diagonal widths at full rank select the separable WM path (the pack
-    carries its per-mode constants); a PES whose Hessian is a dense matrix
-    per trajectory (sGDML's kind) is not ported, and the propagator raises
-    naming it."""
+    carries its per-mode constants) only for a diagonal monodromy: a PES
+    whose Hessian is a dense matrix per trajectory (sGDML's kind) takes
+    the dense monodromy and the dense WM step. A Hessian of no known
+    operator type raises, naming it."""
     from semiclassical_tpu_torch.potentials import DenseHessian
 
     class DenseHessianPES:
+        hessian = staticmethod(lambda n, d, q: DenseHessian(
+            torch.eye(d, dtype=q.dtype).expand(n, d, d)))
+
         def masses(self):
             return torch.ones(3, dtype=torch.float64)
 
         def local_expansion(self, q):
             n, d = q.shape
-            return (torch.zeros(n, dtype=q.dtype), torch.zeros_like(q),
-                    DenseHessian(torch.eye(d, dtype=q.dtype).expand(n, d, d)))
+            return (0.5 * torch.sum(q * q, dim=1), q.clone(),
+                    self.hessian(n, d, q))
+
+        def derivative_coupling_1st(self, q):
+            return torch.ones_like(q)
+
+        def derivative_coupling_2nd(self, q):
+            return torch.zeros_like(q)
 
     G = np.diag([0.5, 1.0, 2.0])
     prop = WaltonManolopoulosPropagator(G, G, CELL, CELL, device="cpu")
-    with pytest.raises(NotImplementedError, match="DenseHessian"):
-        prop.initial_conditions(np.zeros(3), np.zeros(3), G,
-                                DenseHessianPES(), ntraj=4)
+    prop.initial_conditions(np.zeros(3), np.zeros(3), G, DenseHessianPES(),
+                            ntraj=4, generator=torch.Generator().manual_seed(1))
     assert prop.params.scan_diag and prop.params.diag is not None
     assert prop.params.diag_pack.shape == (17, 3)
+    assert not prop.state.diag_monodromy
+    cauto, kic = prop.propagate(DenseHessianPES(), 0.1, 3)
+    assert np.isfinite(cauto).all() and np.isfinite(kic).all()
     assert not _port_propagator(setup).params.scan_diag
+
+    bare = DenseHessianPES()
+    bare.hessian = lambda n, d, q: torch.eye(d, dtype=q.dtype)
+    with pytest.raises(NotImplementedError, match="Tensor"):
+        WaltonManolopoulosPropagator(G, G, CELL, CELL, device="cpu"
+                                     ).initial_conditions(
+            np.zeros(3), np.zeros(3), G, bare, ntraj=4)
