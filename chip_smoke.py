@@ -16,7 +16,9 @@ FP64 peak of 34 TFLOP/s (NVIDIA's H100 SXM data sheet). Phases, one line
 each, each with its wall time:
 
 1. device  — the card's name and power limit (nvidia-smi), the kernel build
-             time and ptxas' register / shared-memory report;
+             time and ptxas' register / shared-memory / spill report of
+             every kernel; the script fails if K2's block kernel or K4
+             spills in any instantiation;
 2. K1      — the batched-determinant kernel against its plain PyTorch
              version and against torch.linalg.det as the oracle, at the
              main path's shape (10000, 6, 6) in complex128 and complex64 and
@@ -28,9 +30,15 @@ each, each with its wall time:
              and against torch.linalg.det / solve, at the WM path's shapes
              (10000, 6, 6 | 12), (10000, 6, 6 | 6), (10000, 6, 6 | 5) in
              complex128 and complex64 and at the flagship leaf
-             (2048, 60, 60 | 120) in complex128; times at (10000, 6, 6 | 12)
-             complex128; checks and times at coumarin's WM leaves (2048, 45,
-             45 | 90), (| 45) and (| 5) in complex128;
+             (2048, 60, 60 | 120) in complex128; at both sides of its size
+             rule (`ops.gj.solve_variant`: the warp kernel to (8 | 56), the
+             block kernel from (8 | 57) and (9 | 5)) and at its limits
+             ((1 | 1), (64 | 128), B in three chunks at (33 | 159), a batch
+             of 10,001 that fills no whole block of the warp kernel,
+             complex64 at (45 | 90) and (64 | 128)); times at (10000, 6, 6 |
+             12) complex128; checks and times at coumarin's WM leaves (2048,
+             45, 45 | 90), (| 45) and (| 5) in complex128 (the plain version
+             there in 3 windows of 2 calls: one call takes tens of ms);
 4. K3      — the Gauss-Jordan det + inverse kernel the same way against
              torch.linalg.det / inv at (10000, 12, 12) and (10000, 6, 6) in
              complex128 and complex64 and at (2048, 60, 60) in complex128;
@@ -39,7 +47,8 @@ each, each with its wall time:
 4b. K4     — the block-per-matrix determinant kernel against its plain
              version (K1's) and torch.linalg.det at the sGDML prefactor's
              shape (2048, 45, 45) and at (2048, 64, 64) in complex128 and
-             (2048, 45, 45) in complex64; times of K4, K1, the plain version
+             (2048, 45, 45), (2048, 33, 33) and (2048, 64, 64) in complex64;
+             times of K4, K1, the plain version
              and torch.linalg.det at (2048, 45, 45) complex128, in turns;
 4c. K5     — the fused separable WM kernel against its plain version on
              the 60-mode AS example's WM state after 10 steps, at
@@ -140,12 +149,24 @@ K2_CASES = [
     (10000, 6, 5, "complex128", 1e-12, 1e-10),
     (10000, 6, 5, "complex64", 1e-5, 1e-4),
     (2048, 60, 120, "complex128", 1e-12, 1e-10),
+    # the size rule's two sides and the kernels' limits
+    (1001, 1, 1, "complex128", 1e-12, 1e-10),
+    (10001, 6, 12, "complex128", 1e-12, 1e-10),
+    (2048, 8, 56, "complex128", 1e-12, 1e-10),
+    (2048, 8, 57, "complex128", 1e-12, 1e-10),
+    (2048, 9, 5, "complex128", 1e-12, 1e-10),
+    (1024, 33, 159, "complex128", 1e-12, 1e-10),
+    (1024, 64, 128, "complex128", 1e-12, 1e-10),
+    (1024, 64, 128, "complex64", 1e-5, 1e-4),
+    (2048, 45, 90, "complex64", 1e-5, 1e-4),
 ]
 # (n, r, dtype name, limit kernel-vs-plain, limit vs the c128 oracle)
 K4_CASES = [
     (2048, 45, "complex128", 1e-12, 1e-10),
     (2048, 64, "complex128", 1e-12, 1e-10),
     (2048, 45, "complex64", 1e-5, 1e-4),
+    (2048, 33, "complex64", 1e-5, 1e-4),
+    (2048, 64, "complex64", 1e-5, 1e-4),
 ]
 # coumarin's WM leaves (2r = 90 split at m = 45): K2 (n, m, k), K3 (n, m)
 K2_LEAVES = [(2048, 45, 90), (2048, 45, 45), (2048, 45, 5)]
@@ -223,21 +244,27 @@ def median_ms(fn, *args, loops=10, calls=20):
     return samples
 
 
-def in_turns(kernel, plain, library, *args, others=None):
+def in_turns(kernel, plain, library, *args, others=None, plain_windows=None):
     """Median per-call ms of the kernel, the plain version, the library
     call (None: not timed) and any `others` (name: callable), timed in
     turns: plain, library, others, kernel, kernel, others reversed,
-    library, plain."""
+    library, plain. `plain_windows` = (loops, calls) times the plain
+    version in fewer and shorter windows than the rest."""
     import numpy as np
     fns = {"plain": plain, "library": library, **(others or {}),
            "kernel": kernel}
     t = {name: [] for name in fns}
     for name in list(fns) + list(reversed(fns)):
         if fns[name] is not None:
-            t[name] += median_ms(fns[name], *args)
+            loops, calls = (plain_windows if name == "plain" and plain_windows
+                            else (10, 20))
+            t[name] += median_ms(fns[name], *args, loops=loops, calls=calls)
     med = {name: float(np.median(v)) if v else None for name, v in t.items()}
     return {"ms": med["kernel"], "plain_ms": med["plain"],
             "library_ms": med["library"], "windows": len(t["kernel"]),
+            "plain_note": (f" ({len(t['plain'])} windows of "
+                           f"{plain_windows[1]} calls)" if plain_windows
+                           else ""),
             **{f"{name}_ms": med[name] for name in (others or {})}}
 
 
@@ -251,7 +278,8 @@ def bound(nbytes, flops):
 
 def timing_line(label, shape, timed, bound_ms, bound_by, library):
     return (f"{label} time at {shape}: kernel {timed['ms']:.4f} ms, plain "
-            f"{timed['plain_ms']:.4f} ms, library ({library}) "
+            f"{timed['plain_ms']:.4f} ms{timed['plain_note']}, library "
+            f"({library}) "
             + (f"{timed['library_ms']:.4f} ms" if timed["library_ms"]
                is not None else "none")
             + f" per call (median of {timed['windows']} CUDA-event windows "
@@ -385,6 +413,7 @@ def k2_phase(gj):
         n, m, k = shape
         A = well_conditioned(n, m, dtype, g)
         B = gaussian((n, m, k), dtype, g)
+        print(f"K2 ({m} | {k}): {gj.solve_variant(m, k)}", flush=True)
         return (gj.batched_det_solve_gj(A, B),
                 gj.batched_det_solve_gj_plain(A, B), (A, B))
 
@@ -398,11 +427,15 @@ def k2_phase(gj):
         A = well_conditioned(n, m, torch.complex128, g)
         B = gaussian((n, m, k), torch.complex128, g)
         timed = in_turns(gj.batched_det_solve_gj,
-                         gj.batched_det_solve_gj_plain, solve_library, A, B)
+                         gj.batched_det_solve_gj_plain, solve_library, A, B,
+                         plain_windows=(3, 2) if m > 6 else None)
         b = bound(n * (m * m + 2 * m * k + 1) * 16, gj_solve_flops(n, m, k))
         print(timing_line("K2", f"({n}, {m}, {m} | {k}) complex128", timed,
                           *b, "torch.linalg.solve + det"), flush=True)
         results[(n, m, k)] = dict(timed, bound_ms=b[0], bound_by=b[1])
+    print(f"K2 at coumarin's three leaves: "
+          f"{sum(results[leaf]['ms'] for leaf in K2_LEAVES):.4f} ms in all",
+          flush=True)
     return dict(results[(10000, 6, 12)], max_abs_err=main_abs_err)
 
 
@@ -802,9 +835,17 @@ def main():
     _build.load()
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.3f} s "
           f"({' '.join(_build.NVCC_FLAGS)})", flush=True)
+    entry = ""
     for line in _build.build_log().splitlines():
         if "Used" in line or "Compiling entry" in line or "spill" in line:
             print(f"build: {line.strip()}", flush=True)
+        if "Compiling entry" in line:
+            entry = line
+        if "spill" in line and ("gj_solve_block_kernel" in entry
+                                or "det_lu_block_kernel" in entry):
+            check("0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"a register-tile kernel spills: {entry.strip()}: "
+                  f"{line.strip()}")
 
     def phase(name, fn, *args, **kwargs):
         t = time.perf_counter()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 # coding: utf-8
 """Per-step time, kernel launches and device idle share of the port's HK
-and WM steps on one NVIDIA GPU, on one of two examples:
+and WM steps on one NVIDIA GPU, on one of three examples:
 
 * `--example as` (default): the 60-mode anharmonic AS example
   (examples/as_model: make_model.py's model, rng seed 42, 60 modes, chi
@@ -10,7 +10,10 @@ and WM steps on one NVIDIA GPU, on one of two examples:
   semi.json: float32 Hessian, hessian_eval "taylor", taylor_every 8), 2048
   trajectories by default, the example's own; the window restarts at the
   head of every timed or traced run, so make `--window` and `--steps`
-  multiples of 8.
+  multiples of 8;
+* `--example methylium`: the molecular harmonic example
+  (examples/methylium_AH/semi.json, dense widths at rank 6), 10,000
+  trajectories by default, one batch of the example.
 
 It builds the task's potential through the port's CLI, samples one batch
 with HK and with WM (cell width 1e4), and for each:
@@ -24,7 +27,7 @@ with HK and with WM (cell width 1e4), and for each:
 
 Prints one JSON object, and writes it to `--out` if given.
 
-    python scripts/torch_step_profile.py [--example as|coumarin]
+    python scripts/torch_step_profile.py [--example as|coumarin|methylium]
         [--ntraj N] [--steps 48] [--window 200] [--out profile.json]
 """
 
@@ -108,10 +111,11 @@ def _as_potential(cli):
     return potential, q0, G
 
 
-def _coumarin_potential(cli):
-    """The sGDML example's potential (semi.json), wavepacket centre and
-    widths."""
-    example = ROOT / "examples" / "coumarin_gdml"
+def _json_potential(cli, example):
+    """The potential, wavepacket centre and widths of the first task of
+    examples/`example`/semi.json (coumarin_gdml: the sGDML example;
+    methylium_AH: the molecular harmonic one)."""
+    example = ROOT / "examples" / example
     with open(example / "semi.json") as f:
         task = json.load(f)["semi"][0]
     for key in ("ground", "excited", "coupling"):
@@ -122,7 +126,8 @@ def _coumarin_potential(cli):
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--example", choices=("as", "coumarin"), default="as")
+    parser.add_argument("--example", choices=("as", "coumarin", "methylium"),
+                        default="as")
     parser.add_argument("--ntraj", type=int, default=None)
     parser.add_argument("--steps", type=int, default=48)
     parser.add_argument("--window", type=int, default=200)
@@ -136,12 +141,17 @@ def main(argv=None):
     from semiclassical_tpu_torch.ops import det, det_block, gj, wm_diag
 
     if args.ntraj is None:
-        args.ntraj = 98304 if args.example == "as" else 2048
+        args.ntraj = {"as": 98304, "coumarin": 2048,
+                      "methylium": 10000}[args.example]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    potential, q0, G = (_as_potential if args.example == "as"
-                        else _coumarin_potential)(cli)
+    if args.example == "as":
+        potential, q0, G = _as_potential(cli)
+    else:
+        potential, q0, G = _json_potential(
+            cli, {"coumarin": "coumarin_gdml",
+                  "methylium": "methylium_AH"}[args.example])
     dt = 0.005 / units.autime_to_fs
 
     props = {name: _propagator(name, G, q0, potential, args.ntraj, args.seed)

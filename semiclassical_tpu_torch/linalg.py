@@ -11,13 +11,16 @@
   modes that the separable (diagonal) path uses for every determinant;
   `batched_det`, the per-step determinant of the HK prefactor matrices,
   which goes by its size r to one of two hand-written kernels: K1
-  (`ops.det`, one warp per matrix) for r <= `DET_WARP_MAX_R`, K4
-  (`ops.det_block`, one thread block per matrix) above;
+  (`ops.det`, one warp per matrix in shared memory) for r <=
+  `DET_WARP_MAX_R`, K4 (`ops.det_block`, one thread block per matrix with
+  the matrix in registers) above;
   and the WM eliminations `batched_det_inv`, `batched_det_solve` and
   `batched_det_solve_blocks`, which go to the Gauss-Jordan kernels of
   `ops.gj` at leaves of m <= 64 (the structure of the JAX package's lanes
   path: block-Schur levels above the leaf, block products as batched
-  matmuls).
+  matmuls). K2 picks its own layout by the leaf's shape
+  (`ops.gj.solve_variant`: a warp per matrix for m <= 8, a thread block per
+  matrix and column chunk with the matrix in registers above).
 """
 
 from __future__ import annotations
@@ -134,7 +137,10 @@ def logspace_mode_product(z_re, z_im, dim=1):
 
 # The size rule of `batched_det`: K1 gives a matrix one warp, whose 32
 # lanes cover a row up to r = 32; above that, to r = 64, K4 gives it a
-# thread block (methylium's r = 6 takes K1, coumarin's r = 45 K4).
+# thread block (methylium's r = 6 takes K1, coumarin's r = 45 K4). On an
+# H100 K4 is 1.6x faster than K1 at r = 32, level with it at r = 24 and
+# slower below (half as fast at r = 6), so the rule stays at the lanes'
+# width.
 DET_WARP_MAX_R = 32
 
 

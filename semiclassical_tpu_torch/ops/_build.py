@@ -42,9 +42,10 @@ _ENTRY_POINTS = {
     # csrc/det_lu_block.cu (K4): a, det, n, r, stream
     "semi_det_lu_block_c128": (_P, _P, _N, _I, _P),
     "semi_det_lu_block_c64": (_P, _P, _N, _I, _P),
-    # csrc/gj_det.cu (K2): a, b, sol, det, n, m, k, stream
-    "semi_gj_det_solve_c128": (_P, _P, _P, _P, _N, _I, _I, _P),
-    "semi_gj_det_solve_c64": (_P, _P, _P, _P, _N, _I, _I, _P),
+    # csrc/gj_det.cu (K2): a, b, sol, det, n, m, k, warps, tile_rows,
+    # tile_cols, chunks, stream
+    "semi_gj_det_solve_c128": (_P, _P, _P, _P, _N, *(_I,) * 6, _P),
+    "semi_gj_det_solve_c64": (_P, _P, _P, _P, _N, *(_I,) * 6, _P),
     # csrc/gj_det.cu (K3): a, inv, det, n, m, stream
     "semi_gj_det_inv_c128": (_P, _P, _P, _N, _I, _P),
     "semi_gj_det_inv_c64": (_P, _P, _P, _N, _I, _P),

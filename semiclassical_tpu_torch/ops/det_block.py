@@ -11,14 +11,14 @@ one warp per matrix covers a row with its lanes.
 
 What bounds the kernel (`csrc/det_lu_block.cu`): at (2048, 45, 45)
 complex128 one call reads 66.4 MB and does 0.49 GFLOP, so bytes and FP64
-throughput are within a factor 1.4 of each other. The design gives each matrix
-a block of 256 threads that tile the trailing update in 2-D over the
-matrix in shared memory (row stride r + 1), so an SM runs many warps
-where K1 runs one per matrix; it reads the interleaved re/im layout in
-place and writes one complex number per matrix. In practice neither
-bound is reached: every pivot's trailing update moves each remaining
-element through shared memory (two reads and a write of 16 bytes), so
-shared-memory traffic sets the time (PERF.md).
+throughput are within a factor 1.4 of each other; what a block waits on is
+the chain of its r pivots. The design gives each matrix a block of 16 x 16
+threads, each holding a fixed register tile of the matrix (rows and columns
+dealt cyclically, 3 x 3 entries at r = 45) across all pivots; per pivot only
+the pivot row, the pivot column and the reciprocal pivot pass through
+shared memory, with one barrier, and three blocks share an SM and overlap
+their chains. It reads the interleaved re/im layout in place and writes one
+complex number per matrix (times in PERF.md).
 
 The elimination is K1's, so the plain version is `ops.det`'s
 `batched_det_lu_plain`, re-exported here. `batched_det_block` launches the

@@ -16,10 +16,26 @@ A (n, m, m) by in-place unpivoted Gauss-Jordan, column k collecting the
 inverse factors. It builds the WM trackers (`wm_derived`, twice per batch).
 
 Both eliminate in the TPU kernels' pivot order with the same complex
-arithmetic (reciprocal pivot conj(p)/|p|^2, rank-1 row updates). What
-bounds the kernels and how `csrc/gj_det.cu` is laid out is described at the
-top of that file: one warp per matrix in shared memory, the complex tensors
-read in place through their interleaved re/im layout.
+arithmetic (reciprocal pivot conj(p)/|p|^2, rank-1 row updates).
+
+What bounds K2 on the card is the chain of m pivots, each waiting on the
+update before it, not the flops or bytes of a call; with the matrix in
+shared memory every update adds three shared loads and a store to that
+chain. So `csrc/gj_det.cu` keeps the augmented matrix in registers and
+passes only a pivot's scaled row and its column between threads. It has
+two layouts, and `solve_variant` names the one a shape takes:
+
+* the *block* kernel: 8 or 16 warps own one matrix [A | B_c], B_c one of
+  `chunks` column chunks of B; warps over rows, lanes over columns, a
+  `tile_rows` x `tile_cols` register tile per thread; a pivot's row and
+  column go through a few KB of double-buffered shared memory, one barrier
+  per pivot (coumarin's m = 45 leaves, the flagship's (60 | 120));
+* the *warp* kernel for m <= 8 and m + k <= 64: one warp owns a matrix of
+  at most 8 KB in shared memory, eight warps to a block (methylium's m = 6
+  leaves; a register-and-shuffle version measured slower there, PERF.md).
+
+K3 keeps its first layout, one warp per matrix in shared memory. All read
+the complex tensors in place through their interleaved re/im layout.
 
 The wrappers launch the kernel for tensors on the card and raise on
 anything it does not take; they use the plain version only for tensors on
@@ -28,18 +44,68 @@ the CPU. There is no fallback from a kernel to its plain version.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 __all__ = ["batched_det_solve_gj", "batched_det_inv_gj",
            "batched_det_solve_gj_plain", "batched_det_inv_gj_plain",
-           "check_solve_args", "check_inv_args", "LAUNCHES", "MAX_M",
-           "MAX_WIDTH"]
+           "check_solve_args", "check_inv_args", "solve_variant",
+           "SolveVariant", "LAUNCHES", "MAX_M", "MAX_WIDTH", "WARP_MAX_M",
+           "WARP_MAX_WIDTH"]
 
 MAX_M = 64        # rows (and A columns) a kernel takes
 MAX_WIDTH = 192   # m + k of K2's augmented matrix
 
+# K2's warp kernel takes m <= WARP_MAX_M rows and m + k <= WARP_MAX_WIDTH
+WARP_MAX_M = 8
+WARP_MAX_WIDTH = 64
+
 # kernel launches made by the wrappers, per kernel (one per launch)
 LAUNCHES = {"det_solve": 0, "det_inv": 0}
+
+
+class SolveVariant(NamedTuple):
+    """The layout K2 gives a shape: `kind` "warp" (one warp per matrix in
+    shared memory, `warps` = 1, no tile) or "block" (`warps` warps per
+    matrix and chunk, a thread holding `tile_rows` x `tile_cols` entries in
+    registers, B cut into `chunks` column chunks, each eliminated with A by
+    a block of its own)."""
+    kind: str
+    warps: int
+    tile_rows: int
+    tile_cols: int
+    chunks: int
+
+
+# K2's block layouts by rows: (largest m, warps, tile rows, widest tile in
+# columns). A thread holds at most 18 entries (72 registers in complex128),
+# so that two blocks of 8 warps, or one of 16, fit an SM's registers.
+_BLOCK_ROWS = ((16, 8, 2, 6), (32, 8, 4, 4), (48, 8, 6, 3), (64, 16, 4, 4))
+_LANES = 32
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def solve_variant(m: int, k: int) -> SolveVariant:
+    """The size rule of K2: the layout `csrc/gj_det.cu` runs for A (m, m),
+    B (m, k), in either complex type. m <= 8 with m + k <= 64 takes the
+    warp kernel; anything else the block kernel, with warps and tile rows
+    by m and B in the fewest chunks whose [A | B_c] fits the widest tile
+    (coumarin's (45 | 90) runs as two chunks of (45 | 45))."""
+    if not (1 <= m <= MAX_M and k >= 1 and m + k <= MAX_WIDTH):
+        raise ValueError(f"K2 takes 1 <= m <= {MAX_M}, k >= 1 and m + k <= "
+                         f"{MAX_WIDTH}, got (m | k) = ({m} | {k})")
+    if m <= WARP_MAX_M and m + k <= WARP_MAX_WIDTH:
+        return SolveVariant("warp", 1, 0, 0, 1)
+    warps, tile_rows, max_cols = next(row[1:] for row in _BLOCK_ROWS
+                                      if m <= row[0])
+    chunks = _ceil_div(k, _LANES * max_cols - m)
+    widest = m + _ceil_div(k, chunks)
+    return SolveVariant("block", warps, tile_rows, _ceil_div(widest, _LANES),
+                        chunks)
 
 
 def _cmul(x_re, x_im, y_re, y_im):
@@ -178,10 +244,12 @@ def _launch_solve(A, B):
     if n == 0:
         return det, sol
     fn = _entry(_build.load(), "det_solve", A.dtype)
+    variant = solve_variant(m, B.shape[2])
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = fn(A.data_ptr(), B.data_ptr(), sol.data_ptr(), det.data_ptr(),
-                 n, m, B.shape[2], stream)
+                 n, m, B.shape[2], variant.warps, variant.tile_rows,
+                 variant.tile_cols, variant.chunks, stream)
     _raise_on(err, "det_solve", A)
     LAUNCHES["det_solve"] += 1
     return det, sol

@@ -8,8 +8,9 @@ on a machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 K1 (`ops.det.batched_det`, csrc/det_lu.cu), K2 and K3
-(`ops.gj.batched_det_solve_gj` / `batched_det_inv_gj`, csrc/gj_det.cu) are
-held against their plain PyTorch versions on the same inputs: 1e-12
+(`ops.gj.batched_det_solve_gj` / `batched_det_inv_gj`, csrc/gj_det.cu; K2 at
+both sides of its size rule, with every tile layout of its block kernel)
+are held against their plain PyTorch versions on the same inputs: 1e-12
 relative in complex128 and 1e-5 in complex64 (rounding-order differences
 of the same elimination, FMA contraction included), on well-conditioned
 matrices I + 0.3 noise/sqrt(r). K5 (`ops.wm_diag.wm_diag_derived`,
@@ -83,15 +84,28 @@ def _rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+# K2's two layouts (`gj.solve_variant`): the warp kernel to (8 | 56), with a
+# batch that is not a multiple of its 4 matrices per block, the block kernel
+# above, with every row layout (m <= 16, 32, 48, 64), B in one, two and
+# three chunks, and the widest tiles
 @pytest.mark.parametrize("dtype, m, k, n, rtol", [
     (torch.complex128, 6, 12, 1000, 1e-12), (torch.complex64, 6, 12, 1000, 1e-5),
     (torch.complex128, 6, 5, 1000, 1e-12), (torch.complex128, 1, 1, 33, 1e-12),
     (torch.complex128, 60, 120, 64, 1e-12), (torch.complex128, 64, 128, 40, 1e-12),
-    (torch.complex64, 45, 45, 100, 1e-5)])
+    (torch.complex64, 45, 45, 100, 1e-5),
+    (torch.complex128, 6, 12, 1001, 1e-12), (torch.complex128, 8, 56, 101, 1e-12),
+    (torch.complex128, 8, 57, 101, 1e-12), (torch.complex128, 9, 5, 101, 1e-12),
+    (torch.complex128, 16, 176, 50, 1e-12), (torch.complex128, 17, 100, 50, 1e-12),
+    (torch.complex128, 32, 160, 50, 1e-12), (torch.complex128, 33, 159, 50, 1e-12),
+    (torch.complex128, 45, 90, 257, 1e-12), (torch.complex128, 45, 5, 257, 1e-12),
+    (torch.complex128, 49, 1, 50, 1e-12), (torch.complex128, 64, 1, 50, 1e-12),
+    (torch.complex64, 45, 90, 257, 1e-5), (torch.complex64, 64, 128, 40, 1e-5)])
 def test_solve_kernel_matches_plain(card, dtype, m, k, n, rtol):
     A = _well_conditioned(n, m, dtype, card, seed=m)
     B = _well_conditioned(n, max(m, k), dtype, card, seed=k)[:, :m, :k]
     B = B.contiguous()
+    assert gj.solve_variant(m, k).kind == (
+        "warp" if m <= 8 and m + k <= 64 else "block")
     before = gj.LAUNCHES["det_solve"]
     det, sol = gj.batched_det_solve_gj(A, B)
     torch.cuda.synchronize()
@@ -200,7 +214,10 @@ def test_wm_diag_wrapper_raises_on_card(card, case):
     (torch.complex128, 45, 2048, 1e-12), (torch.complex64, 45, 2048, 1e-5),
     (torch.complex128, 64, 300, 1e-12), (torch.complex64, 64, 300, 1e-5),
     (torch.complex128, 33, 257, 1e-12), (torch.complex128, 1, 33, 1e-12),
-    (torch.complex128, 6, 1000, 1e-12)])
+    (torch.complex128, 6, 1000, 1e-12), (torch.complex128, 16, 100, 1e-12),
+    (torch.complex128, 17, 100, 1e-12), (torch.complex128, 32, 100, 1e-12),
+    (torch.complex128, 48, 100, 1e-12), (torch.complex128, 49, 100, 1e-12),
+    (torch.complex64, 33, 257, 1e-5)])
 def test_block_kernel_matches_plain(card, dtype, r, n, rtol):
     """K4 against the plain elimination it shares with K1, and against
     torch.linalg.det (a pivoted LU: 1e-10 in complex128, 1e-4 in

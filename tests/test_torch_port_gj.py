@@ -13,6 +13,11 @@ unpivoted eliminations in the same pivot order). They are held against
   interpret mode, at complex64 and 1e-4 relative, the tolerance of
   tests/test_ops.py.
 
+K2's size rule (`gj.solve_variant`: which layout of csrc/gj_det.cu a
+shape takes) is a plain function and is checked here at the paths' shapes
+and at its limits, and for every shape the kernel takes against the list of
+layouts that file compiles.
+
 The CUDA kernels themselves are compared with the plain versions on the
 card by tests/test_torch_port_cuda.py.
 """
@@ -102,6 +107,26 @@ def jax_xla():
 
 def _blocks(M, r):
     return M[:, :r, :r], M[:, :r, r:], M[:, r:, :r], M[:, r:, r:]
+
+
+def test_linalg_coumarin_leaves_match_jax(jax_xla, caplog):
+    """The WM A-solve at coumarin's rank: 2r = 90 split into two m = 45
+    leaves, k = 45, so K2 sees (45 | 90) and then (45 | 45)."""
+    rng = np.random.default_rng(45)
+    A, B = _well_conditioned(rng, 5, 90), _rhs(rng, 5, 90, 45)
+    det_ref, Y_ref = jax_xla.batched_det_solve_blocks(
+        *_blocks(jnp.asarray(A), 45), jnp.asarray(B[:, :45]),
+        jnp.asarray(B[:, 45:]))
+    linalg._K2_LEAVES.clear()
+    with caplog.at_level("INFO", logger=linalg.logger.name):
+        det, Y = linalg.batched_det_solve_blocks(
+            *_blocks(torch.from_numpy(A), 45), torch.from_numpy(B[:, :45]),
+            torch.from_numpy(B[:, 45:]))
+    assert linalg._K2_LEAVES == {(45, 90), (45, 45)}
+    assert "(45 | 90)" in caplog.text and "(45 | 45)" in caplog.text
+    np.testing.assert_allclose(det.numpy(), np.asarray(det_ref), rtol=1e-10,
+                               atol=0)
+    assert _rel(Y.numpy(), np.asarray(Y_ref)) < 1e-10
 
 
 def test_linalg_det_solve_blocks_matches_jax(jax_xla):
@@ -220,3 +245,52 @@ def test_solve_arg_check_rejects(A, B, match):
 def test_inv_arg_check_rejects(A, match):
     with pytest.raises(ValueError, match=match):
         gj.check_inv_args(A)
+
+
+# (m, k) -> (kind, warps, tile rows, tile columns, chunks): methylium's
+# leaves, coumarin's three, the flagship's, both sides of the warp kernel's
+# limits (m = 8, m + k = 64), each row layout's largest m, B in three chunks
+@pytest.mark.parametrize("m, k, variant", [
+    (6, 12, ("warp", 1, 0, 0, 1)), (6, 6, ("warp", 1, 0, 0, 1)),
+    (6, 5, ("warp", 1, 0, 0, 1)), (1, 1, ("warp", 1, 0, 0, 1)),
+    (8, 56, ("warp", 1, 0, 0, 1)), (8, 57, ("block", 8, 2, 3, 1)),
+    (9, 5, ("block", 8, 2, 1, 1)), (45, 90, ("block", 8, 6, 3, 2)),
+    (45, 45, ("block", 8, 6, 3, 1)), (45, 5, ("block", 8, 6, 2, 1)),
+    (60, 120, ("block", 16, 4, 4, 2)), (64, 128, ("block", 16, 4, 4, 2)),
+    (16, 176, ("block", 8, 2, 6, 1)), (17, 1, ("block", 8, 4, 1, 1)),
+    (32, 160, ("block", 8, 4, 4, 2)), (33, 159, ("block", 8, 6, 3, 3)),
+    (48, 48, ("block", 8, 6, 3, 1)), (49, 1, ("block", 16, 4, 2, 1)),
+])
+def test_solve_variant(m, k, variant):
+    assert gj.solve_variant(m, k) == gj.SolveVariant(*variant)
+    assert (gj.WARP_MAX_M, gj.WARP_MAX_WIDTH) == (8, 64)
+
+
+def test_solve_variant_covers_every_shape():
+    """Every shape K2 takes gets a layout that csrc/gj_det.cu compiles
+    (its SEMI_BLOCK_CASE list) and that its launcher accepts: the tile
+    covers the matrix and its widest chunk, no chunk is empty, and the
+    tile is no wider than the chunk needs."""
+    compiled = ({(8, 2, c) for c in range(1, 7)}
+                | {(8, 4, c) for c in range(1, 5)} | {(8, 6, 2), (8, 6, 3)}
+                | {(16, 4, 2), (16, 4, 3), (16, 4, 4)})
+    for m in range(1, gj.MAX_M + 1):
+        for k in range(1, gj.MAX_WIDTH - m + 1):
+            v = gj.solve_variant(m, k)
+            if m <= 8 and m + k <= 64:
+                assert v.kind == "warp" and v.warps == 1
+                assert m * (m + k) * 16 <= 48 * 1024
+                continue
+            assert v.kind == "block"
+            assert (v.warps, v.tile_rows, v.tile_cols) in compiled, (m, k, v)
+            widest = m + -(-k // v.chunks)
+            assert v.warps * v.tile_rows >= m, (m, k, v)
+            assert 32 * (v.tile_cols - 1) < widest <= 32 * v.tile_cols
+            assert (v.chunks - 1) * (widest - m) < k, (m, k, v)
+
+
+@pytest.mark.parametrize("m, k", [(0, 1), (65, 1), (6, 0), (64, 129),
+                                  (1, 192)])
+def test_solve_variant_rejects(m, k):
+    with pytest.raises(ValueError, match="K2 takes"):
+        gj.solve_variant(m, k)
