@@ -17,15 +17,24 @@ each, each with its wall time:
 
 1. device  — the card's name and power limit (nvidia-smi), the kernel build
              time and ptxas' register / shared-memory / spill report of
-             every kernel; the script fails if K2's block kernel or K4
-             spills in any instantiation;
+             every kernel; the script fails if any instantiation of K1, K2,
+             K3 or K4 spills;
 2. K1      — the batched-determinant kernel against its plain PyTorch
              version and against torch.linalg.det as the oracle, at the
              main path's shape (10000, 6, 6) in complex128 and complex64 and
              at (4096, 45, 45) and (4096, 60, 60) in complex128, on
-             well-conditioned inputs I + 0.3 noise / sqrt(r); then the
-             kernel's and the plain version's median times at
-             (10000, 6, 6) complex128 (CUDA events);
+             well-conditioned inputs I + 0.3 noise / sqrt(r); at both sides
+             of its size rule (`ops.det.det_variant`: the rows kernel to
+             r = 16, the warp kernel from 17) and of 8 | 9, of the rule of
+             `linalg.batched_det` (K1 | K4) and at r = 1, in both types,
+             with batches of 10,001 and 1001 that fill no whole warp of
+             matrices; then the kernel's and the plain version's median
+             times at (10000, 6, 6) complex128 (CUDA events); the same
+             call's host time (the C entry point called directly with its
+             output allocated once, the wrapper, their difference, the
+             floor of a launch at n = 1); and the large-n row (10^6, 6, 6),
+             where the device time dominates the call: entry point,
+             wrapper and library beside the bound;
 3. K2      — the Gauss-Jordan det + solve kernel against its plain version
              and against torch.linalg.det / solve, at the WM path's shapes
              (10000, 6, 6 | 12), (10000, 6, 6 | 6), (10000, 6, 6 | 5) in
@@ -40,16 +49,22 @@ each, each with its wall time:
              45, 45 | 90), (| 45) and (| 5) in complex128 (the plain version
              there in 3 windows of 2 calls: one call takes tens of ms);
 4. K3      — the Gauss-Jordan det + inverse kernel the same way against
-             torch.linalg.det / inv at (10000, 12, 12) and (10000, 6, 6) in
-             complex128 and complex64 and at (2048, 60, 60) in complex128;
-             times at (10000, 12, 12) complex128; checks and times at
-             coumarin's leaf (2048, 45, 45) in complex128;
+             torch.linalg.det / inv at (10000, 12, 12) and (10000, 6, 6),
+             (2048, 60, 60) and (1024, 64, 64) in complex128 and complex64;
+             at both sides of its size rule (`ops.gj.inv_variant`: the rows
+             kernel to m = 16, the block kernel from 17, with the largest
+             and smallest m of each block layout) and of 8 | 9, with
+             ragged batches; times at (10000, 12, 12) complex128; checks
+             and times at coumarin's leaf (2048, 45, 45) in complex128 and
+             complex64; host times as for K1; the large-n rows (10^6, 6, 6)
+             and (10^5, 12, 12), the shapes of a WM norm's pair blocks;
 4b. K4     — the block-per-matrix determinant kernel against its plain
              version (K1's) and torch.linalg.det at the sGDML prefactor's
              shape (2048, 45, 45) and at (2048, 64, 64) in complex128 and
              (2048, 45, 45), (2048, 33, 33) and (2048, 64, 64) in complex64;
              times of K4, K1, the plain version
              and torch.linalg.det at (2048, 45, 45) complex128, in turns;
+             host times as for K1 (K2's at (10000, 6, 6 | 12) in its phase);
 4c. K5     — the fused separable WM kernel against its plain version on
              the 60-mode AS example's WM state after 10 steps, at
              (98304, 60), (8192, 60) and (1000, 5) in float64 and (98304,
@@ -139,6 +154,16 @@ K1_CASES = [
     (10000, 6, "complex64", 1e-5, 1e-4),
     (4096, 45, "complex128", 1e-12, 1e-10),
     (4096, 60, "complex128", 1e-12, 1e-10),
+    # both sides of the rows kernel's limit (16 | 17) and of 8 | 9, batches
+    # that fill no whole warp of matrices
+    (10001, 8, "complex128", 1e-12, 1e-10),
+    (10001, 9, "complex128", 1e-12, 1e-10),
+    (10001, 9, "complex64", 1e-5, 1e-4),
+    (1001, 16, "complex128", 1e-12, 1e-10),
+    (1001, 16, "complex64", 1e-5, 1e-4),
+    (1001, 17, "complex128", 1e-12, 1e-10),
+    (1001, 17, "complex64", 1e-5, 1e-4),
+    (1001, 1, "complex128", 1e-12, 1e-10),
 ]
 # (n, m, k, dtype name, limit kernel-vs-plain, limit vs the c128 oracle)
 K2_CASES = [
@@ -185,7 +210,35 @@ K3_CASES = [
     (10000, 6, "complex128", 1e-12, 1e-10),
     (10000, 6, "complex64", 1e-5, 1e-4),
     (2048, 60, "complex128", 1e-12, 1e-10),
+    (2048, 60, "complex64", 1e-5, 1e-4),
+    (1024, 64, "complex128", 1e-12, 1e-10),
+    (1024, 64, "complex64", 1e-5, 1e-4),
+    (2048, 45, "complex64", 1e-5, 1e-4),
+    # both sides of the rows kernel's limit (16 | 17) and of 8 | 9, batches
+    # that fill no whole warp of matrices; the block layouts' largest m
+    (10001, 8, "complex128", 1e-12, 1e-10),
+    (10001, 9, "complex128", 1e-12, 1e-10),
+    (10001, 9, "complex64", 1e-5, 1e-4),
+    (1001, 16, "complex128", 1e-12, 1e-10),
+    (1001, 16, "complex64", 1e-5, 1e-4),
+    (1001, 17, "complex128", 1e-12, 1e-10),
+    (1001, 17, "complex64", 1e-5, 1e-4),
+    (1001, 20, "complex128", 1e-12, 1e-10),
+    (1001, 21, "complex128", 1e-12, 1e-10),
+    (1001, 24, "complex128", 1e-12, 1e-10),
+    (1001, 25, "complex64", 1e-5, 1e-4),
+    (1001, 28, "complex128", 1e-12, 1e-10),
+    (1001, 29, "complex128", 1e-12, 1e-10),
+    (1001, 32, "complex128", 1e-12, 1e-10),
+    (1001, 33, "complex128", 1e-12, 1e-10),
+    (1001, 48, "complex128", 1e-12, 1e-10),
+    (1001, 49, "complex128", 1e-12, 1e-10),
+    (1001, 1, "complex128", 1e-12, 1e-10),
 ]
+# the rows where the device time dominates a call (the pair blocks of a WM
+# norm at r = 6): K1 (n, r), K3 (n, m), complex128
+K1_LARGE = [(1000000, 6)]
+K3_LARGE = [(1000000, 6), (100000, 12)]
 
 
 def check(cond, msg):
@@ -295,6 +348,86 @@ def lu_flops(n, r):
                    for k in range(r))
 
 
+def direct_call(entry, tensors, *ints):
+    """A closure that launches the C entry point `entry` of the built
+    library on the tensors' pointers, `ints` and the current stream: the
+    kernel without its wrapper, the outputs among `tensors` allocated once."""
+    import torch
+
+    from semiclassical_tpu_torch.ops import _build
+    fn = getattr(_build.load(), entry)
+    args = (*(t.data_ptr() for t in tensors), *ints,
+            torch.cuda.current_stream().cuda_stream)
+    return lambda: fn(*args)
+
+
+def direct_det(det, A):
+    """K1's entry point on A with the layout of its size rule."""
+    import torch
+    n, r, _ = A.shape
+    out = torch.empty(n, dtype=A.dtype, device=A.device)
+    return direct_call("semi_det_lu_c128", (A, out), n, r,
+                       det.LAYOUT_CODES[det.det_variant(r)])
+
+
+def direct_inv(gj, A):
+    """K3's entry point on A with the layout of its size rule."""
+    import torch
+    n, m, _ = A.shape
+    out = (torch.empty_like(A), torch.empty(n, dtype=A.dtype,
+                                            device=A.device))
+    return direct_call("semi_gj_det_inv_c128", (A, *out), n, m,
+                       *gj.inv_variant(m)[1:])
+
+
+def host_line(label, shape, make_direct, wrapper, *args):
+    """One line on where a small call's time goes: the C entry point called
+    directly, the wrapper, their difference (the wrapper's host time when
+    the kernel is shorter than it) and the floor of a launch (the entry
+    point at n = 1), in turns direct, wrapper, wrapper, direct."""
+    import numpy as np
+    direct = make_direct(*args)
+    floor = make_direct(*(x[:1].contiguous() for x in args))
+    t = {"direct": [], "wrapper": []}
+    for name in ("direct", "wrapper", "wrapper", "direct"):
+        t[name] += (median_ms(direct, loops=5, calls=50) if name == "direct"
+                    else median_ms(wrapper, *args, loops=5, calls=50))
+    d, w = (1e3 * float(np.median(t[name])) for name in ("direct", "wrapper"))
+    f = 1e3 * float(np.median(median_ms(floor, loops=5, calls=50)))
+    print(f"{label} host time at {shape}: entry point called directly "
+          f"{d:.1f} us, through the wrapper {w:.1f} us, wrapper minus direct "
+          f"{w - d:.1f} us per call; floor of a launch (n = 1) {f:.1f} us "
+          f"(median of CUDA-event windows of 50 calls)", flush=True)
+    return d / 1e3
+
+
+def large_row(label, shape, make_direct, wrapper, library, library_name,
+              oracle_err, A, bound_ms, bound_by):
+    """A row where the device time dominates the call: the entry point
+    called directly, the wrapper and the library call in turns (the
+    library in 2 windows of 2 calls each way; the plain version is not
+    timed at this size), the kernel held against the library's result."""
+    import numpy as np
+    direct = make_direct(A)
+    t = {"library": [], "direct": [], "wrapper": []}
+    for name in ("library", "direct", "wrapper", "wrapper", "direct",
+                 "library"):
+        t[name] += (median_ms(library, A, loops=2, calls=2)
+                    if name == "library" else
+                    median_ms(direct, loops=5, calls=10) if name == "direct"
+                    else median_ms(wrapper, A, loops=5, calls=10))
+    d, w, lib = (float(np.median(t[name]))
+                 for name in ("direct", "wrapper", "library"))
+    err = oracle_err(wrapper(A), A)
+    print(f"{label} large-n row {shape} complex128: entry point called "
+          f"directly {d:.4f} ms, through the wrapper {w:.4f} ms, library "
+          f"({library_name}) {lib:.4f} ms per call, plain version not timed;"
+          f" bound {bound_ms:.4f} ms by {bound_by}, "
+          f"{100 * bound_ms / d:.1f}% of it reached; max rel err against "
+          f"the library's result {err:.3e} (limit 1e-10)", flush=True)
+    check(err <= 1e-10, f"{label} at {shape} vs the library: {err}")
+
+
 def check_cases(label, cases, run, oracle, main_case):
     """Kernel vs plain vs the complex128 oracle on every case; returns the
     largest absolute kernel-plain difference at `main_case`. `run(case,
@@ -329,6 +462,8 @@ def check_cases(label, cases, run, oracle, main_case):
 def k1_phase(det):
     import torch
 
+    from semiclassical_tpu_torch import linalg
+
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
 
@@ -336,7 +471,12 @@ def k1_phase(det):
         A = well_conditioned(*shape, dtype, g)
         return (det.batched_det(A),), (det.batched_det_lu_plain(A),), (A,)
 
-    main_abs_err = check_cases("K1", K1_CASES, run,
+    # both sides of the size rule of `linalg.batched_det` (K1 | K4)
+    rule = [(1001, r, dname, lim_kp, lim_oracle)
+            for r in (linalg.DET_WARP_MAX_R, linalg.DET_WARP_MAX_R + 1)
+            for dname, lim_kp, lim_oracle in (("complex128", 1e-12, 1e-10),
+                                              ("complex64", 1e-5, 1e-4))]
+    main_abs_err = check_cases("K1", K1_CASES + rule, run,
                                lambda A: (torch.linalg.det(A),),
                                (10000, 6, "complex128"))
     n, r = 10000, 6
@@ -346,6 +486,16 @@ def k1_phase(det):
     b = bound(n * (r * r + 1) * 16, lu_flops(n, r))
     print(timing_line("K1", "(10000, 6, 6) complex128", timed, *b,
                       "torch.linalg.det"), flush=True)
+    host_line("K1", "(10000, 6, 6) complex128",
+              lambda A: direct_det(det, A), det.batched_det, A)
+    for n, r in K1_LARGE:
+        A = well_conditioned(n, r, torch.complex128, g)
+        large_row("K1", (n, r, r), lambda A: direct_det(det, A),
+                  det.batched_det, torch.linalg.det, "torch.linalg.det",
+                  lambda got, A: max_rel(got, torch.linalg.det(A)), A,
+                  *bound(n * (r * r + 1) * 16, lu_flops(n, r)))
+        del A
+    torch.cuda.empty_cache()
     return dict(timed, max_abs_err=main_abs_err, bound_ms=b[0],
                 bound_by=b[1])
 
@@ -376,6 +526,11 @@ def k4_phase(det, det_block):
     print(timing_line("K4", "(2048, 45, 45) complex128", timed, *b,
                       "torch.linalg.det")
           + f"; K1 at the same shape {timed['K1_ms']:.4f} ms", flush=True)
+    out = torch.empty(n, dtype=A.dtype, device="cuda")
+    host_line("K4", "(2048, 45, 45) complex128",
+              lambda A: direct_call("semi_det_lu_block_c128",
+                                    (A, out[:A.shape[0]]), A.shape[0], r),
+              det_block.batched_det_block, A)
     return dict(timed, max_abs_err=main_abs_err, bound_ms=b[0],
                 bound_by=b[1])
 
@@ -433,6 +588,15 @@ def k2_phase(gj):
         print(timing_line("K2", f"({n}, {m}, {m} | {k}) complex128", timed,
                           *b, "torch.linalg.solve + det"), flush=True)
         results[(n, m, k)] = dict(timed, bound_ms=b[0], bound_by=b[1])
+        if m == 6:
+            host_line(
+                "K2", f"({n}, {m}, {m} | {k}) complex128",
+                lambda A, B: direct_call(
+                    "semi_gj_det_solve_c128",
+                    (A, B, torch.empty_like(B),
+                     torch.empty(A.shape[0], dtype=A.dtype, device="cuda")),
+                    A.shape[0], m, k, *gj.solve_variant(m, k)[1:]),
+                gj.batched_det_solve_gj, A, B)
     print(f"K2 at coumarin's three leaves: "
           f"{sum(results[leaf]['ms'] for leaf in K2_LEAVES):.4f} ms in all",
           flush=True)
@@ -464,6 +628,26 @@ def k3_phase(gj):
         print(timing_line("K3", f"({n}, {m}, {m}) complex128", timed, *b,
                           "torch.linalg.inv_ex + det"), flush=True)
         results[(n, m)] = dict(timed, bound_ms=b[0], bound_by=b[1])
+        host_line("K3", f"({n}, {m}, {m}) complex128",
+                  lambda A: direct_inv(gj, A), gj.batched_det_inv_gj, A)
+
+    def oracle_err(got, A):
+        ref = torch.linalg.inv(A)
+        err = max(max_rel(got[0], torch.linalg.det(A)),
+                  max_rel_mat(got[1], ref))
+        del ref
+        return err
+
+    for n, m in K3_LARGE:
+        del A
+        torch.cuda.empty_cache()
+        A = well_conditioned(n, m, torch.complex128, g)
+        large_row("K3", (n, m, m), lambda A: direct_inv(gj, A),
+                  gj.batched_det_inv_gj, inv_library,
+                  "torch.linalg.inv_ex + det", oracle_err, A,
+                  *bound(n * (2 * m * m + 1) * 16, gj_inv_flops(n, m)))
+    del A
+    torch.cuda.empty_cache()
     return dict(results[(10000, 12)], max_abs_err=main_abs_err)
 
 
@@ -841,10 +1025,9 @@ def main():
             print(f"build: {line.strip()}", flush=True)
         if "Compiling entry" in line:
             entry = line
-        if "spill" in line and ("gj_solve_block_kernel" in entry
-                                or "det_lu_block_kernel" in entry):
+        if "spill" in line and ("det_lu" in entry or "gj_" in entry):
             check("0 bytes spill stores, 0 bytes spill loads" in line,
-                  f"a register-tile kernel spills: {entry.strip()}: "
+                  f"an elimination kernel (K1-K4) spills: {entry.strip()}: "
                   f"{line.strip()}")
 
     def phase(name, fn, *args, **kwargs):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 # coding: utf-8
-"""Time the Gauss-Jordan det + solve kernel (K2) and the block determinant
-kernel (K4) of two checkouts of semiclassical_tpu_torch on one NVIDIA GPU,
-in one process, in turns: parent, change, change, parent.
+"""Time the hand-written elimination kernels (K1 determinant, K2 det +
+solve, K3 det + inverse, K4 block determinant) of two checkouts of
+semiclassical_tpu_torch on one NVIDIA GPU, in one process, in turns:
+parent, change, change, parent.
 
     python3 scripts/torch_kernel_compare.py --parent DIR [--change DIR]
 
@@ -15,13 +16,25 @@ its own plain version, and for K4 also K1 (`ops.det.batched_det`) of the
 change at the same shape. The card's name and power limit head the output;
 ptxas' register and spill report of both builds follows with --ptxas.
 
-A wrapper call costs the host 20-40 us, more than a small kernel takes.
-`--direct` therefore also calls the C entry points themselves (outputs
-allocated once): K2 at (n, 6, 6 | 12) for n = 10^4 and 10^5 on both sides,
-and on the change K2 at (n, 45, 45 | 45) and (| 5) and K4 at (n, 45, 45)
-for n = 1, 2, 3 and 4 blocks per SM and n = 2048: the time of one block per
-SM is a block's chain of pivots, and what further blocks add shows how far
-they overlap.
+A wrapper call costs the host some 10-40 us, more than a small kernel
+takes. `--direct` therefore also calls the C entry points themselves
+(outputs allocated once, each side with the layout its own size rule
+names):
+
+* K2 at (n, 6, 6 | 12) for n = 10^4 and 10^5 on both sides, and on the
+  change K2 at (n, 45, 45 | 45) and (| 5) and K4 at (n, 45, 45) for n = 1,
+  2, 3 and 4 blocks per SM and n = 2048: the time of one block per SM is a
+  block's chain of pivots, and what further blocks add shows how far they
+  overlap;
+* K1 and K3 on both sides at the paths' shapes, at the sizes around their
+  size rules and at the large-n rows where the device time dominates a
+  call ((10^6, 6, 6) for both, (10^5, 12, 12) for K3), each beside the
+  wrapper's time in the same turns, the floor of a launch (the change's
+  entry point at n = 1) and its bound (`chip_smoke.py`'s `bound`, bytes
+  over 3.35 TB/s or flops over 34 TFLOP/s) with the share reached;
+* K1 (the layout of its rule, and its warp kernel) against K4 on the
+  change at r = 12 .. 32, n = 2048 and 10^4: the crossing that
+  `linalg.DET_WARP_MAX_R` states.
 """
 
 import argparse
@@ -41,6 +54,9 @@ K2_SHAPES = [(10000, 6, 12), (10000, 6, 6), (10000, 6, 5), (2048, 45, 90),
 # of `linalg.batched_det` (K1 to r = 32), methylium's
 K4_SHAPES = [(2048, 45), (2048, 64), (2048, 32), (2048, 24), (2048, 16),
              (2048, 12), (10000, 12), (10000, 6)]
+# K3 (n, m): methylium's trackers, coumarin's leaf, the flagship's, the
+# largest
+K3_SHAPES = [(10000, 12), (10000, 6), (2048, 45), (2048, 60), (1024, 64)]
 
 
 def load_side(root):
@@ -103,43 +119,134 @@ def direct_ms(fn, *args):
     return float(np.median(window_ms(fn, *args, loops=5, calls=50)))
 
 
-def direct_solve(side, A, B):
-    """A closure that launches K2's entry point of `side` on (A, B) with
-    outputs allocated once (a checkout without `solve_variant` has the
-    entry point that takes no layout)."""
-    gj = ops(side, "gj")
-    fn = ops(side, "_build").load().semi_gj_det_solve_c128
-    n, m, k = B.shape
-    det = torch.empty(n, dtype=A.dtype, device=A.device)
-    sol = torch.empty_like(B)
-    layout = tuple(gj.solve_variant(m, k)[1:]) if hasattr(
-        gj, "solve_variant") else ()
-    stream = torch.cuda.current_stream().cuda_stream
-    args = (A.data_ptr(), B.data_ptr(), sol.data_ptr(), det.data_ptr(), n, m,
-            k, *layout, stream)
-    return lambda: fn(*args)
-
-
-def direct_det_block(side, A):
-    fn = ops(side, "_build").load().semi_det_lu_block_c128
-    n, r, _ = A.shape
-    det = torch.empty(n, dtype=A.dtype, device=A.device)
-    args = (A.data_ptr(), det.data_ptr(), n, r,
+def direct(side, entry, tensors, *ints):
+    """A closure that launches the entry point `entry` of `side`'s library
+    on the tensors' pointers, `ints` and the current stream."""
+    fn = getattr(ops(side, "_build").load(), entry)
+    args = (*(t.data_ptr() for t in tensors), *ints,
             torch.cuda.current_stream().cuda_stream)
     return lambda: fn(*args)
 
 
-def direct_phase(sides, g):
+def direct_solve(side, A, B):
+    """K2's entry point of `side` on (A, B) with outputs allocated once (a
+    checkout without `solve_variant` has the entry point that takes no
+    layout)."""
+    gj = ops(side, "gj")
+    n, m, k = B.shape
+    layout = tuple(gj.solve_variant(m, k)[1:]) if hasattr(
+        gj, "solve_variant") else ()
+    out = (torch.empty_like(B), torch.empty(n, dtype=A.dtype, device="cuda"))
+    return direct(side, "semi_gj_det_solve_c128", (A, B, *out), n, m, k,
+                  *layout)
+
+
+def direct_det_block(side, A):
+    n, r, _ = A.shape
+    out = torch.empty(n, dtype=A.dtype, device="cuda")
+    return direct(side, "semi_det_lu_block_c128", (A, out), n, r)
+
+
+def direct_det(side, A, kind=None):
+    """K1's entry point of `side` on A with the layout its `det_variant`
+    names, or `kind` (a checkout without `det_variant` has the one warp
+    kernel and takes no layout)."""
+    det = ops(side, "det")
+    n, r, _ = A.shape
+    layout = (det.LAYOUT_CODES[kind or det.det_variant(r)],) if hasattr(
+        det, "det_variant") else ()
+    out = torch.empty(n, dtype=A.dtype, device="cuda")
+    return direct(side, "semi_det_lu_c128", (A, out), n, r, *layout)
+
+
+def direct_inv(side, A):
+    """K3's entry point of `side` on A (a checkout without `inv_variant`
+    takes no layout)."""
+    gj = ops(side, "gj")
+    n, m, _ = A.shape
+    layout = tuple(gj.inv_variant(m)[1:]) if hasattr(gj, "inv_variant") else ()
+    out = (torch.empty_like(A), torch.empty(n, dtype=A.dtype, device="cuda"))
+    return direct(side, "semi_gj_det_inv_c128", (A, *out), n, m, *layout)
+
+
+def both_sides(sides, make, *args):
+    """Least median ms of `make(side, *args)()` per side over the turns
+    parent, change, change, parent."""
+    ms = {}
+    for name in ("parent", "change", "change", "parent"):
+        activate(sides[name])
+        ms.setdefault(name, []).append(direct_ms(make(sides[name], *args)))
+    return {name: min(v) for name, v in ms.items()}
+
+
+# K1 (n, r) and K3 (n, m) for --direct: the paths' shapes, the large-n rows,
+# both sides of the rows kernels' limit (16 | 17) and of 8 | 9
+K1_DIRECT = [(10000, 6), (1000000, 6), (10000, 2), (10000, 4), (10000, 8),
+             (10000, 9), (10000, 12), (10000, 16), (10000, 17)]
+K3_DIRECT = [(10000, 12), (10000, 6), (1000000, 6), (100000, 12), (2048, 45),
+             (2048, 60), (1024, 64), (10000, 2), (10000, 4), (10000, 8),
+             (10000, 9), (10000, 16), (10000, 17), (10000, 20), (2048, 24),
+             (10000, 24), (2048, 32), (10000, 32)]
+CROSSING_R = (12, 16, 20, 24, 25, 26, 27, 28, 32)
+
+
+def small_kernels_phase(sides, g, smoke):
+    """K1 and K3, direct and through the wrapper, on both sides, beside the
+    launch floor and the bound."""
+    new = sides["change"]
+    for label, shapes, make, wrapper, nbytes, flops in (
+            ("K1", K1_DIRECT, direct_det,
+             lambda side: ops(side, "det").batched_det,
+             lambda n, r: n * (r * r + 1) * 16, smoke.lu_flops),
+            ("K3", K3_DIRECT, direct_inv,
+             lambda side: ops(side, "gj").batched_det_inv_gj,
+             lambda n, m: n * (2 * m * m + 1) * 16, smoke.gj_inv_flops)):
+        for n, r in shapes:
+            A, _ = inputs(n, r, 0, g)
+            d = both_sides(sides, make, A)
+            w = both_sides(sides, lambda side, A: (
+                lambda f=wrapper(side): f(A)), A)
+            activate(new)
+            floor = direct_ms(make(new, A[:1].contiguous()))
+            b_ms, by = smoke.bound(nbytes(n, r), flops(n, r))
+            print(f"direct {label} ({n}, {r}, {r}): parent "
+                  f"{1e3 * d['parent']:.1f} us, change "
+                  f"{1e3 * d['change']:.1f} us "
+                  f"({d['parent'] / d['change']:.2f}x); through the wrapper "
+                  f"parent {1e3 * w['parent']:.1f} us, change "
+                  f"{1e3 * w['change']:.1f} us; floor (change, n = 1) "
+                  f"{1e3 * floor:.1f} us; bound {1e3 * b_ms:.1f} us by {by}, "
+                  f"parent {100 * b_ms / d['parent']:.1f}%, change "
+                  f"{100 * b_ms / d['change']:.1f}% of it", flush=True)
+            del A
+            torch.cuda.empty_cache()
+
+
+def crossing_phase(new, g):
+    """K1 against K4 on the change, direct, in turns."""
+    activate(new)
+    has_rows = hasattr(ops(new, "det"), "det_variant")
+    for n in (2048, 10000):
+        for r in CROSSING_R:
+            A, _ = inputs(n, r, 0, g)
+            fns = {"K1": direct_det(new, A), "K4": direct_det_block(new, A)}
+            if has_rows:
+                fns["K1 warp"] = direct_det(new, A, "warp")
+            ms = {name: [] for name in fns}
+            for name in list(fns) + list(reversed(fns)):
+                ms[name].append(direct_ms(fns[name]))
+            print(f"direct ({n}, {r}, {r}): " + ", ".join(
+                f"{name} {1e3 * min(v):.1f} us" for name, v in ms.items()),
+                flush=True)
+
+
+def direct_phase(sides, g, smoke):
     for n in (10000, 100000):
         A, B = inputs(n, 6, 12, g)
-        ms = {}
-        for name in ("parent", "change", "change", "parent"):
-            activate(sides[name])
-            ms.setdefault(name, []).append(
-                direct_ms(direct_solve(sides[name], A, B)))
+        ms = both_sides(sides, direct_solve, A, B)
         print(f"direct K2 ({n}, 6, 6 | 12): parent "
-              f"{1e3 * min(ms['parent']):.1f} us, change "
-              f"{1e3 * min(ms['change']):.1f} us per call", flush=True)
+              f"{1e3 * ms['parent']:.1f} us, change "
+              f"{1e3 * ms['change']:.1f} us per call", flush=True)
     new = sides["change"]
     activate(new)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -150,7 +257,10 @@ def direct_phase(sides, g):
               f"45) {1e3 * direct_ms(direct_solve(new, A, B)):.1f} us, K2 "
               f"(45 | 5) "
               f"{1e3 * direct_ms(direct_solve(new, A, B[:, :, :5].contiguous())):.1f}"
-              f" us per call", flush=True)
+              f" us, K3 (45) {1e3 * direct_ms(direct_inv(new, A)):.1f} us "
+              f"per call", flush=True)
+    small_kernels_phase(sides, g, smoke)
+    crossing_phase(new, g)
 
 
 def inputs(n, r, k, g):
@@ -228,8 +338,23 @@ def main():
               f"({ms['parent'] / ms['change']:.2f}x), K1 of the change "
               f"{ms['K1']:.4f} ms; change vs its plain version {err:.3e}",
               flush=True)
+    for n, m in K3_SHAPES:
+        A, _ = inputs(n, m, 0, g)
+        activate(new)
+        det, inv = ops(new, "gj").batched_det_inv_gj(A)
+        det_p, inv_p = ops(new, "gj").batched_det_inv_gj_plain(A)
+        torch.cuda.synchronize()
+        err = max(rel(det, det_p), rel(inv, inv_p))
+        ms = in_turns({name: (side, ops(side, "gj").batched_det_inv_gj)
+                       for name, side in sides.items()}, A)
+        print(f"K3 ({n}, {m}, {m}) complex128: parent {ms['parent']:.4f} ms, "
+              f"change {ms['change']:.4f} ms "
+              f"({ms['parent'] / ms['change']:.2f}x); change vs its plain "
+              f"version {err:.3e}", flush=True)
     if args.direct:
-        direct_phase(sides, g)
+        sys.path.insert(0, str(args.change.resolve()))
+        import chip_smoke
+        direct_phase(sides, g, chip_smoke)
     return 0
 
 

@@ -273,6 +273,14 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
                 f"{num_repetitions}")
     logger.info(f"  number of trajectories per repetition     : "
                 f"{num_samples}")
+    logger.info(f"  total number of trajectories              : "
+                f"{num_samples * num_repetitions}")
+    propagator_name = task.get("propagator", "HK")
+    logger.info(f"  propagator                                : "
+                f"{propagator_name}")
+    # `check_slice` has refused every integrator but the default
+    logger.info(f"  integrator                                : "
+                f"{task.get('integrator', 'rk4')}")
     logger.info(f"  device                                    : {device}")
 
     filename = task["results"].get("correlations", "correlations.npz")
@@ -283,7 +291,6 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
             "Multiple runs with the same sequence of random numbers make no "
             "sense! Do not use `manual_seed` and `overwrite=False` at the "
             "same time")
-    propagator_name = task.get("propagator", "HK")
     # WM: Filinov cell widths alpha = beta
     cell_width = task.get("cell_width", 10000.0)
     init_results(filename, propagator_name, times, adiabatic_gap, en_zpt,

@@ -1,5 +1,6 @@
 // Batched complex determinant by unpivoted right-looking LU, one thread
-// block per matrix, for Hopper (sm_90a): the kernel for 32 < r <= 64.
+// block per matrix, for Hopper (sm_90a): the kernel for the larger sizes,
+// to r = 64 (`linalg.DET_WARP_MAX_R` < r; K1, csrc/det_lu.cu, below).
 //
 // Replaces semiclassical_tpu/ops/det_kernel.py::pallas_batched_det (kernel
 // body _lu_det_kernel): for each matrix of a batch the determinant is the

@@ -30,7 +30,7 @@
 // keeps the matrix in registers and moves through shared memory only what
 // a pivot broadcasts: its scaled row and its column.
 //
-//   Block kernel (gj_solve_block_kernel). A thread block of RG warps owns
+//   Block kernel (gj_block_kernel, INV = false). A thread block of RG warps owns
 //   one matrix [A | B_c], where B_c is one of `chunks` column chunks of B
 //   (grid.y): a chunk repeats the elimination of A, ~20% more flops at
 //   k = 2m, and in return no tile is wider than 32 TC columns, so the widest
@@ -71,10 +71,27 @@
 // identity padding and float32-only arithmetic are artifacts of the TPU and
 // are not carried over.
 //
-// K3 (gj_det_inv_kernel) runs a few times per batch and keeps its first
-// layout: one warp per matrix in shared memory, several warps per block
-// while their matrices fit in 48 KB, above that one warp per block with the
-// dynamic shared-memory limit raised to the matrix size.
+// K3 shares both ideas. It is bound by operations at the sGDML leaf
+// (n = 2048, m = 45: 0.73 Mflop and 65 KB per matrix) and by bytes at the
+// small sizes (m <= 12: about 1.5 flops per byte), the sizes of the WM
+// trackers of methylium and of every pair block of a WM norm.
+//
+//   Block kernel (gj_block_kernel, INV = true), m > 16: K2's block layout
+//   on A alone. Every column stays live, so a thread's tile is TR x
+//   ceil(m / 32) (6 x 2 at m = 45, against 6 x 3 for K2's (45 | 45)); column
+//   kp is kept out of pivot kp's update by a zero in the broadcast row, and
+//   the threads that hold it then overwrite it with the inverse's factors.
+//   To m = 32 a matrix gets four warps, so that sixteen blocks share an SM
+//   and overlap their pivot chains.
+//
+//   Rows kernel (gj_inv_rows_kernel), m <= 16: the many-matrices-per-warp
+//   layout of rows.cuh, a row per lane in registers, the pivot row passed
+//   by shuffle, no shared memory in the elimination and no barrier; the
+//   warp's matrices are read and written as one contiguous run through the
+//   staging buffer.
+//
+// `inv_variant` in ops/gj.py decides which size takes which, as
+// `solve_variant` does for K2.
 //
 // C interface (loaded with ctypes): pointers and the stream as void*, the
 // return value is cudaGetLastError() after the launch (or
@@ -82,92 +99,63 @@
 
 #include <cuda_runtime.h>
 
+#include "rows.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr unsigned kFullMask = 0xffffffffu;
+using namespace semi;
+
 constexpr int kMaxM = 64;
 constexpr int kMaxWidth = 192;  // m + k of the augmented det + solve
 constexpr int kMaxWarpsPerBlock = 8;
 constexpr size_t kSmemPerBlock = 48 * 1024;
 
-template <typename T> struct Complex;
-template <> struct Complex<float> {
-  using type = float2;
-  __device__ static float2 make(float x, float y) { return make_float2(x, y); }
-};
-template <> struct Complex<double> {
-  using type = double2;
-  __device__ static double2 make(double x, double y) { return make_double2(x, y); }
-};
-
-template <typename T>
-__device__ __forceinline__ typename Complex<T>::type cmul(
-    typename Complex<T>::type a, typename Complex<T>::type b) {
-  return Complex<T>::make(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// x - c * s
-template <typename T>
-__device__ __forceinline__ typename Complex<T>::type cmsub(
-    typename Complex<T>::type x, typename Complex<T>::type c,
-    typename Complex<T>::type s) {
-  return Complex<T>::make(x.x - c.x * s.x + c.y * s.y,
-                          x.y - c.x * s.y - c.y * s.x);
-}
-
-// conj(p) / |p|^2
-template <typename T>
-__device__ __forceinline__ typename Complex<T>::type crecip(
-    typename Complex<T>::type p) {
-  const T inv_den = T(1) / (p.x * p.x + p.y * p.y);
-  return Complex<T>::make(p.x * inv_den, -p.y * inv_den);
-}
-
-template <typename T>
-__device__ __forceinline__ typename Complex<T>::type cshfl(
-    typename Complex<T>::type v, int src_lane) {
-  return Complex<T>::make(__shfl_sync(kFullMask, v.x, src_lane),
-                          __shfl_sync(kFullMask, v.y, src_lane));
-}
-
-// K2, block kernel: RG warps eliminate [A | B_c] of one batch entry
-// (blockIdx.x) and one chunk of at most `kchunk` columns of B (blockIdx.y)
-// in a TR x TC register tile per thread: warp g holds rows g + RG i, lane l
-// columns l + 32 j. Rows >= m and columns >= m + (chunk width) are zeros and
-// stay zeros.
+// Block kernel of K2 (INV = false) and K3 (INV = true). RG warps eliminate
+// one batch entry (blockIdx.x) in a TR x TC register tile per thread: warp
+// g holds rows g + RG i, lane l columns l + 32 j. K2 works on [A | B_c], B_c
+// one chunk of at most `kchunk` columns of B (blockIdx.y), and writes the
+// chunk's columns of A^{-1} B; K3 works on A alone (b unused, k = 0) and
+// writes the whole tile, A^{-1}. Rows >= m and columns >= w (m + the chunk's
+// width, or m) are zeros and stay zeros.
 //
 // The pivots are walked by the register slot that holds them (row slot
 // i = kp / RG, column slot p = kp / 32), so that every index into the tile
 // is a compile-time constant. Per pivot kp, before the barrier: the warp
 // that owns row kp takes the pivot from lane kp % 32 by shuffle, scales the
-// live entries of its row (columns > kp) by 1 / pivot and writes them to
-// row_s, zeros for the dead columns of slot p; lane kp % 32 of every warp
-// writes its entries of column kp to fac_s, zero for row kp itself. After
-// the barrier every thread does x[i][j] -= fac[i] * row[j] on its column
-// slots >= p with no condition: the zeros keep row kp, the dead columns and
-// the padding as they are. Both vectors are double-buffered: a warp may
-// write pivot kp + 1 while another still reads pivot kp.
-template <typename T, int RG, int TR, int TC>
+// live entries of its row by 1 / pivot and writes them to row_s, zeros for
+// the others; lane kp % 32 of every warp writes its entries of column kp to
+// fac_s, zero for row kp itself. After the barrier every thread does
+// x[i][j] -= fac[i] * row[j] on its live column slots with no condition: the
+// zeros keep row kp, the columns that are not live and the padding as they
+// are. Both vectors are double-buffered: a warp may write pivot kp + 1 while
+// another still reads pivot kp.
+//   K2: the live columns are those right of the pivot (column slots >= p);
+//   A columns <= kp are never read again.
+//   K3: every column but kp is live in every slot, and after the update the
+//   threads that hold column kp (lane kp % 32) overwrite it from the factor
+//   they still hold: -c / pivot off the pivot row, 1 / pivot on it (the
+//   reciprocal comes through ip_s).
+template <typename T, int RG, int TR, int TC, bool INV>
 __global__ void __launch_bounds__(RG * kWarp, RG > 8 ? 1 : TC > 2 ? 2 : 3)
-gj_solve_block_kernel(const typename Complex<T>::type* __restrict__ a,
-                      const typename Complex<T>::type* __restrict__ b,
-                      typename Complex<T>::type* __restrict__ sol,
-                      T* __restrict__ det_out, int m, int k, int kchunk) {
+gj_block_kernel(const typename Complex<T>::type* __restrict__ a,
+                const typename Complex<T>::type* __restrict__ b,
+                typename Complex<T>::type* __restrict__ out,
+                T* __restrict__ det_out, int m, int k, int kchunk) {
   using C = typename Complex<T>::type;
   __shared__ C row_s[2][TC * kWarp];
   __shared__ C fac_s[2][RG * TR];
   __shared__ C piv_s[RG * TR];
+  __shared__ C ip_s[2];
   const long long mat = blockIdx.x;
-  const int c0 = blockIdx.y * kchunk;
-  const int w = m + min(kchunk, k - c0);
+  const int c0 = INV ? 0 : blockIdx.y * kchunk;
+  const int w = INV ? m : m + min(kchunk, k - c0);
   const int rg = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const C zero = Complex<T>::make(T(0), T(0));
 
   C x[TR][TC];
   const C* src_a = a + mat * m * m;
-  const C* src_b = b + mat * m * k + c0;
+  const C* src_b = INV ? nullptr : b + mat * m * k + c0;
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     const int r = rg + RG * i;
@@ -183,6 +171,7 @@ gj_solve_block_kernel(const typename Complex<T>::type* __restrict__ a,
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     const int p = (RG * i) / kWarp;  // column slot of pivots RG i .. RG i + RG - 1
+    const int j0 = INV ? 0 : p;      // first live column slot
 #pragma unroll 1
     for (int t = 0; t < RG; ++t) {
       const int kp = RG * i + t;
@@ -194,14 +183,18 @@ gj_solve_block_kernel(const typename Complex<T>::type* __restrict__ a,
         const C ip = crecip<T>(pv);
 #pragma unroll
         for (int j = 0; j < TC; ++j) {
-          if (j >= p) {
-            const bool live = j > p || lane > pl;
+          if (j >= j0) {
+            const bool live =
+                INV ? (j != p || lane != pl) : (j > p || lane > pl);
             const C v = cmul<T>(x[i][j], ip);
             if (live) x[i][j] = v;
             row_s[cur][lane + kWarp * j] = live ? v : zero;
           }
         }
-        if (lane == 0) piv_s[kp] = pv;
+        if (lane == 0) {
+          piv_s[kp] = pv;
+          if (INV) ip_s[cur] = ip;
+        }
       }
       if (lane == pl) {
 #pragma unroll
@@ -214,25 +207,38 @@ gj_solve_block_kernel(const typename Complex<T>::type* __restrict__ a,
       C rowv[TC];
 #pragma unroll
       for (int j = 0; j < TC; ++j)
-        if (j >= p) rowv[j] = row_s[cur][lane + kWarp * j];
+        if (j >= j0) rowv[j] = row_s[cur][lane + kWarp * j];
 #pragma unroll
       for (int ii = 0; ii < TR; ++ii) {
         const C f = fac_s[cur][rg + RG * ii];
 #pragma unroll
         for (int j = 0; j < TC; ++j)
-          if (j >= p) x[ii][j] = cmsub<T>(x[ii][j], f, rowv[j]);
+          if (j >= j0) x[ii][j] = cmsub<T>(x[ii][j], f, rowv[j]);
+      }
+      if (INV && lane == pl) {
+        // column kp was not live: its entries are still the factors
+        const C ip = ip_s[cur];
+#pragma unroll
+        for (int ii = 0; ii < TR; ++ii) {
+          const C f = cmul<T>(x[ii][p], ip);
+          x[ii][p] = rg + RG * ii == kp ? ip : Complex<T>::make(-f.x, -f.y);
+        }
       }
     }
   }
 
-  C* dst = sol + mat * m * k + c0;
+  C* dst = INV ? out + mat * m * m : out + mat * m * k + c0;
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     const int r = rg + RG * i;
 #pragma unroll
     for (int j = 0; j < TC; ++j) {
       const int col = lane + kWarp * j;
-      if (r < m && col >= m && col < w) dst[r * k + (col - m)] = x[i][j];
+      if (INV) {
+        if (r < m && col < m) dst[r * m + col] = x[i][j];
+      } else {
+        if (r < m && col >= m && col < w) dst[r * k + (col - m)] = x[i][j];
+      }
     }
   }
   // every chunk eliminates A; the first one writes its determinant, the
@@ -310,84 +316,77 @@ __global__ void gj_solve_warp_kernel(
   }
 }
 
-// K3: one warp inverts the (m, m) matrix of one batch entry in place in
-// shared memory; `col` (m entries per warp, after all the matrices) keeps
-// the pivot column of the current step.
-template <typename T>
-__global__ void gj_det_inv_kernel(const typename Complex<T>::type* __restrict__ a,
-                                  typename Complex<T>::type* __restrict__ inv,
-                                  T* __restrict__ det_out, long long n, int m) {
+// K3, rows kernel: lane i of a matrix's R lanes holds row i; a warp owns
+// 32 / R matrices (rows.cuh). Per pivot k every lane of a matrix takes row
+// k from its owner by shuffle and scales it by 1 / pivot itself (the same
+// instructions for every lane, so nothing waits on the owner), the owner
+// keeps the scaled row, every other lane subtracts its factor times it, and
+// column k takes -factor / pivot (1 / pivot on the pivot row).
+template <typename T, int R>
+__global__ void __launch_bounds__(kRowsWarps * kWarp)
+gj_inv_rows_kernel(const typename Complex<T>::type* __restrict__ a,
+                   typename Complex<T>::type* __restrict__ inv,
+                   T* __restrict__ det_out, long long n) {
   using C = typename Complex<T>::type;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x / kWarp;
-  const int warp = threadIdx.x / kWarp;
+  using L = Rows<R>;
+  __shared__ C stage_s[kRowsWarps * L::kStage];
+  C* stage = stage_s + (threadIdx.x / kWarp) * L::kStage;
   const int lane = threadIdx.x % kWarp;
-  const long long mat = static_cast<long long>(blockIdx.x) * warps + warp;
-  if (mat >= n) return;  // ragged edge: the whole warp leaves together
+  const long long first = rows_first_matrix<R>();
+  if (first >= n) return;  // ragged edge: the whole warp leaves together
+  const int mats = static_cast<int>(min(static_cast<long long>(L::kPerWarp),
+                                        n - first));
+  const int g = lane / R;  // matrix of the warp; kPerWarp on the idle lanes
+  const int row = lane % R;
+  const int base = g * R;  // first lane of the matrix
 
-  const int mm = m * m;
-  C* s = reinterpret_cast<C*>(smem_raw) + static_cast<size_t>(warp) * mm;
-  C* col = reinterpret_cast<C*>(smem_raw) + static_cast<size_t>(warps) * mm +
-           static_cast<size_t>(warp) * m;
-  const C* src = a + mat * mm;
-  for (int e = lane; e < mm; e += kWarp) s[e] = src[e];
-  __syncwarp();
+  C x[R];
+  load_rows<T, R>(a + first * (R * R), mats * (R * R), stage, lane, x);
 
   T det_re = T(1), det_im = T(0);
-  for (int kp = 0; kp < m; ++kp) {
-    const C piv = s[kp * m + kp];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const C piv = cshfl<T>(x[k], base + k);
     const T dr = det_re * piv.x - det_im * piv.y;
-    const T di = det_re * piv.y + det_im * piv.x;
+    det_im = det_re * piv.y + det_im * piv.x;
     det_re = dr;
-    det_im = di;
-
     const C ip = crecip<T>(piv);
-    // save the pivot column and scale pivot row kp off the pivot (the pivot
-    // entry, still read above, becomes 1 / p below): disjoint entries
-    for (int i = lane; i < m; i += kWarp) col[i] = s[i * m + kp];
-    for (int j = lane; j < m; j += kWarp)
-      if (j != kp) s[kp * m + j] = cmul<T>(s[kp * m + j], ip);
-    __syncwarp();
-    // rank-1 update of every other row; column kp collects -c / p, and the
-    // pivot entry becomes 1 / p
-    for (int e = lane; e < mm; e += kWarp) {
-      const int i = e / m;
-      const int j = e % m;
-      if (i == kp) {
-        if (j == kp) s[e] = ip;
-      } else if (j == kp) {
-        const C f = cmul<T>(col[i], ip);
-        s[e] = Complex<T>::make(-f.x, -f.y);
-      } else {
-        s[e] = cmsub<T>(s[e], col[i], s[kp * m + j]);
-      }
+    const C c = x[k];
+    const bool owner = row == k;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (j == k) continue;
+      const C s = cmul<T>(cshfl<T>(x[j], base + k), ip);
+      x[j] = owner ? s : cmsub<T>(x[j], c, s);
     }
-    __syncwarp();
+    const C f = cmul<T>(c, ip);
+    x[k] = owner ? ip : Complex<T>::make(-f.x, -f.y);
   }
 
-  C* dst = inv + mat * mm;
-  for (int e = lane; e < mm; e += kWarp) dst[e] = s[e];
-  if (lane == 0) {
-    det_out[2 * mat] = det_re;
-    det_out[2 * mat + 1] = det_im;
+  store_rows<T, R>(inv + first * (R * R), mats * (R * R), stage, lane, x);
+  if (row == 0 && g < mats) {
+    det_out[2 * (first + g)] = det_re;
+    det_out[2 * (first + g) + 1] = det_im;
   }
 }
 
-template <typename T, int RG, int TR, int TC>
-int launch_solve_block(const void* a, const void* b, void* sol, void* det,
-                       long long n, int m, int k, int chunks, int kchunk,
-                       void* stream) {
+// K2 with B in `chunks` column chunks (INV = false), or K3 (INV = true: b
+// is null, k = 0, one chunk).
+template <typename T, int RG, int TR, int TC, bool INV>
+int launch_block(const void* a, const void* b, void* out, void* det,
+                 long long n, int m, int k, int chunks, int kchunk,
+                 void* stream) {
   using C = typename Complex<T>::type;
   const dim3 grid(static_cast<unsigned int>(n), static_cast<unsigned int>(chunks));
-  gj_solve_block_kernel<T, RG, TR, TC>
+  gj_block_kernel<T, RG, TR, TC, INV>
       <<<grid, RG * kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const C*>(a), static_cast<const C*>(b),
-          static_cast<C*>(sol), static_cast<T*>(det), m, k, kchunk);
+          static_cast<C*>(out), static_cast<T*>(det), m, k, kchunk);
   return static_cast<int>(cudaGetLastError());
 }
 
-// warps per block for `per_warp` bytes of shared memory per matrix (the
-// warp kernel and K3)
+// warps per block of K2's warp kernel for `per_warp` bytes of shared memory
+// per matrix
 inline int warps_for(size_t per_warp) {
   int warps = static_cast<int>(kSmemPerBlock / per_warp);
   if (warps < 1) warps = 1;
@@ -415,8 +414,8 @@ int launch_solve_warp(const void* a, const void* b, void* sol, void* det,
 // the kernel takes.
 #define SEMI_BLOCK_CASE(RG, TR, TC)                                         \
   if (warps == RG && tile_rows == TR && tile_cols == TC)                    \
-    return launch_solve_block<T, RG, TR, TC>(a, b, sol, det, n, m, k,       \
-                                             chunks, kchunk, stream);
+    return launch_block<T, RG, TR, TC, false>(a, b, sol, det, n, m, k,      \
+                                              chunks, kchunk, stream);
 
 template <typename T>
 int launch_solve(const void* a, const void* b, void* sol, void* det, long long n,
@@ -445,27 +444,56 @@ int launch_solve(const void* a, const void* b, void* sol, void* det, long long n
 
 #undef SEMI_BLOCK_CASE
 
-template <typename T>
-int launch_inv(const void* a, void* inv, void* det, long long n, int m,
-               void* stream) {
-  if (m < 1 || m > kMaxM || n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
+template <typename T, int R>
+int launch_inv_rows(const void* a, void* inv, void* det, long long n,
+                    void* stream) {
   using C = typename Complex<T>::type;
-  const size_t per_warp = static_cast<size_t>(m) * (m + 1) * sizeof(C);
-  const int warps = warps_for(per_warp);
-  const size_t smem = per_warp * warps;
-  if (smem > kSmemPerBlock) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gj_det_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long blocks = (n + warps - 1) / warps;
-  gj_det_inv_kernel<T><<<static_cast<unsigned int>(blocks), warps * kWarp, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const C*>(a), static_cast<C*>(inv), static_cast<T*>(det), n, m);
+  gj_inv_rows_kernel<T, R><<<rows_blocks<R>(n), kRowsWarps * kWarp, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const C*>(a), static_cast<C*>(inv), static_cast<T*>(det), n);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The layouts of K3 that are compiled. `inv_variant` in ops/gj.py names one
+// of them for every m the kernel takes: the rows kernel for these sizes,
+#define SEMI_INV_ROWS_CASE(R) \
+  case R:                     \
+    return launch_inv_rows<T, R>(a, inv, det, n, stream);
+// and the block kernel with these warps per matrix, tile rows and columns.
+#define SEMI_INV_BLOCK_CASE(RG, TR, TC)                                    \
+  if (warps == RG && tile_rows == TR && tile_cols == TC)                   \
+    return launch_block<T, RG, TR, TC, true>(a, nullptr, inv, det, n, m, 0, \
+                                             1, 0, stream);
+
+template <typename T>
+int launch_inv(const void* a, void* inv, void* det, long long n, int m,
+               int warps, int tile_rows, int tile_cols, void* stream) {
+  if (m < 1 || m > kMaxM || n < 0 || n > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  if (warps == 0) {
+    switch (m) {
+      SEMI_INV_ROWS_CASE(1) SEMI_INV_ROWS_CASE(2) SEMI_INV_ROWS_CASE(3)
+      SEMI_INV_ROWS_CASE(4) SEMI_INV_ROWS_CASE(5) SEMI_INV_ROWS_CASE(6)
+      SEMI_INV_ROWS_CASE(7) SEMI_INV_ROWS_CASE(8) SEMI_INV_ROWS_CASE(9)
+      SEMI_INV_ROWS_CASE(10) SEMI_INV_ROWS_CASE(11) SEMI_INV_ROWS_CASE(12)
+      SEMI_INV_ROWS_CASE(13) SEMI_INV_ROWS_CASE(14) SEMI_INV_ROWS_CASE(15)
+      SEMI_INV_ROWS_CASE(16)
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  // the tile covers the matrix
+  if (warps < 1 || tile_rows < 1 || tile_cols < 1 || warps * tile_rows < m ||
+      kWarp * tile_cols < m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SEMI_INV_BLOCK_CASE(4, 5, 1) SEMI_INV_BLOCK_CASE(4, 6, 1)
+  SEMI_INV_BLOCK_CASE(4, 7, 1) SEMI_INV_BLOCK_CASE(4, 8, 1)
+  SEMI_INV_BLOCK_CASE(8, 6, 2) SEMI_INV_BLOCK_CASE(16, 4, 2)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#undef SEMI_INV_ROWS_CASE
+#undef SEMI_INV_BLOCK_CASE
 
 }  // namespace
 
@@ -492,14 +520,22 @@ extern "C" int semi_gj_det_solve_c64(const void* a, const void* b, void* sol,
 }
 
 // K3. a, inv: (n, m, m), det: (n,), complex128 as interleaved doubles;
-// 1 <= m <= 64.
+// 1 <= m <= 64. (warps, tile_rows, tile_cols) is the layout `inv_variant` of
+// ops/gj.py gives the size: warps = 0 is the rows kernel (m <= 16, no tile),
+// otherwise the block kernel.
 extern "C" int semi_gj_det_inv_c128(const void* a, void* inv, void* det,
-                                    long long n, int m, void* stream) {
-  return launch_inv<double>(a, inv, det, n, m, stream);
+                                    long long n, int m, int warps,
+                                    int tile_rows, int tile_cols,
+                                    void* stream) {
+  return launch_inv<double>(a, inv, det, n, m, warps, tile_rows, tile_cols,
+                            stream);
 }
 
 // K3 for complex64 (interleaved floats).
 extern "C" int semi_gj_det_inv_c64(const void* a, void* inv, void* det,
-                                   long long n, int m, void* stream) {
-  return launch_inv<float>(a, inv, det, n, m, stream);
+                                   long long n, int m, int warps,
+                                   int tile_rows, int tile_cols,
+                                   void* stream) {
+  return launch_inv<float>(a, inv, det, n, m, warps, tile_rows, tile_cols,
+                           stream);
 }

@@ -11,16 +11,19 @@
   modes that the separable (diagonal) path uses for every determinant;
   `batched_det`, the per-step determinant of the HK prefactor matrices,
   which goes by its size r to one of two hand-written kernels: K1
-  (`ops.det`, one warp per matrix in shared memory) for r <=
+  (`ops.det`: many matrices per warp with a row per lane in registers to
+  r = 16, one warp per matrix in shared memory above) for r <=
   `DET_WARP_MAX_R`, K4 (`ops.det_block`, one thread block per matrix with
   the matrix in registers) above;
   and the WM eliminations `batched_det_inv`, `batched_det_solve` and
   `batched_det_solve_blocks`, which go to the Gauss-Jordan kernels of
   `ops.gj` at leaves of m <= 64 (the structure of the JAX package's lanes
   path: block-Schur levels above the leaf, block products as batched
-  matmuls). K2 picks its own layout by the leaf's shape
+  matmuls). K2 and K3 pick their own layouts by the leaf's shape
   (`ops.gj.solve_variant`: a warp per matrix for m <= 8, a thread block per
-  matrix and column chunk with the matrix in registers above).
+  matrix and column chunk with the matrix in registers above;
+  `ops.gj.inv_variant`: many matrices per warp with a row per lane for
+  m <= 16, a thread block per matrix above).
 """
 
 from __future__ import annotations
@@ -135,13 +138,15 @@ def logspace_mode_product(z_re, z_im, dim=1):
     return torch.polar(torch.exp(log_mag), ang)
 
 
-# The size rule of `batched_det`: K1 gives a matrix one warp, whose 32
-# lanes cover a row up to r = 32; above that, to r = 64, K4 gives it a
-# thread block (methylium's r = 6 takes K1, coumarin's r = 45 K4). On an
-# H100 K4 is 1.6x faster than K1 at r = 32, level with it at r = 24 and
-# slower below (half as fast at r = 6), so the rule stays at the lanes'
-# width.
-DET_WARP_MAX_R = 32
+# The size rule of `batched_det`: K1 to r = DET_WARP_MAX_R, K4 (a thread
+# block per matrix) above, to r = 64 (methylium's r = 6 takes K1's rows
+# kernel, coumarin's r = 45 K4). The constant is the crossing of K1's warp
+# kernel and K4 measured on an H100 with the entry points called directly
+# (`scripts/torch_kernel_compare.py --direct`, PERF.md): at (2048, r, r)
+# and (10^4, r, r) complex128 K1 takes 45.7 and 210.1 us at r = 27 against
+# K4's 54.0 and 231.0, and 58.9 and 242.5 us at r = 28 against 55.4 and
+# 236.0; at r = 32 K4 is 1.5-1.7x faster.
+DET_WARP_MAX_R = 27
 
 
 def batched_det(A):

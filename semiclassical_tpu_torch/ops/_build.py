@@ -1,17 +1,22 @@
 # coding: utf-8
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 The sources under `csrc/*.cu` are compiled by `nvcc` for Hopper (sm_90a)
 into one shared library with a plain C interface, at first use, into
 `build/kernels/` at the root of the checkout: one `nvcc -c` per source, all
 started together, then one link. The library's name carries a
-hash of the sources and of the compiler command, so an edited source is
-rebuilt and an unchanged one is loaded as it is. The library is bound with
-ctypes: every pointer and the stream pass as `c_void_p`, and every entry
-point returns `cudaGetLastError()` after its launch.
+hash of the sources, of the headers they share (`csrc/*.cuh`) and of the
+compiler command, so an edited source is rebuilt and an unchanged one is
+loaded as it is. The library is bound with ctypes: every pointer and the
+stream pass as `c_void_p`, and every entry point returns
+`cudaGetLastError()` after its launch.
 
 Nothing here runs when the package is imported; `load()` is called by the
-wrappers the first time a tensor on the card reaches them.
+wrappers the first time a tensor on the card reaches them. A wrapper's
+launch is `launch(entry(kernel, dtype), device, *args)`: the entry point is
+looked up once per kernel and type, and the device context is entered only
+for a tensor that is not on the current device, so that a call costs the
+host little more than the ctypes call itself.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["load", "build_log", "CSRC", "BUILD_DIR"]
+import torch
+
+__all__ = ["load", "entry", "launch", "build_log", "CSRC", "BUILD_DIR"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -36,9 +43,9 @@ LINK_FLAGS = (*ARCH, "-shared")
 # entry point -> argtypes (all return int: the cudaError_t of the launch)
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ENTRY_POINTS = {
-    # csrc/det_lu.cu (K1): a, det, n, r, stream
-    "semi_det_lu_c128": (_P, _P, _N, _I, _P),
-    "semi_det_lu_c64": (_P, _P, _N, _I, _P),
+    # csrc/det_lu.cu (K1): a, det, n, r, layout, stream
+    "semi_det_lu_c128": (_P, _P, _N, _I, _I, _P),
+    "semi_det_lu_c64": (_P, _P, _N, _I, _I, _P),
     # csrc/det_lu_block.cu (K4): a, det, n, r, stream
     "semi_det_lu_block_c128": (_P, _P, _N, _I, _P),
     "semi_det_lu_block_c64": (_P, _P, _N, _I, _P),
@@ -46,16 +53,21 @@ _ENTRY_POINTS = {
     # tile_cols, chunks, stream
     "semi_gj_det_solve_c128": (_P, _P, _P, _P, _N, *(_I,) * 6, _P),
     "semi_gj_det_solve_c64": (_P, _P, _P, _P, _N, *(_I,) * 6, _P),
-    # csrc/gj_det.cu (K3): a, inv, det, n, m, stream
-    "semi_gj_det_inv_c128": (_P, _P, _P, _N, _I, _P),
-    "semi_gj_det_inv_c64": (_P, _P, _P, _N, _I, _P),
+    # csrc/gj_det.cu (K3): a, inv, det, n, m, warps, tile_rows, tile_cols,
+    # stream
+    "semi_gj_det_inv_c128": (_P, _P, _P, _N, *(_I,) * 4, _P),
+    "semi_gj_det_inv_c64": (_P, _P, _P, _N, *(_I,) * 4, _P),
     # csrc/wm_diag.cu (K5): ten planes, pack, scal, det_planes, n, d, stream
     "semi_wm_diag_f64": (*(_P,) * 13, _N, _I, _P),
     "semi_wm_diag_f32": (*(_P,) * 13, _N, _I, _P),
 }
 
+_SUFFIX = {torch.complex128: "c128", torch.complex64: "c64",
+           torch.float64: "f64", torch.float32: "f32"}
+
 _lib = None
 _log = ""
+_entries = {}
 
 
 def _nvcc():
@@ -117,7 +129,7 @@ def load():
         return _lib
     srcs = _sources()
     digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *LINK_FLAGS)).encode())
-    for src in srcs:
+    for src in (*srcs, *sorted(CSRC.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     target = BUILD_DIR / f"libsemi_kernels_{digest.hexdigest()[:16]}.so"
@@ -131,6 +143,27 @@ def load():
         fn.restype = ctypes.c_int
     _lib = lib
     return _lib
+
+
+def entry(kernel, dtype):
+    """The entry point `semi_<kernel>_<type>` of the loaded library for a
+    tensor type (complex128: c128, complex64: c64, float64: f64, float32:
+    f32), looked up once per (kernel, dtype)."""
+    fn = _entries.get((kernel, dtype))
+    if fn is None:
+        fn = _entries[kernel, dtype] = getattr(
+            load(), f"semi_{kernel}_{_SUFFIX[dtype]}")
+    return fn
+
+
+def launch(fn, device, *args):
+    """`fn(*args, stream)` with `device`'s current stream; returns the
+    entry point's cudaError_t. The device context is entered only when
+    `device` (of the tensors in `args`) is not the current device."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def build_log():

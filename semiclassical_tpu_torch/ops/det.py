@@ -4,22 +4,31 @@ its wrapper.
 
 Replaces `semiclassical_tpu/ops/det_kernel.py::pallas_batched_det_lanes`,
 the per-step determinant of the dense HK prefactor matrix
-(`hk_prefactor_det` -> `linalg.batched_det`), which sends r <= 32 here
-(methylium, r = 6) and 32 < r <= 64 to K4 (`ops.det_block`, the same
-elimination with one thread block per matrix, whose plain version is this
-module's). Both compute det A for a batch of complex (n, r, r) matrices by
-unpivoted right-looking LU in the same pivot order, with the pivots
-multiplied into the determinant.
+(`hk_prefactor_det` -> `linalg.batched_det`), which sends r <=
+`linalg.DET_WARP_MAX_R` here (methylium, r = 6) and larger r to K4
+(`ops.det_block`, the same elimination with one thread block per matrix,
+whose plain version is this module's). Both compute det A for a batch of
+complex (n, r, r) matrices by unpivoted right-looking LU in the same pivot
+order, with the pivots multiplied into the determinant.
 
 What bounds the kernel (`csrc/det_lu.cu`): at the methylium shape
 (n = 10^4, r = 6, complex128) one call reads 5.8 MB and does ~600 flops per
-576-byte matrix — about one flop per byte, so it is bound by memory latency
-and bytes, not by flops. Its design reads each matrix once, straight from
-the interleaved re/im layout of the complex tensor (`torch.view_as_real`:
-no repacking, no padding — the kernel masks the ragged edge), eliminates in
-shared memory with one warp per matrix, and writes one complex number per
-matrix. The TPU kernel's (r, 2r, tile) trajectory-in-lanes packing and
-identity padding are artifacts of the TPU's tiling and are not carried over.
+576-byte matrix, about one flop per byte, so it is bound by bytes: a kernel
+has to keep many loads in flight and waste few lanes. It has two layouts,
+and `det_variant` names the one a size takes:
+
+* the *rows* kernel for r <= `ROWS_MAX_R` = 16: a warp owns 32 // r
+  matrices, each lane holds one row of its matrix in registers, a pivot's
+  row passes between the lanes of a matrix by shuffle; no shared memory in
+  the elimination and no barrier (5 matrices a warp at r = 6);
+* the *warp* kernel above: one warp per matrix in shared memory, its lanes
+  splitting the entries of each trailing update.
+
+Both read each matrix once, straight from the interleaved re/im layout of
+the complex tensor (`torch.view_as_real`: no repacking, no padding, the
+kernel masks the ragged edge), and write one complex number per matrix.
+The TPU kernel's (r, 2r, tile) trajectory-in-lanes packing and identity
+padding are artifacts of the TPU's tiling and are not carried over.
 
 `batched_det` launches the kernel for a tensor on the card and raises on
 anything it does not take; it uses the plain version only for a tensor on
@@ -31,9 +40,14 @@ from __future__ import annotations
 import torch
 
 __all__ = ["batched_det", "batched_det_lu_plain", "check_det_args",
-           "launch", "LAUNCHES", "MAX_R"]
+           "det_variant", "launch", "LAUNCHES", "LAYOUT_CODES", "MAX_R",
+           "ROWS_MAX_R"]
 
 MAX_R = 64
+# the rows kernel takes r <= ROWS_MAX_R (a size per compiled instantiation)
+ROWS_MAX_R = 16
+# the `layout` argument of K1's entry points
+LAYOUT_CODES = {"warp": 0, "rows": 1}
 
 # kernel launches made by `batched_det` (plain Python int; one per launch)
 LAUNCHES = 0
@@ -90,25 +104,31 @@ def check_det_args(A: torch.Tensor):
         raise ValueError("batched_det takes a contiguous tensor")
 
 
-def launch(A: torch.Tensor, entry: str) -> torch.Tensor:
-    """Launch the determinant kernel `entry` ("semi_det_lu": K1 here,
-    "semi_det_lu_block": K4 in `ops.det_block`) on a CUDA tensor that
-    `check_det_args` accepted; returns the (n,) determinants. Nothing is
-    launched for n = 0; the caller counts its launches."""
+def det_variant(r: int) -> str:
+    """The size rule of K1: the kernel `csrc/det_lu.cu` runs for (r, r)
+    matrices in either complex type, "rows" (many matrices per warp, a row
+    per lane) for r <= ROWS_MAX_R, "warp" (a warp per matrix in shared
+    memory) above."""
+    if not 1 <= r <= MAX_R:
+        raise ValueError(f"K1 takes 1 <= r <= {MAX_R}, got r = {r}")
+    return "rows" if r <= ROWS_MAX_R else "warp"
+
+
+def launch(A: torch.Tensor, kernel: str, *layout: int) -> torch.Tensor:
+    """Launch the determinant kernel `kernel` ("det_lu": K1 here, with its
+    layout code; "det_lu_block": K4 in `ops.det_block`) on a CUDA tensor
+    that `check_det_args` accepted; returns the (n,) determinants. Nothing
+    is launched for n = 0; the caller counts its launches."""
     from semiclassical_tpu_torch.ops import _build
 
-    lib = _build.load()
     n, r, _ = A.shape
     out = torch.empty(n, dtype=A.dtype, device=A.device)
     if n == 0:
         return out
-    suffix = "c128" if A.dtype == torch.complex128 else "c64"
-    fn = getattr(lib, f"{entry}_{suffix}")
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), out.data_ptr(), n, r, stream)
+    err = _build.launch(_build.entry(kernel, A.dtype), A.device,
+                        A.data_ptr(), out.data_ptr(), n, r, *layout)
     if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err} "
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} "
                            f"(n={n}, r={r}, {A.dtype})")
     return out
 
@@ -125,7 +145,7 @@ def batched_det(A: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"batched_det runs on cuda or cpu tensors, got "
                          f"{A.device}")
     check_det_args(A)
-    out = launch(A, "semi_det_lu")
+    out = launch(A, "det_lu", LAYOUT_CODES[det_variant(A.shape[1])])
     if A.shape[0]:
         LAUNCHES += 1
     return out

@@ -5,9 +5,9 @@ kernel K4, its plain version and its wrapper.
 Replaces `semiclassical_tpu/ops/det_kernel.py::pallas_batched_det` (kernel
 body `_lu_det_kernel`): det A for a batch of complex (n, r, r) matrices by
 unpivoted right-looking LU in K1's pivot order, with the pivots multiplied
-into the determinant. `linalg.batched_det` sends 32 < r <= 64 here (the
-sGDML prefactor, r = 45 on coumarin) and r <= 32 to K1 (`ops.det`), whose
-one warp per matrix covers a row with its lanes.
+into the determinant. `linalg.batched_det` sends `linalg.DET_WARP_MAX_R`
+< r <= 64 here (the sGDML prefactor, r = 45 on coumarin) and smaller r to
+K1 (`ops.det`), whose kernels give a matrix a warp or a part of one.
 
 What bounds the kernel (`csrc/det_lu_block.cu`): at (2048, 45, 45)
 complex128 one call reads 66.4 MB and does 0.49 GFLOP, so bytes and FP64
@@ -53,7 +53,7 @@ def batched_det_block(A: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"batched_det_block runs on cuda or cpu tensors, "
                          f"got {A.device}")
     check_det_args(A)
-    out = launch(A, "semi_det_lu_block")
+    out = launch(A, "det_lu_block")
     if A.shape[0]:
         LAUNCHES += 1
     return out

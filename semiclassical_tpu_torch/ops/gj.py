@@ -18,12 +18,14 @@ inverse factors. It builds the WM trackers (`wm_derived`, twice per batch).
 Both eliminate in the TPU kernels' pivot order with the same complex
 arithmetic (reciprocal pivot conj(p)/|p|^2, rank-1 row updates).
 
-What bounds K2 on the card is the chain of m pivots, each waiting on the
-update before it, not the flops or bytes of a call; with the matrix in
-shared memory every update adds three shared loads and a store to that
-chain. So `csrc/gj_det.cu` keeps the augmented matrix in registers and
-passes only a pivot's scaled row and its column between threads. It has
-two layouts, and `solve_variant` names the one a shape takes:
+What bounds the kernels at the large leaves is the chain of m pivots, each
+waiting on the update before it, not the flops or bytes of a call; with the
+matrix in shared memory every update adds three shared loads and a store to
+that chain. So `csrc/gj_det.cu` keeps the matrix in registers and passes
+only a pivot's row and its column between threads. The small matrices
+(m <= 16) are bound by bytes: there a kernel has to waste few lanes and
+keep many loads in flight. K2 has two layouts, and `solve_variant` names
+the one a shape takes:
 
 * the *block* kernel: 8 or 16 warps own one matrix [A | B_c], B_c one of
   `chunks` column chunks of B; warps over rows, lanes over columns, a
@@ -34,8 +36,21 @@ two layouts, and `solve_variant` names the one a shape takes:
   at most 8 KB in shared memory, eight warps to a block (methylium's m = 6
   leaves; a register-and-shuffle version measured slower there, PERF.md).
 
-K3 keeps its first layout, one warp per matrix in shared memory. All read
-the complex tensors in place through their interleaved re/im layout.
+K3 has two as well, named by `inv_variant`:
+
+* the *block* kernel for m > `ROWS_MAX_M` = 16: K2's block layout on A
+  alone (a mode of the same kernel), every column live, a `tile_rows` x
+  ceil(m / 32) tile per thread (6 x 2 at coumarin's m = 45, 4 warps per
+  matrix to m = 32, 8 or 16 above); the threads that hold the pivot's
+  column overwrite it with the inverse's factors after each update;
+* the *rows* kernel for m <= 16: a warp owns 32 // m matrices, each lane
+  holds one row of its matrix in registers, the pivot row passes between
+  the lanes of a matrix by shuffle; no shared memory in the elimination,
+  no barrier (methylium's trackers at m = 12 and 6, and the (r, r) pair
+  blocks of a WM norm).
+
+All read the complex tensors in place through their interleaved re/im
+layout.
 
 The wrappers launch the kernel for tensors on the card and raise on
 anything it does not take; they use the plain version only for tensors on
@@ -51,8 +66,8 @@ import torch
 __all__ = ["batched_det_solve_gj", "batched_det_inv_gj",
            "batched_det_solve_gj_plain", "batched_det_inv_gj_plain",
            "check_solve_args", "check_inv_args", "solve_variant",
-           "SolveVariant", "LAUNCHES", "MAX_M", "MAX_WIDTH", "WARP_MAX_M",
-           "WARP_MAX_WIDTH"]
+           "inv_variant", "SolveVariant", "InvVariant", "LAUNCHES", "MAX_M",
+           "MAX_WIDTH", "WARP_MAX_M", "WARP_MAX_WIDTH", "ROWS_MAX_M"]
 
 MAX_M = 64        # rows (and A columns) a kernel takes
 MAX_WIDTH = 192   # m + k of K2's augmented matrix
@@ -60,6 +75,8 @@ MAX_WIDTH = 192   # m + k of K2's augmented matrix
 # K2's warp kernel takes m <= WARP_MAX_M rows and m + k <= WARP_MAX_WIDTH
 WARP_MAX_M = 8
 WARP_MAX_WIDTH = 64
+# K3's rows kernel takes m <= ROWS_MAX_M (a size per compiled instantiation)
+ROWS_MAX_M = 16
 
 # kernel launches made by the wrappers, per kernel (one per launch)
 LAUNCHES = {"det_solve": 0, "det_inv": 0}
@@ -78,10 +95,27 @@ class SolveVariant(NamedTuple):
     chunks: int
 
 
+class InvVariant(NamedTuple):
+    """The layout K3 gives a size: `kind` "rows" (many matrices per warp, a
+    row per lane, `warps` = 0, no tile) or "block" (`warps` warps per
+    matrix, a thread holding `tile_rows` x `tile_cols` entries in
+    registers)."""
+    kind: str
+    warps: int
+    tile_rows: int
+    tile_cols: int
+
+
 # K2's block layouts by rows: (largest m, warps, tile rows, widest tile in
 # columns). A thread holds at most 18 entries (72 registers in complex128),
 # so that two blocks of 8 warps, or one of 16, fit an SM's registers.
 _BLOCK_ROWS = ((16, 8, 2, 6), (32, 8, 4, 4), (48, 8, 6, 3), (64, 16, 4, 4))
+# K3's block layouts by rows: (largest m, warps, tile rows); the tile is as
+# wide as the matrix. To m = 32 a matrix gets four warps: sixteen blocks
+# share an SM and overlap their pivot chains (8 warps measured 1.03-1.6x
+# slower there on an H100, PERF.md); above, K2's warps and tile rows.
+_INV_BLOCK_ROWS = ((20, 4, 5), (24, 4, 6), (28, 4, 7), (32, 4, 8),
+                   (48, 8, 6), (64, 16, 4))
 _LANES = 32
 
 
@@ -106,6 +140,20 @@ def solve_variant(m: int, k: int) -> SolveVariant:
     widest = m + _ceil_div(k, chunks)
     return SolveVariant("block", warps, tile_rows, _ceil_div(widest, _LANES),
                         chunks)
+
+
+def inv_variant(m: int) -> InvVariant:
+    """The size rule of K3: the layout `csrc/gj_det.cu` runs for A (m, m)
+    in either complex type. m <= ROWS_MAX_M takes the rows kernel; anything
+    else the block kernel, with warps and tile rows by m and a tile as wide
+    as the matrix (coumarin's m = 45 runs as 8 warps of 6 x 2 tiles)."""
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"K3 takes 1 <= m <= {MAX_M}, got m = {m}")
+    if m <= ROWS_MAX_M:
+        return InvVariant("rows", 0, 0, 0)
+    warps, tile_rows = next(row[1:] for row in _INV_BLOCK_ROWS
+                            if m <= row[0])
+    return InvVariant("block", warps, tile_rows, _ceil_div(m, _LANES))
 
 
 def _cmul(x_re, x_im, y_re, y_im):
@@ -224,11 +272,6 @@ def check_inv_args(A: torch.Tensor):
     _check_square("batched_det_inv_gj", A)
 
 
-def _entry(lib, kernel, dtype):
-    return getattr(lib, f"semi_gj_{kernel}_"
-                   f"{'c128' if dtype == torch.complex128 else 'c64'}")
-
-
 def _raise_on(err, kernel, A):
     if err != 0:
         raise RuntimeError(f"gj_{kernel} kernel launch failed: CUDA error "
@@ -243,13 +286,10 @@ def _launch_solve(A, B):
     sol = torch.empty_like(B)
     if n == 0:
         return det, sol
-    fn = _entry(_build.load(), "det_solve", A.dtype)
-    variant = solve_variant(m, B.shape[2])
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), B.data_ptr(), sol.data_ptr(), det.data_ptr(),
-                 n, m, B.shape[2], variant.warps, variant.tile_rows,
-                 variant.tile_cols, variant.chunks, stream)
+    err = _build.launch(
+        _build.entry("gj_det_solve", A.dtype), A.device, A.data_ptr(),
+        B.data_ptr(), sol.data_ptr(), det.data_ptr(), n, m, B.shape[2],
+        *solve_variant(m, B.shape[2])[1:])
     _raise_on(err, "det_solve", A)
     LAUNCHES["det_solve"] += 1
     return det, sol
@@ -263,10 +303,9 @@ def _launch_inv(A):
     inv = torch.empty_like(A)
     if n == 0:
         return det, inv
-    fn = _entry(_build.load(), "det_inv", A.dtype)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), inv.data_ptr(), det.data_ptr(), n, m, stream)
+    err = _build.launch(
+        _build.entry("gj_det_inv", A.dtype), A.device, A.data_ptr(),
+        inv.data_ptr(), det.data_ptr(), n, m, *inv_variant(m)[1:])
     _raise_on(err, "det_inv", A)
     LAUNCHES["det_inv"] += 1
     return det, inv

@@ -182,13 +182,10 @@ def _launch(planes, pack):
     det_planes = torch.empty((4, n, d), dtype=pack.dtype, device=pack.device)
     if n == 0:
         return scal, det_planes
-    lib = _build.load()
-    fn = getattr(lib, "semi_wm_diag_f64" if pack.dtype == torch.float64
-                 else "semi_wm_diag_f32")
-    with torch.cuda.device(pack.device):
-        stream = torch.cuda.current_stream(pack.device).cuda_stream
-        err = fn(*(x.data_ptr() for x in planes), pack.data_ptr(),
-                 scal.data_ptr(), det_planes.data_ptr(), n, d, stream)
+    err = _build.launch(
+        _build.entry("wm_diag", pack.dtype), pack.device,
+        *(x.data_ptr() for x in planes), pack.data_ptr(), scal.data_ptr(),
+        det_planes.data_ptr(), n, d)
     if err != 0:
         raise RuntimeError(f"wm_diag kernel launch failed: CUDA error {err} "
                            f"(n = {n}, d = {d}, {pack.dtype})")

@@ -136,6 +136,20 @@ def test_wm_dynamics_and_rates_on_cpu(config, tmp_path):
     assert data["ic_rate"].size and np.isfinite(data["ic_rate"]).all()
 
 
+@pytest.mark.parametrize("propagator", ["HK", "WM"])
+def test_dynamics_log_names_the_run(config, tmp_path, caplog, propagator):
+    """The run's header lines of the JAX CLI's log: total trajectories,
+    propagator and integrator, in its wording."""
+    config["semi"][0].update(propagator=propagator, num_steps=3)
+    path = _write(config, tmp_path / "semi.json")
+    with caplog.at_level("INFO", logger=cli.logger.name):
+        assert cli.main(["dynamics", path, "--device", "cpu"]) == 0
+    lines = [r.getMessage() for r in caplog.records]
+    assert "  total number of trajectories              : 64" in lines
+    assert f"  propagator                                : {propagator}" in lines
+    assert "  integrator                                : rk4" in lines
+
+
 def test_wm_micro_batch_raises(config, tmp_path):
     """micro_batch is not ported, with WM as with HK."""
     config["semi"][0].update(propagator="WM", micro_batch=16)

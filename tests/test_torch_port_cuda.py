@@ -8,8 +8,10 @@ on a machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 K1 (`ops.det.batched_det`, csrc/det_lu.cu), K2 and K3
-(`ops.gj.batched_det_solve_gj` / `batched_det_inv_gj`, csrc/gj_det.cu; K2 at
-both sides of its size rule, with every tile layout of its block kernel)
+(`ops.gj.batched_det_solve_gj` / `batched_det_inv_gj`, csrc/gj_det.cu; each
+at both sides of its size rule, K2 and K3 with every tile layout of their
+block kernel, K1 and K3 with batches that fill no whole warp of their
+many-matrices-per-warp kernels)
 are held against their plain PyTorch versions on the same inputs: 1e-12
 relative in complex128 and 1e-5 in complex64 (rounding-order differences
 of the same elimination, FMA contraction included), on well-conditioned
@@ -18,14 +20,15 @@ csrc/wm_diag.cu) likewise, 1e-12 in float64 and 1e-5 in float32 of each
 output's largest entry, on identity-plus-noise monodromy planes. K4
 (`ops.det_block.batched_det_block`, csrc/det_lu_block.cu, one thread block
 per matrix) is held against the same plain version as K1 at the same
-limits, and `linalg.batched_det` is checked to launch K1 for r <= 32 and
-K4 above.
+limits, and `linalg.batched_det` is checked to launch K1 for r <=
+`linalg.DET_WARP_MAX_R` and K4 above.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from semiclassical_tpu_torch import linalg
 from semiclassical_tpu_torch.ops import det, gj
 
 pytestmark = pytest.mark.cuda
@@ -49,7 +52,16 @@ def _well_conditioned(n, r, dtype, device, seed):
 @pytest.mark.parametrize("dtype, r, n, rtol", [
     (torch.complex128, 6, 1000, 1e-12), (torch.complex64, 6, 1000, 1e-5),
     (torch.complex128, 1, 33, 1e-12), (torch.complex128, 45, 257, 1e-12),
-    (torch.complex128, 64, 100, 1e-12), (torch.complex64, 64, 100, 1e-5)])
+    (torch.complex128, 64, 100, 1e-12), (torch.complex64, 64, 100, 1e-5),
+    # the rows kernel to r = 16 (both sides of 8 | 9 and of 16 | 17, a batch
+    # that fills no whole warp of 32 // r matrices), the warp kernel above
+    (torch.complex128, 8, 10001, 1e-12), (torch.complex64, 8, 10001, 1e-5),
+    (torch.complex128, 9, 10001, 1e-12), (torch.complex64, 9, 10001, 1e-5),
+    (torch.complex128, 16, 1001, 1e-12), (torch.complex64, 16, 1001, 1e-5),
+    (torch.complex128, 17, 1001, 1e-12), (torch.complex64, 17, 1001, 1e-5),
+    (torch.complex128, 5, 3, 1e-12), (torch.complex128, 12, 1, 1e-12),
+    (torch.complex128, linalg.DET_WARP_MAX_R, 1001, 1e-12),
+    (torch.complex128, linalg.DET_WARP_MAX_R + 1, 1001, 1e-12)])
 def test_kernel_matches_plain(card, dtype, r, n, rtol):
     A = _well_conditioned(n, r, dtype, card, seed=r)
     before = det.LAUNCHES
@@ -119,9 +131,24 @@ def test_solve_kernel_matches_plain(card, dtype, m, k, n, rtol):
 @pytest.mark.parametrize("dtype, m, n, rtol", [
     (torch.complex128, 12, 1000, 1e-12), (torch.complex64, 12, 1000, 1e-5),
     (torch.complex128, 6, 1000, 1e-12), (torch.complex128, 1, 33, 1e-12),
-    (torch.complex128, 60, 64, 1e-12), (torch.complex128, 64, 40, 1e-12)])
+    (torch.complex128, 60, 64, 1e-12), (torch.complex128, 64, 40, 1e-12),
+    # the rows kernel to m = 16 (a batch that fills no whole warp of
+    # 32 // m matrices), every layout of the block kernel above
+    (torch.complex128, 8, 10001, 1e-12), (torch.complex64, 8, 10001, 1e-5),
+    (torch.complex128, 9, 10001, 1e-12), (torch.complex64, 9, 10001, 1e-5),
+    (torch.complex128, 16, 1001, 1e-12), (torch.complex64, 16, 1001, 1e-5),
+    (torch.complex128, 17, 1001, 1e-12), (torch.complex64, 17, 1001, 1e-5),
+    (torch.complex128, 5, 3, 1e-12), (torch.complex128, 12, 1, 1e-12),
+    (torch.complex128, 20, 101, 1e-12), (torch.complex128, 21, 101, 1e-12),
+    (torch.complex128, 24, 101, 1e-12), (torch.complex64, 25, 101, 1e-5),
+    (torch.complex128, 28, 101, 1e-12), (torch.complex128, 29, 101, 1e-12),
+    (torch.complex128, 32, 101, 1e-12), (torch.complex128, 33, 101, 1e-12),
+    (torch.complex128, 45, 257, 1e-12), (torch.complex64, 45, 257, 1e-5),
+    (torch.complex128, 48, 101, 1e-12), (torch.complex128, 49, 101, 1e-12),
+    (torch.complex64, 60, 64, 1e-5), (torch.complex64, 64, 40, 1e-5)])
 def test_inv_kernel_matches_plain(card, dtype, m, n, rtol):
     A = _well_conditioned(n, m, dtype, card, seed=m)
+    assert gj.inv_variant(m).kind == ("rows" if m <= 16 else "block")
     before = gj.LAUNCHES["det_inv"]
     det, inv = gj.batched_det_inv_gj(A)
     torch.cuda.synchronize()
@@ -237,10 +264,10 @@ def test_block_kernel_matches_plain(card, dtype, r, n, rtol):
     assert float(((got - oracle).abs() / oracle.abs()).max()) <= lim
 
 
-@pytest.mark.parametrize("r, kernel", [(6, "K1"), (32, "K1"), (33, "K4"),
-                                       (45, "K4"), (64, "K4")])
+@pytest.mark.parametrize("r, kernel", [
+    (6, "K1"), (16, "K1"), (17, "K1"), (linalg.DET_WARP_MAX_R, "K1"),
+    (linalg.DET_WARP_MAX_R + 1, "K4"), (32, "K4"), (45, "K4"), (64, "K4")])
 def test_size_rule_launches(card, r, kernel):
-    from semiclassical_tpu_torch import linalg
     from semiclassical_tpu_torch.ops import det_block
 
     A = _well_conditioned(40, r, torch.complex128, card, seed=r)

@@ -12,9 +12,16 @@ unpivoted LU in the same pivot order). It is held against
   computes in complex64) in interpret mode, at complex64 and 1e-4 relative,
   the tolerance of tests/test_linalg.py.
 
+K1's size rule (`det.det_variant`: which kernel of csrc/det_lu.cu a size
+takes) is a plain function and is walked here for every r against the
+sizes that file compiles its rows kernel for.
+
 The CUDA kernel itself is compared with the plain version on the card by
 tests/test_torch_port_cuda.py.
 """
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -40,6 +47,17 @@ def test_plain_c128_matches_jax_batched_det(r):
     ref = np.asarray(jax_linalg.batched_det(jnp.asarray(A)))
     got = det.batched_det_lu_plain(torch.from_numpy(A)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-10, atol=0)
+
+
+# both sides of the rows kernel's limit (16 | 17), of 8 | 9 and of the rule
+# of `linalg.batched_det` (DET_WARP_MAX_R | + 1)
+@pytest.mark.parametrize("r", [8, 9, 16, 17, linalg.DET_WARP_MAX_R - 1,
+                               linalg.DET_WARP_MAX_R,
+                               linalg.DET_WARP_MAX_R + 1])
+def test_plain_c128_matches_lapack_at_the_rules_edges(r):
+    A = _well_conditioned(np.random.default_rng(300 + r), 11, r)
+    got = det.batched_det_lu_plain(torch.from_numpy(A)).numpy()
+    np.testing.assert_allclose(got, np.linalg.det(A), rtol=1e-10, atol=0)
 
 
 @pytest.mark.parametrize("r", [6, 12])
@@ -84,3 +102,38 @@ def test_arg_check_rejects(A, match):
     with pytest.raises(ValueError, match=match):
         det.check_det_args(A)
 
+
+
+def _compiled(source, macro):
+    """The argument lists of the uses of `macro` in a csrc file (its
+    definition, which names its parameters, is not one)."""
+    text = (pathlib.Path(det.__file__).resolve().parents[1] / "csrc"
+            / source).read_text()
+    return [tuple(int(x) for x in args.split(","))
+            for args in re.findall(macro + r"\(([0-9, ]+)\)", text)]
+
+
+@pytest.mark.parametrize("r, kind", [(1, "rows"), (6, "rows"), (8, "rows"),
+                                     (9, "rows"), (16, "rows"), (17, "warp"),
+                                     (45, "warp"), (64, "warp")])
+def test_det_variant(r, kind):
+    assert det.det_variant(r) == kind
+    assert det.ROWS_MAX_R == 16 and det.LAYOUT_CODES == {"warp": 0, "rows": 1}
+
+
+def test_det_variant_covers_every_size():
+    """Every r K1 takes gets a kernel that csrc/det_lu.cu compiles: the
+    rows kernel exactly at the sizes of its SEMI_ROWS_CASE list, the warp
+    kernel (any r) elsewhere."""
+    compiled = _compiled("det_lu.cu", "SEMI_ROWS_CASE")
+    assert sorted(compiled) == [(r,) for r in range(1, det.ROWS_MAX_R + 1)]
+    for r in range(1, det.MAX_R + 1):
+        assert det.det_variant(r) == ("rows" if (r,) in compiled else "warp")
+        # a warp of the rows kernel owns at least two matrices
+        assert det.det_variant(r) == "warp" or 32 // r >= 2
+
+
+@pytest.mark.parametrize("r", [0, 65, -1])
+def test_det_variant_rejects(r):
+    with pytest.raises(ValueError, match="K1 takes"):
+        det.det_variant(r)

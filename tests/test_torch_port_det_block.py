@@ -72,16 +72,18 @@ def test_other_devices_raise():
         det_block.batched_det_block(A)
 
 
-@pytest.mark.parametrize("r, kernel", [(1, "K1"), (6, "K1"), (32, "K1"),
-                                       (33, "K4"), (45, "K4"), (64, "K4")])
+@pytest.mark.parametrize("r, kernel", [(1, "K1"), (6, "K1"), (16, "K1"),
+                                       (17, "K1"), (27, "K1"), (28, "K4"),
+                                       (32, "K4"), (33, "K4"), (45, "K4"),
+                                       (64, "K4")])
 def test_size_rule(monkeypatch, r, kernel):
-    """`linalg.batched_det` sends r <= DET_WARP_MAX_R = 32 to K1's wrapper
-    and 32 < r <= 64 to K4's, whatever the device."""
+    """`linalg.batched_det` sends r <= DET_WARP_MAX_R = 27 to K1's wrapper
+    and 27 < r <= 64 to K4's, whatever the device."""
     calls = []
     monkeypatch.setattr(det, "batched_det",
                         lambda A: calls.append("K1") or A[:, 0, 0])
     monkeypatch.setattr(det_block, "batched_det_block",
                         lambda A: calls.append("K4") or A[:, 0, 0])
-    assert linalg.DET_WARP_MAX_R == 32
+    assert linalg.DET_WARP_MAX_R == 27
     linalg.batched_det(torch.ones((3, r, r), dtype=torch.complex128))
     assert calls == [kernel]

@@ -16,11 +16,15 @@ unpivoted eliminations in the same pivot order). They are held against
 K2's size rule (`gj.solve_variant`: which layout of csrc/gj_det.cu a
 shape takes) is a plain function and is checked here at the paths' shapes
 and at its limits, and for every shape the kernel takes against the list of
-layouts that file compiles.
+layouts that file compiles. K3's (`gj.inv_variant`) likewise, against the
+layouts parsed from the file.
 
 The CUDA kernels themselves are compared with the plain versions on the
 card by tests/test_torch_port_cuda.py.
 """
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -64,6 +68,17 @@ def test_solve_plain_c128_matches_lapack(m, k):
 @pytest.mark.parametrize("m", [2, 6, 12, 45])
 def test_inv_plain_c128_matches_lapack(m):
     A = _well_conditioned(np.random.default_rng(m), 20, m)
+    det, inv = gj.batched_det_inv_gj_plain(torch.from_numpy(A))
+    np.testing.assert_allclose(det.numpy(), np.linalg.det(A), rtol=1e-10,
+                               atol=0)
+    assert _rel(inv.numpy(), np.linalg.inv(A)) < 1e-10
+
+
+# both sides of the rows kernel's limit (16 | 17) and of 8 | 9, and the
+# largest m of each block layout
+@pytest.mark.parametrize("m", [8, 9, 16, 17, 32, 33, 48, 49, 64])
+def test_inv_plain_c128_matches_lapack_at_the_rules_edges(m):
+    A = _well_conditioned(np.random.default_rng(300 + m), 11, m)
     det, inv = gj.batched_det_inv_gj_plain(torch.from_numpy(A))
     np.testing.assert_allclose(det.numpy(), np.linalg.det(A), rtol=1e-10,
                                atol=0)
@@ -294,3 +309,67 @@ def test_solve_variant_covers_every_shape():
 def test_solve_variant_rejects(m, k):
     with pytest.raises(ValueError, match="K2 takes"):
         gj.solve_variant(m, k)
+
+
+def _compiled(macro):
+    """The argument lists of the uses of `macro` in csrc/gj_det.cu (its
+    definition, which names its parameters, is not one)."""
+    text = (pathlib.Path(gj.__file__).resolve().parents[1] / "csrc"
+            / "gj_det.cu").read_text()
+    return [tuple(int(x) for x in args.split(","))
+            for args in re.findall(macro + r"\(([0-9, ]+)\)", text)]
+
+
+def test_compiled_solve_layouts_are_the_listed_ones():
+    """The list `test_solve_variant_covers_every_shape` walks is the
+    SEMI_BLOCK_CASE list of the source."""
+    assert set(_compiled("SEMI_BLOCK_CASE")) == (
+        {(8, 2, c) for c in range(1, 7)} | {(8, 4, c) for c in range(1, 5)}
+        | {(8, 6, 2), (8, 6, 3)} | {(16, 4, 2), (16, 4, 3), (16, 4, 4)})
+
+
+# methylium's trackers, coumarin's leaf, the flagship's, both sides of the
+# rows kernel's limit, each block layout's largest m
+@pytest.mark.parametrize("m, variant", [
+    (6, ("rows", 0, 0, 0)), (12, ("rows", 0, 0, 0)), (1, ("rows", 0, 0, 0)),
+    (8, ("rows", 0, 0, 0)), (9, ("rows", 0, 0, 0)), (16, ("rows", 0, 0, 0)),
+    (17, ("block", 4, 5, 1)), (20, ("block", 4, 5, 1)),
+    (21, ("block", 4, 6, 1)), (24, ("block", 4, 6, 1)),
+    (25, ("block", 4, 7, 1)), (28, ("block", 4, 7, 1)),
+    (29, ("block", 4, 8, 1)), (32, ("block", 4, 8, 1)),
+    (33, ("block", 8, 6, 2)), (45, ("block", 8, 6, 2)),
+    (48, ("block", 8, 6, 2)), (49, ("block", 16, 4, 2)),
+    (60, ("block", 16, 4, 2)), (64, ("block", 16, 4, 2)),
+])
+def test_inv_variant(m, variant):
+    assert gj.inv_variant(m) == gj.InvVariant(*variant)
+    assert gj.ROWS_MAX_M == 16
+
+
+def test_inv_variant_covers_every_size():
+    """Every m K3 takes gets a layout that csrc/gj_det.cu compiles (its
+    SEMI_INV_ROWS_CASE and SEMI_INV_BLOCK_CASE lists) and that its launcher
+    accepts: the rows kernel at its compiled sizes, a block tile that
+    covers the matrix and is no larger than it needs."""
+    rows = _compiled("SEMI_INV_ROWS_CASE")
+    blocks = _compiled("SEMI_INV_BLOCK_CASE")
+    assert sorted(rows) == [(m,) for m in range(1, gj.ROWS_MAX_M + 1)]
+    used = set()
+    for m in range(1, gj.MAX_M + 1):
+        v = gj.inv_variant(m)
+        if (m,) in rows:
+            assert v == gj.InvVariant("rows", 0, 0, 0), m
+            continue
+        assert v.kind == "block"
+        assert (v.warps, v.tile_rows, v.tile_cols) in blocks, (m, v)
+        assert v.warps * v.tile_rows >= m, (m, v)
+        assert 32 * (v.tile_cols - 1) < m <= 32 * v.tile_cols, (m, v)
+        used.add((v.warps, v.tile_rows, v.tile_cols))
+    # nothing is compiled that no size takes
+    assert used == set(blocks)
+
+
+@pytest.mark.parametrize("m", [0, 65, -3])
+def test_inv_variant_rejects(m):
+    with pytest.raises(ValueError, match="K3 takes"):
+        gj.inv_variant(m)
