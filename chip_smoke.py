@@ -57,7 +57,10 @@ each, each with its wall time:
              ragged batches; times at (10000, 12, 12) complex128; checks
              and times at coumarin's leaf (2048, 45, 45) in complex128 and
              complex64; host times as for K1; the large-n rows (10^6, 6, 6)
-             and (10^5, 12, 12), the shapes of a WM norm's pair blocks;
+             and (10^5, 12, 12); the WM methylium norm's pair-block shape
+             (b^2, 6, 6), b the block `hk.pair_block` gives it, checked
+             and timed against the plain version and torch.linalg.inv_ex +
+             det;
 4b. K4     — the block-per-matrix determinant kernel against its plain
              version (K1's) and torch.linalg.det at the sGDML prefactor's
              shape (2048, 45, 45) and at (2048, 64, 64) in complex128 and
@@ -84,16 +87,43 @@ each, each with its wall time:
              launched on every step, K2 three times per step, K3 twice per
              batch;
 7. HK AS   — examples/as_model/semi.json (60 modes, AS_model.dat written
-             by make_model.py into a temporary directory) at its own size,
-             98,304 trajectories x 2000 steps, without its error bars and
-             spectrum task, through `dynamics` + `rates` on cuda: finite
+             by make_model.py into a temporary directory) as shipped, 98,304
+             trajectories x 2000 steps with error bars and its spectrum
+             task, through `dynamics` + `rates` + `spectrum` on cuda: finite
              correlations, |C(0) - 1| < 1e-3, 98,304 trajectories, the rate
              energy grid of examples/as_model/correlations_100k_reference.npz
-             and the rate at its maximum within 3% of that file's;
+             and the rate at its maximum within 3% of that file's (its
+             deviation also in units of ic_rate_stderr); both stderr keys
+             finite and positive after step 0, ic_rate_stderr and
+             spectrum_stderr finite, |int S(E) dE - Re C(0)| < 1e-2; then
+             98,304 x 100 steps with and without error bars at the same
+             seed: the same C(t) and k~ic(t), bit for bit;
 8. WM AS   — semi_wm.json (cell width 1e4) at the same seed and size: the
              same gates, the rate at its maximum within 4.1e-4 of the HK AS
              run's (10x the JAX package's WM - HK gap at the same draws,
              scripts/as_wm_hk_gap.py), and K5 launched on every step;
+8b. sampling — the HK AS example at 32,768 x 200 steps with error bars and
+             `sampling` "antithetic", then "sobol": |C(0) - 1| < 1e-3,
+             finite stderr, the two sampling-statistics lines logged;
+8c. micro_batch — the WM AS example at 98,304 x 200 steps with
+             `micro_batch` 8192 against the whole batch at the same seed:
+             C(t) and k~ic(t) within 1e-12 of their largest modulus; both
+             walls and K5's launches printed;
+8d. HK AS norm — examples/as_model/semi_norm.json as shipped (131,072 x
+             2000 steps, `calc_norm_every` 500): four norm lines, each
+             finite and > 0, with each norm's wall; in memory, the same
+             batch at t = 0: its norm equals the first line to the digits
+             printed and the norm at half the block size to 1e-9 relative,
+             and `norm(sample_pairs=64)` lies within 5 of its stderr of it
+             (plus 1e-12 of it: the rounding of a sum in another order);
+8e. WM methylium norm — examples/methylium_AH at one batch of 10,000 x 2000
+             steps with propagator "WM", cell width 1e4 and
+             `calc_norm_every` 1000: every norm finite with K3 launched at
+             least once per block pair (K3's launches and ms per norm, and
+             |norm(0) - 1| printed); in memory, the same batch at t = 0: its
+             norm equals the first line to the digits printed, and the pair
+             sum over four block pairs with K3 equals the same sum with
+             K3's plain version on the card to 1e-10 relative;
 9. coumarin reference — the committed JAX f64 CPU curves
              (tests/data/coumarin_jax_reference.npz, written by
              scripts/coumarin_jax_reference.py) against the port on cuda
@@ -120,6 +150,8 @@ TF32 stays off: the script fails if float32 matmuls would run in TF32.
 """
 
 import json
+import logging
+import math
 import pathlib
 import subprocess
 import sys
@@ -239,11 +271,34 @@ K3_CASES = [
 # norm at r = 6): K1 (n, r), K3 (n, m), complex128
 K1_LARGE = [(1000000, 6)]
 K3_LARGE = [(1000000, 6), (100000, 12)]
+# methylium's Cartesian coordinates and rank, the WM norm's pair matrices
+METHYLIUM_DIM, METHYLIUM_RANK = 12, 6
 
 
 def check(cond, msg):
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+class LogLines(logging.Handler):
+    """The messages the port's loggers emit while this handler is
+    attached (`with LogLines() as log: ...; log.lines`)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        logger = logging.getLogger("semiclassical_tpu_torch")
+        logger.setLevel(logging.INFO)
+        logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("semiclassical_tpu_torch").removeHandler(self)
 
 
 def max_rel(x, ref):
@@ -648,7 +703,27 @@ def k3_phase(gj):
                   *bound(n * (2 * m * m + 1) * 16, gj_inv_flops(n, m)))
     del A
     torch.cuda.empty_cache()
-    return dict(results[(10000, 12)], max_abs_err=main_abs_err)
+
+    # the WM methylium norm's pair blocks: (b^2, r, r) with b the block the
+    # memory rule gives 10,000 trajectories at d = 12, r = 6
+    from semiclassical_tpu_torch.propagation import hk, wm
+    m = METHYLIUM_RANK
+    b = hk.pair_block(10000, wm.wm_pair_bytes(METHYLIUM_DIM, m), "cuda")
+    n = b * b
+    main_abs_err = check_cases(
+        "K3 pair block", [(n, m, "complex128", 1e-12, 1e-10)], run, oracle,
+        (n, m, "complex128"))
+    A = well_conditioned(n, m, torch.complex128, g)
+    timed = in_turns(gj.batched_det_inv_gj, gj.batched_det_inv_gj_plain,
+                     inv_library, A, plain_windows=(3, 2))
+    bnd = bound(n * (2 * m * m + 1) * 16, gj_inv_flops(n, m))
+    print(timing_line("K3", f"the WM norm's pair block ({b}^2 = {n}, {m}, "
+                      f"{m}) complex128", timed, *bnd,
+                      "torch.linalg.inv_ex + det"), flush=True)
+    del A
+    torch.cuda.empty_cache()
+    return dict(timed, max_abs_err=main_abs_err, bound_ms=bnd[0],
+                bound_by=bnd[1])
 
 
 def reset_counts(ops):
@@ -667,40 +742,39 @@ def read_counts(ops):
 
 
 def run_path(cli, ops, config, dynamics_keys, tmp):
-    """Run `config`'s dynamics task (updated with `dynamics_keys`) and its
-    rates task through the port's CLI on cuda, writing into `tmp`; every
-    launch count is set to 0 just before the dynamics command and read just
-    after. Returns (the rates npz as a dict, the launches, the dynamics
-    task, the dynamics command's wall seconds)."""
+    """Run `config`'s dynamics task (updated with `dynamics_keys`), then its
+    rates and spectrum tasks, through the port's CLI on cuda, writing into
+    `tmp`; every launch count is set to 0 just before the dynamics command
+    and read just after. Returns (the npz as a dict, the launches, the
+    dynamics task, the dynamics command's wall seconds, the port's log
+    lines of the dynamics command)."""
     import numpy as np
     import torch
 
     npz = str(pathlib.Path(tmp) / "correlations.npz")
-    tasks = []
     for task in config["semi"]:
         if task["task"] == "dynamics":
             task.update(dynamics_keys, manual_seed=SEED)
-            task.pop("error_bars", None)
             task["results"]["correlations"] = npz
             dynamics = task
-        elif task["task"] == "rates":
-            task.update(correlations=npz, rates=npz)
         else:
-            continue        # the spectrum subcommand is not ported
-        tasks.append(task)
+            task.update(correlations=npz,
+                        **{task["task"]: npz})   # rates / spectrum output
     cfg = str(pathlib.Path(tmp) / "semi.json")
     with open(cfg, "w") as f:
-        json.dump({"semi": tasks}, f, indent=1)
+        json.dump(config, f, indent=1)
 
     reset_counts(ops)
     t0 = time.perf_counter()
-    rc = cli.main(["dynamics", cfg, "--device", "cuda"])
-    torch.cuda.synchronize()
+    with LogLines() as log:
+        rc = cli.main(["dynamics", cfg, "--device", "cuda"])
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(ops)
     check(rc == 0, f"dynamics returned {rc}")
-    check(cli.main(["rates", cfg]) == 0, "rates failed")
-    return dict(np.load(npz)), launches, dynamics, wall
+    for command in ("rates", "spectrum"):
+        check(cli.main([command, cfg]) == 0, f"{command} failed")
+    return dict(np.load(npz)), launches, dynamics, wall, log.lines
 
 
 def gate_rates(label, data, ref_file, ntraj, nsteps, energy_rtol):
@@ -747,8 +821,8 @@ def methylium_run(cli, ops, smi, label, **task_keys):
                 task["potential"][key] = str(
                     (EXAMPLE.parent / task["potential"][key]).resolve())
     with tempfile.TemporaryDirectory() as tmp:
-        data, launches, task, wall = run_path(cli, ops, config, task_keys,
-                                              tmp)
+        data, launches, task, wall, _ = run_path(cli, ops, config,
+                                                 task_keys, tmp)
     nsteps, ntraj = task["num_steps"], task["num_trajectories"]
     nrep = ntraj // task["batch_size"]
     print(f"{label} methylium {ntraj} x {nsteps} steps ({nrep} batches): "
@@ -797,15 +871,27 @@ def write_as_model(tmp):
     return str(model)
 
 
-def as_run(cli, ops, smi, model, label, file):
-    """examples/as_model/`file` at its own size through the port's CLI on
-    cuda (error bars and the spectrum task dropped)."""
+def as_config(file, model, **dynamics_keys):
+    """examples/as_model/`file` with its model file at `model` and
+    `dynamics_keys` set on the dynamics task."""
     with open(AS_EXAMPLE / file) as f:
         config = json.load(f)
+    for task in config["semi"]:
+        if task["task"] == "dynamics":
+            task["potential"]["model_file"] = model
+            task.update(dynamics_keys)
+    return config
+
+
+def as_run(cli, ops, smi, model, label, file):
+    """examples/as_model/`file` as shipped, at its own size, through the
+    port's CLI on cuda; the error-bar and spectrum gates where the file
+    asks for them."""
+    import numpy as np
+
+    config = as_config(file, model)
     with tempfile.TemporaryDirectory() as tmp:
-        data, launches, task, wall = run_path(
-            cli, ops, config, {"potential": {"type": "anharmonic AS",
-                                             "model_file": model}}, tmp)
+        data, launches, task, wall, _ = run_path(cli, ops, config, {}, tmp)
     nsteps = task["num_steps"]
     nrep = max(task["num_trajectories"] // task["batch_size"], 1)
     ntraj = nrep * task["batch_size"]
@@ -817,8 +903,268 @@ def as_run(cli, ops, smi, model, label, file):
     # (2 t_max / (n_sym - 1)): its grid differs by one part in 4000 at
     # nt = 2000, as methylium's reference does
     imax = gate_rates(f"{label} AS", data, AS_REFERENCE, ntraj, nsteps, 1e-3)
+    if task.get("error_bars"):
+        ec, ek = data["autocorrelation_stderr"], data["ic_correlation_stderr"]
+        check(bool(np.isfinite(ec).all() and np.isfinite(ek).all()
+                   and (ec[1:] > 0).all() and (ek[1:] > 0).all()),
+              f"{label} AS stderr not finite and positive after step 0")
+        band = float(data["ic_rate_stderr"])
+        ref = np.load(AS_REFERENCE)["ic_rate"][imax]
+        print(f"{label} AS error bars: max stderr C(t) {ec.max():.3e}, "
+              f"k~ic(t) {ek.max():.3e}; rate at max - reference = "
+              f"{(data['ic_rate'][imax] - ref) / band:+.3f} ic_rate_stderr "
+              f"({band:.4e} s^-1)", flush=True)
+        check(np.isfinite(band), f"{label} AS ic_rate_stderr {band}")
+    if "spectrum" in data:
+        s, e = data["spectrum"], data["spectrum_energies"]
+        total = float(np.sum(0.5 * (s[1:] + s[:-1]) * np.diff(e)))
+        dev = abs(total - data["autocorrelation"][0].real)
+        band = float(data.get("spectrum_stderr", np.nan))
+        print(f"{label} AS spectrum: int S(E) dE = {total:.6f}, "
+              f"|int S dE - Re C(0)| = {dev:.3e} (gate 1e-2), "
+              f"spectrum_stderr {band:.4e}", flush=True)
+        check(bool(np.isfinite(s).all()), f"{label} AS spectrum not finite")
+        check(dev < 1e-2, f"{label} AS spectrum integral off by {dev}")
+        check(np.isfinite(band), f"{label} AS spectrum_stderr {band}")
     data.update(imax=imax, nsteps=nsteps, nrep=nrep)
     return data, launches
+
+
+def error_bars_identity(cli, ops, model):
+    """The HK AS example at 98,304 x 100 steps with and without error
+    bars at one seed: the same C(t) and k~ic(t), bit for bit."""
+    import numpy as np
+
+    out = {}
+    for eb in (True, False):
+        with tempfile.TemporaryDirectory() as tmp:
+            data, _, _, wall, _ = run_path(
+                cli, ops, as_config("semi.json", model, num_steps=100,
+                                    error_bars=eb), {}, tmp)
+        out[eb] = (data, wall)
+    same = all(np.array_equal(out[True][0][k], out[False][0][k])
+               for k in ("autocorrelation", "ic_correlation"))
+    print(f"HK AS 98304 x 100 steps: dynamics command {out[True][1]:.3f} s "
+          f"with error bars, {out[False][1]:.3f} s without; C(t) and k~ic(t)"
+          f" identical: {same}", flush=True)
+    check(same, "error bars changed C(t) or k~ic(t)")
+
+
+def sampling_phase(cli, ops, smi, model):
+    """The HK AS example at 32,768 x 200 steps with error bars under
+    antithetic and sobol sampling."""
+    import numpy as np
+
+    for method in ("antithetic", "sobol"):
+        with tempfile.TemporaryDirectory() as tmp:
+            data, _, task, wall, lines = run_path(
+                cli, ops, as_config("semi.json", model, batch_size=32768,
+                                    num_trajectories=32768, num_steps=200,
+                                    sampling=method), {}, tmp)
+        stats = [line for line in lines if line.startswith(
+            ("max |<z> - z0| / sigma", "max |cov(z) - analytic| / sigma2"))]
+        c0 = abs(data["autocorrelation"][0] - 1.0)
+        ec, ek = data["autocorrelation_stderr"], data["ic_correlation_stderr"]
+        print(f"sampling {method}: HK AS 32768 x 200 steps, dynamics "
+              f"command {wall:.3f} s [{smi}]; |C(0) - 1| = {c0:.2e}; max "
+              f"stderr C(t) {ec.max():.3e}, k~ic(t) {ek.max():.3e}; "
+              + "; ".join(" ".join(line.split()) for line in stats),
+              flush=True)
+        check(len(stats) == 2, f"sampling {method}: statistics lines {stats}")
+        check(c0 < 1e-3, f"sampling {method}: |C(0) - 1| = {c0}")
+        check(bool(np.isfinite(ec).all() and np.isfinite(ek).all()),
+              f"sampling {method}: stderr not finite")
+
+
+def micro_phase(cli, ops, smi, model):
+    """The WM AS example at 98,304 x 200 steps with micro_batch 8192
+    against the whole batch at the same seed."""
+    import numpy as np
+
+    runs = {}
+    for micro in (0, 8192):
+        with tempfile.TemporaryDirectory() as tmp:
+            data, launches, _, wall, _ = run_path(
+                cli, ops, as_config("semi_wm.json", model, num_steps=200,
+                                    micro_batch=micro), {}, tmp)
+        runs[micro] = (data, launches, wall)
+    errs = [float(np.abs(runs[8192][0][k] - runs[0][0][k]).max()
+                  / np.abs(runs[0][0][k]).max())
+            for k in ("autocorrelation", "ic_correlation")]
+    print(f"micro_batch: WM AS 98304 x 200 steps, dynamics command "
+          f"{runs[0][2]:.3f} s whole ({runs[0][1]['K5']} K5 launches), "
+          f"{runs[8192][2]:.3f} s in sub-batches of 8192 "
+          f"({runs[8192][1]['K5']} K5 launches) [{smi}]; max |C - C_whole| /"
+          f" max |C_whole| {errs[0]:.3e}, k~ic {errs[1]:.3e} (gate 1e-12)",
+          flush=True)
+    check(max(errs) <= 1e-12, f"micro_batch vs whole batch: {errs}")
+
+
+class NormCalls:
+    """Wraps a propagator class's `norm` while active, recording each
+    call's wall seconds and K3 launches."""
+
+    def __init__(self, cls, gj):
+        self.cls, self.gj, self.calls = cls, gj, []
+
+    def __enter__(self):
+        import torch
+        orig = self.orig = self.cls.norm
+
+        def norm(prop, *args, **kwargs):
+            before = self.gj.LAUNCHES["det_inv"]
+            t0 = time.perf_counter()
+            out = orig(prop, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((time.perf_counter() - t0,
+                               self.gj.LAUNCHES["det_inv"] - before))
+            return out
+
+        self.cls.norm = norm
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.norm = self.orig
+
+
+def same_as_printed(value, printed):
+    """`value` equals a norm the CLI printed with six decimals."""
+    return abs(value - printed) <= max(1e-6, 1e-12 * abs(printed))
+
+
+def norm_lines(lines):
+    """The norm values of the CLI's norm lines."""
+    return [float(line.split("norm=")[1].split("+-")[0])
+            for line in lines if "norm=" in line]
+
+
+def first_batch(cli, task, cls, *args):
+    """The first repetition's batch of `task` at t = 0, drawn as the CLI
+    draws it at seed SEED."""
+    import torch
+
+    potential, q0, p0, G, _, _ = cli._build_potential(task, "cuda")
+    prop = cls(G, G, *args, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cli._repetition_seed(SEED, 0))
+    prop.initial_conditions(q0, p0, G, potential,
+                            ntraj=min(task["batch_size"],
+                                      task["num_trajectories"]),
+                            generator=gen)
+    return prop
+
+
+def hk_norm_phase(cli, ops, smi, model):
+    """examples/as_model/semi_norm.json as shipped, and its first batch
+    at t = 0 in memory."""
+    import numpy as np
+
+    from semiclassical_tpu_torch.propagation import HermanKlukPropagator, hk
+
+    config = as_config("semi_norm.json", model)
+    with tempfile.TemporaryDirectory() as tmp, \
+            NormCalls(HermanKlukPropagator, ops["gj"]) as calls:
+        data, _, task, wall, lines = run_path(cli, ops, config, {}, tmp)
+    norms = norm_lines(lines)
+    print(f"HK AS norm {task['num_trajectories']} x {task['num_steps']} "
+          f"steps: dynamics command {wall:.3f} s [{smi}]; norms "
+          f"{norms}, each in {[round(c[0], 3) for c in calls.calls]} s",
+          flush=True)
+    check(len(norms) == 4 and all(np.isfinite(x) and x > 0 for x in norms),
+          f"HK AS norm lines {norms}")
+    check(abs(data["autocorrelation"][0] - 1.0) < 1e-3, "HK AS norm C(0)")
+
+    prop = first_batch(cli, task, HermanKlukPropagator)
+    exact = prop.norm()
+    half = prop.norm(block=2048)
+    est, err = prop.norm(sample_pairs=64, key=0)
+    rel = abs(half - exact) / exact
+    nb = task["batch_size"] // hk.pair_block(task["batch_size"],
+                                             hk.HK_PAIR_BYTES, "cuda")
+    print(f"HK AS norm at t = 0 in memory: {exact:.9f} (the CLI's first "
+          f"line {norms[0]:.6f}), at half the block {half:.9f} (rel dev "
+          f"{rel:.3e}, gate 1e-9), sampled over 64 of {nb * (nb - 1) // 2} "
+          f"off-diagonal block pairs "
+          f"{est:.6f} +- {err:.6f} ({(est - exact) / max(err, 1e-300):+.2f} "
+          "stderr)", flush=True)
+    check(same_as_printed(exact, norms[0]), "HK AS t = 0 norm differs from "
+          "the CLI's first line")
+    check(rel <= 1e-9, f"HK AS norm at half the block: {rel}")
+    # within 5 of its stderr, and the rounding of a sum in another order
+    check(err > 0 and abs(est - exact) <= 5.0 * err + 1e-12 * exact,
+          f"HK AS subsampled norm {est} +- {err} vs {exact}")
+
+
+def wm_norm_phase(cli, ops, smi):
+    """examples/methylium_AH as one WM batch of 10,000 with
+    calc_norm_every 1000, and that batch at t = 0 in memory. Returns the
+    launches of the dynamics command."""
+    import numpy as np
+    import torch
+
+    from semiclassical_tpu_torch.ops import gj
+    from semiclassical_tpu_torch.propagation import (
+        WaltonManolopoulosPropagator, hk, wm)
+
+    with open(EXAMPLE) as f:
+        config = json.load(f)
+    for task in config["semi"]:
+        if task["task"] == "dynamics":
+            for key in ("ground", "excited", "coupling"):
+                task["potential"][key] = str(
+                    (EXAMPLE.parent / task["potential"][key]).resolve())
+    keys = dict(propagator="WM", cell_width=CELL_WIDTH, batch_size=10000,
+                num_trajectories=10000, calc_norm_every=1000)
+    with tempfile.TemporaryDirectory() as tmp, \
+            NormCalls(WaltonManolopoulosPropagator, gj) as calls:
+        data, launches, task, wall, lines = run_path(cli, ops, config, keys,
+                                                     tmp)
+    norms = norm_lines(lines)
+    n = task["batch_size"]
+    prop = first_batch(cli, task, WaltonManolopoulosPropagator, CELL_WIDTH,
+                       CELL_WIDTH)
+    d, r = prop.params.dim, prop.params.rank
+    block = hk.pair_block(n, wm.wm_pair_bytes(d, r), "cuda")
+    nb = -(-n // block)
+    print(f"WM methylium norm {n} x {task['num_steps']} steps: dynamics "
+          f"command {wall:.3f} s [{smi}]; launches {json.dumps(launches)}; "
+          f"norms {norms}; |norm(0) - 1| = {abs(norms[0] - 1.0):.4e}; per "
+          f"norm: block {block}, {nb} x {nb} block pairs, K3 launches "
+          f"{[c[1] for c in calls.calls]}, "
+          f"{[round(1e3 * c[0], 1) for c in calls.calls]} ms", flush=True)
+    check(len(norms) == task["num_steps"] // task["calc_norm_every"]
+          and all(np.isfinite(norms)), f"WM methylium norms {norms}")
+    check(all(c[1] >= nb * nb for c in calls.calls),
+          f"WM methylium norm: K3 launched {[c[1] for c in calls.calls]} "
+          f"times for {nb * nb} block pairs")
+    check(np.isfinite(data["autocorrelation"]).all(), "WM methylium C(t)")
+
+    exact = prop.norm()
+    log_v, derived = prop._log_coefficients_and_derived()
+
+    def plain(A):
+        det, inv = gj.batched_det_inv_gj_plain(
+            A.reshape((-1,) + A.shape[-2:]).contiguous())
+        return det.reshape(A.shape[:-2]), inv.reshape(A.shape)
+
+    pairs = [(0, 0), (0, 1), (nb - 1, 2), (nb - 1, nb - 1)]
+    sums = []
+    for det_inv in (None, plain):
+        pack, arrays = wm.wm_norm_arrays(prop.params, prop.bc, prop.state,
+                                         derived, log_v, det_inv)
+        sums.append(hk.blocked_pair_sum(wm._wm_norm_block_term, pack, arrays,
+                                        block, hermitian=False, pairs=pairs))
+    rel = abs(sums[0] - sums[1]) / abs(sums[1])
+    print(f"WM methylium norm at t = 0 in memory: {exact:.9f} (the CLI's "
+          f"first line {norms[0]:.6f}); pair sum over block pairs {pairs} "
+          f"with K3 {sums[0]:.12e}, with its plain version {sums[1]:.12e}: "
+          f"rel dev {rel:.3e} (gate 1e-10)", flush=True)
+    check(same_as_printed(exact, norms[0]), "WM methylium t = 0 norm "
+          "differs from the CLI's first line")
+    check(rel <= 1e-10, f"WM norm pair sum, K3 vs plain: {rel}")
+    del prop, derived, arrays
+    torch.cuda.empty_cache()
+    return launches, dict(block=block, n=n, d=d, r=r)
 
 
 def k5_phase(cli, wm_diag, model):
@@ -961,8 +1307,8 @@ def coumarin_run(cli, ops, smi, label, file):
     import numpy as np
 
     with tempfile.TemporaryDirectory() as tmp:
-        data, launches, task, wall = run_path(cli, ops, coumarin_task(file),
-                                              {}, tmp)
+        data, launches, task, wall, _ = run_path(
+            cli, ops, coumarin_task(file), {}, tmp)
     nsteps, ntraj = task["num_steps"], task["num_trajectories"]
     nrep = max(ntraj // task["batch_size"], 1)
     print(f"{label} coumarin {ntraj} x {nsteps} steps ({nrep} batch): "
@@ -1049,8 +1395,14 @@ def main():
         wm_launches = phase("WM methylium", wm_phase, cli, ops, smi, hk)
         hk_as, _ = phase("HK AS", as_run, cli, ops, smi, model, "HK",
                          "semi.json")
+        phase("HK AS error bars", error_bars_identity, cli, ops, model)
         wm_as, wm_as_launches = phase("WM AS", as_run, cli, ops, smi, model,
                                       "WM", "semi_wm.json")
+        phase("sampling", sampling_phase, cli, ops, smi, model)
+        phase("micro_batch", micro_phase, cli, ops, smi, model)
+        phase("HK AS norm", hk_norm_phase, cli, ops, smi, model)
+    wm_norm_launches, _ = phase("WM methylium norm", wm_norm_phase, cli, ops,
+                                smi)
     wm_vs_hk("AS", wm_as, hk_as, WM_HK_GATE_AS)
     steps = wm_as["nsteps"] * wm_as["nrep"]
     check(wm_as_launches["K5"] >= steps,
@@ -1087,7 +1439,7 @@ def main():
         entry("batched_det_solve_gj", "gj_det.cu", "det_kernel.py:460",
               wm_launches["K2"], k2),
         entry("batched_det_inv_gj", "gj_det.cu", "det_kernel.py:532",
-              wm_launches["K3"], k3),
+              wm_norm_launches["K3"], k3),
         entry("batched_det_lu_block", "det_lu_block.cu", "det_kernel.py:113",
               hk_c_launches["K4"], k4),
         entry("wm_diag_derived", "wm_diag.cu", "wm_kernel.py:273",

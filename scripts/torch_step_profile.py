@@ -25,10 +25,16 @@ with HK and with WM (cell width 1e4), and for each:
   share of the traced wall and of the untraced step, and the largest
   kernels by device time.
 
+With `--error-bars` each propagator also runs with the per-step second
+moments of the error bars (keys "HK error_bars", "WM error_bars"; the
+windows in turns plain, error bars, error bars, plain), so the two
+reductions' launches and ms per step read as the differences.
+
 Prints one JSON object, and writes it to `--out` if given.
 
     python scripts/torch_step_profile.py [--example as|coumarin|methylium]
-        [--ntraj N] [--steps 48] [--window 200] [--out profile.json]
+        [--ntraj N] [--steps 48] [--window 200] [--error-bars]
+        [--out profile.json]
 """
 
 import argparse
@@ -60,15 +66,15 @@ def _propagator(name, G, q0, potential, ntraj, seed):
     return prop
 
 
-def _window_ms(prop, potential, dt, steps):
+def _window_ms(prop, potential, dt, steps, m2_mode=False):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prop._run(potential, dt, steps)
+    prop._run(potential, dt, steps, m2_mode=m2_mode)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
-def _trace(prop, potential, dt, steps):
+def _trace(prop, potential, dt, steps, m2_mode=False):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -76,7 +82,7 @@ def _trace(prop, potential, dt, steps):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prop._run(potential, dt, steps)
+        prop._run(potential, dt, steps, m2_mode=m2_mode)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -132,6 +138,7 @@ def main(argv=None):
     parser.add_argument("--steps", type=int, default=48)
     parser.add_argument("--window", type=int, default=200)
     parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--error-bars", action="store_true")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -156,12 +163,17 @@ def main(argv=None):
 
     props = {name: _propagator(name, G, q0, potential, args.ntraj, args.seed)
              for name in ("HK", "WM")}
+    # (label, propagator, second moments of the error bars)
+    runs = [(name, name, False) for name in props]
+    if args.error_bars:
+        runs = [run for name in props for run in
+                ((name, name, False), (f"{name} error_bars", name, True))]
     for prop in props.values():
         prop._run(potential, dt, 20)                  # warm-up
-    windows = {name: [] for name in props}
-    for name in ("HK", "WM", "WM", "HK"):
-        windows[name].append(_window_ms(props[name], potential, dt,
-                                        args.window))
+    windows = {label: [] for label, _, _ in runs}
+    for label, name, m2 in runs + runs[::-1]:
+        windows[label].append(_window_ms(props[name], potential, dt,
+                                         args.window, m2))
     result = {"device": smi, "example": args.example,
               "ntraj": args.ntraj, "dim": int(q0.shape[0]),
               "window_steps": args.window, "traced_steps": args.steps}
@@ -171,18 +183,18 @@ def main(argv=None):
                 "K3": gj.LAUNCHES["det_inv"], "K4": det_block.LAUNCHES,
                 "K5": wm_diag.LAUNCHES}
 
-    for name, prop in props.items():
+    for label, name, m2 in runs:
         before = counts()
-        trace = _trace(prop, potential, dt, args.steps)
+        trace = _trace(props[name], potential, dt, args.steps, m2)
         after = counts()
-        ms = windows[name]
+        ms = windows[label]
         trace.update(
             ms_per_step_windows=ms,
             busy_share_untraced=trace["device_ms_per_step"] / min(ms),
             traj_steps_per_s=args.ntraj / (min(ms) / 1e3),
             launches_per_step={k: (after[k] - before[k]) / args.steps
                                for k in after})
-        result[name] = trace
+        result[label] = trace
     result["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
     text = json.dumps(result, indent=1)
     print(text)

@@ -7,6 +7,7 @@ same `.npz` accumulation semantics, for the subcommands ported so far:
 
     python -m semiclassical_tpu_torch.cli dynamics input.json [--device cuda]
     python -m semiclassical_tpu_torch.cli rates input.json
+    python -m semiclassical_tpu_torch.cli spectrum input.json
 
 `dynamics` runs on the device named by `--device` (default `cuda`); it
 raises when that device is not available and never moves to another one.
@@ -25,22 +26,22 @@ import sys
 import numpy as np
 
 from semiclassical_tpu_torch.config import ConfigurationError, validate_task
+from semiclassical_tpu_torch.sampling import SAMPLING_METHODS
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["main", "run_semiclassical_dynamics", "calculate_rates",
-           "check_slice", "ConfigurationError"]
+           "calculate_spectrum", "check_slice", "ConfigurationError"]
 
 # subcommands of `semi` that the port does not have yet
-NOT_PORTED_COMMANDS = ("spectrum", "show", "export", "plot")
+NOT_PORTED_COMMANDS = ("show", "export", "plot")
 # potential types of the ported slice
 PORTED_POTENTIALS = ("harmonic", "anharmonic AS", "gdml")
 _SLICE = ("the port runs HK and WM on the 'harmonic', 'anharmonic AS' and "
           "'gdml' potentials")
 # dynamics task keywords whose features the port does not have yet
-NOT_PORTED_KEYS = ("checkpoint", "checkpoint_every", "error_bars",
-                   "calc_norm_every", "norm_samples", "micro_batch",
-                   "export_initial", "export_final")
+NOT_PORTED_KEYS = ("checkpoint", "checkpoint_every", "export_initial",
+                   "export_final")
 
 
 def main(argv=None):
@@ -71,6 +72,12 @@ def main(argv=None):
              "correlation functions")
     parser_rates.add_argument("json_input", type=str, metavar="input.json")
 
+    parser_spectrum = subparsers.add_parser(
+        "spectrum",
+        help="compute the Franck-Condon spectrum by Fourier transforming the "
+             "autocorrelation function")
+    parser_spectrum.add_argument("json_input", type=str, metavar="input.json")
+
     for name in NOT_PORTED_COMMANDS:
         sub = subparsers.add_parser(name, help="not ported yet")
         sub.add_argument("rest", nargs="*")
@@ -82,7 +89,7 @@ def main(argv=None):
     if args.command in NOT_PORTED_COMMANDS:
         raise ConfigurationError(
             f"subcommand '{args.command}' is not ported yet (ported: "
-            f"dynamics, rates; {_SLICE})")
+            f"dynamics, rates, spectrum; {_SLICE})")
     if args.command == "dynamics":
         tasks = _load_tasks(args.json_input, "dynamics")
         for task in tasks:
@@ -90,13 +97,15 @@ def main(argv=None):
         for task in tasks:
             run_semiclassical_dynamics(task, device=args.device,
                                        precision=args.precision)
-    elif args.command == "rates":
+    elif args.command in ("rates", "spectrum"):
         if not args.json_input.endswith(".json"):
             raise ConfigurationError(
-                "The argument for the command 'rates' should be the JSON "
-                f"control file, got '{args.json_input}' instead.")
-        for task in _load_tasks(args.json_input, "rates"):
-            calculate_rates(task)
+                f"The argument for the command '{args.command}' should be the "
+                f"JSON control file, got '{args.json_input}' instead.")
+        run = calculate_rates if args.command == "rates" else \
+            calculate_spectrum
+        for task in _load_tasks(args.json_input, args.command):
+            run(task)
     else:
         parser.print_help()
     return 0
@@ -117,8 +126,9 @@ def check_slice(task):
     that asks for anything outside the ported slice (HK, or WM with
     `cell_width`; the molecular harmonic PES and the anharmonic AS model
     with the 4-stage Hessian, the sGDML PES with `hess_dtype`,
-    `hessian_eval`, `taylor_every` and `eg_mode`; RK4, pseudo-random
-    sampling)."""
+    `hessian_eval`, `taylor_every` and `eg_mode`; RK4), and validate the
+    statistics keywords up front: `sampling`, `micro_batch`,
+    `calc_norm_every` and `norm_samples`."""
     propagator = task.get("propagator", "HK")
     if propagator not in ("HK", "WM"):
         raise ConfigurationError(
@@ -150,15 +160,36 @@ def check_slice(task):
     if integrator != "rk4":
         raise ConfigurationError(
             f"integrator '{integrator}' is not ported yet (ported: 'rk4')")
-    sampling = task.get("sampling", "pseudo")
-    if sampling != "pseudo":
-        raise ConfigurationError(
-            f"sampling '{sampling}' is not ported yet (ported: 'pseudo')")
     for key in NOT_PORTED_KEYS:
         if key in task:
             raise ConfigurationError(
                 f"task keyword '{key}' is not ported yet ({_SLICE}, with "
-                "RK4 and pseudo-random sampling)")
+                "RK4)")
+    for key in ("micro_batch", "calc_norm_every", "norm_samples"):
+        value = task.get(key, 0)
+        if isinstance(value, bool) or not isinstance(value, int) or value < 0:
+            raise ConfigurationError(
+                f"task keyword '{key}' should be a non-negative int, got "
+                f"{value!r}")
+    sampling = task.get("sampling", "pseudo")
+    if sampling not in SAMPLING_METHODS:
+        raise ConfigurationError(
+            f"sampling '{sampling}' is unknown (expected one of "
+            + ", ".join(f"'{m}'" for m in SAMPLING_METHODS) + ")")
+    if sampling == "antithetic":
+        n = min(task.get("batch_size", 10000),
+                task.get("num_trajectories", 50000))
+        m = task.get("micro_batch", 0)
+        if n % 2:
+            raise ConfigurationError(
+                f"sampling 'antithetic' needs an even number of trajectories "
+                f"per repetition, got {n}")
+        if (task.get("error_bars", False) and 0 < m < n and n % m == 0
+                and m % 2):
+            raise ConfigurationError(
+                f"task keyword 'micro_batch' = {m} is odd: antithetic error "
+                "bars need an even micro-batch size (interleaved +-pairs "
+                "must not straddle a sub-batch boundary)")
 
 
 def _build_potential(task, device):
@@ -282,6 +313,26 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
     logger.info(f"  integrator                                : "
                 f"{task.get('integrator', 'rk4')}")
     logger.info(f"  device                                    : {device}")
+    calc_norm_every = task.get("calc_norm_every", 0)
+    norm_samples = task.get("norm_samples", 0)
+    # per-step Monte-Carlo standard errors (npz keys autocorrelation_stderr
+    # / ic_correlation_stderr)
+    error_bars = bool(task.get("error_bars", False))
+    # variance-reduced draws of the initial conditions (sampling.
+    # standard_normals); converged values are unchanged
+    sampling_method = task.get("sampling", "pseudo")
+    if sampling_method != "pseudo":
+        logger.info(f"  sampling                                  : "
+                    f"{sampling_method}")
+    if error_bars and sampling_method == "sobol":
+        logger.warning(
+            "error_bars with sampling 'sobol': the stderr is the i.i.d. "
+            "formula's (as the JAX package reports it), about 6x "
+            "conservative for scrambled Sobol' points")
+    # sub-batches of the time loop; no default: the whole batch runs at once
+    micro = task.get("micro_batch", 0)
+    if micro:
+        logger.info(f"  device-side micro-batch                   : {micro}")
 
     filename = task["results"].get("correlations", "correlations.npz")
     overwrite = task["results"].get("overwrite", True)
@@ -328,14 +379,51 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
         else:
             propagator = HermanKlukPropagator(Gamma_i, Gamma_t,
                                               device=device)
+        propagator.micro_batch = micro
         with ptimer.phase("sample"):
             propagator.initial_conditions(q0, p0, Gamma_0, potential,
                                           ntraj=num_samples,
-                                          generator=generator)
-        with ptimer.phase("scan"):
-            cauto, kic = propagator.propagate(
-                potential, dt, nt, energy0_es=en_zpt, chunk=scan_chunk,
-                progress=_progress)
+                                          generator=generator,
+                                          sampling_method=sampling_method)
+
+        def _norm_log(step):
+            t_fs = times[step] * units.autime_to_fs
+            if norm_samples > 0:
+                nrm, err = propagator.norm(sample_pairs=norm_samples,
+                                           key=repetition)
+                logger.info(f" time/fs= {t_fs:.4f}  "
+                            f"norm= {nrm:9.6f} +- {err:.6f}")
+            else:
+                logger.info(f" time/fs= {t_fs:.4f}  "
+                            f"norm= {propagator.norm():9.6f}")
+
+        err_c = err_k = None
+        if calc_norm_every > 0:
+            # segments of calc_norm_every steps with the norm before each
+            cauto = np.zeros(nt, dtype=complex)
+            kic = np.zeros(nt, dtype=complex)
+            if error_bars:
+                err_c, err_k = np.zeros(nt), np.zeros(nt)
+            done = 0
+            while done < nt:
+                seg = min(calc_norm_every, nt - done)
+                _norm_log(done)
+                with ptimer.phase("scan"):
+                    out = propagator.propagate(potential, dt, seg,
+                                               energy0_es=en_zpt,
+                                               error_bars=error_bars)
+                cauto[done:done + seg], kic[done:done + seg] = out[:2]
+                if error_bars:
+                    err_c[done:done + seg], err_k[done:done + seg] = out[2:]
+                done += seg
+        else:
+            with ptimer.phase("scan"):
+                out = propagator.propagate(
+                    potential, dt, nt, energy0_es=en_zpt, chunk=scan_chunk,
+                    progress=_progress, error_bars=error_bars)
+            cauto, kic = out[:2]
+            if error_bars:
+                err_c, err_k = out[2:]
         # NaN watchdog (the energy guard inside propagate already raised
         # for NaN trajectories; this catches NaN prefactors/observables)
         if np.isnan(cauto).any() or np.isnan(kic).any():
@@ -343,8 +431,13 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
         RunMetrics.from_run(propagator.last_energies, cauto, kic).log()
         with ptimer.phase("reduce"):
             total = accumulate_results(filename, cauto, kic,
-                                       propagator.ntraj)
+                                       propagator.ntraj,
+                                       autocorrelation_stderr=err_c,
+                                       ic_correlation_stderr=err_k)
         logger.info(f"  accumulated trajectories: {total}")
+        if err_c is not None:
+            logger.info(f"  MC stderr: |C(t)| max {err_c.max():.2e}, "
+                        f"k~ic max {err_k.max():.2e}")
         traj_steps += propagator.ntraj * nt
     ptimer.log(traj_steps)
     return ptimer
@@ -378,7 +471,8 @@ def _build_lineshape(task):
 def calculate_rates(task):
     """Run one `rates` task on the host."""
     from semiclassical_tpu_torch import units
-    from semiclassical_tpu_torch.analysis import rate_from_correlation
+    from semiclassical_tpu_torch.analysis import (fourier_stderr,
+                                                  rate_from_correlation)
 
     broad, hwhmG, hwhmL, lineshape = _build_lineshape(task)
 
@@ -387,16 +481,7 @@ def calculate_rates(task):
 
     logger.info(f"compute rates from correlation functions in '{corr_file}'")
     data = dict(np.load(corr_file))
-    if "ic_correlation_stderr" in data:
-        raise ConfigurationError(
-            f"'{corr_file}' carries error bars (ic_correlation_stderr); "
-            "their propagation into the rate is not ported yet")
-    logger.info(f"trajectories : {data['trajectories']}")
-    logger.info(
-        f"time grid    : tmin= "
-        f"{data['times'].min() * units.autime_to_fs:.4f} tmax= "
-        f"{data['times'].max() * units.autime_to_fs:.4f} steps= "
-        f"{len(data['times'])}")
+    _log_time_grid(data)
 
     data["broadening"] = broad
     data["hwhmG"] = hwhmG
@@ -410,8 +495,70 @@ def calculate_rates(task):
     data["energies"] = energies[energies >= 0.0]
     data["ic_rate"] = ic_rate[energies >= 0.0].real
 
+    if "ic_correlation_stderr" in data:
+        # the transform is linear: the per-step MC stderr of k~ic(t)
+        # propagates to one scalar band for the whole rate curve, through
+        # the same 2 pi and s^-1 conversions as the rate itself
+        sigma = fourier_stderr(data["times"], data["ic_correlation_stderr"],
+                               lineshape)
+        sigma *= 2.0 * np.pi * 1.0e15 / units.autime_to_fs
+        data["ic_rate_stderr"] = sigma
+        logger.info(f"rate MC stderr (per energy point): {sigma:.3e} s^-1")
+
     logger.info(f"rates are saved to '{rate_file}'")
     np.savez(rate_file, **data)
+
+
+def _log_time_grid(data):
+    from semiclassical_tpu_torch import units
+
+    logger.info(f"trajectories : {data['trajectories']}")
+    logger.info(
+        f"time grid    : tmin= "
+        f"{data['times'].min() * units.autime_to_fs:.4f} tmax= "
+        f"{data['times'].max() * units.autime_to_fs:.4f} steps= "
+        f"{len(data['times'])}")
+
+
+def calculate_spectrum(task):
+    """Run one `spectrum` task on the host: the Fourier transform of the
+    stored autocorrelation C(t) into the Franck-Condon spectral density
+    S(E) (`analysis.spectrum_from_correlation`), with the stderr band of
+    an npz that carries `autocorrelation_stderr`. The output file is the
+    task's `spectra`, else its alias `spectrum`, else the input."""
+    from semiclassical_tpu_torch.analysis import (fourier_stderr,
+                                                  spectrum_from_correlation)
+
+    broad, hwhmG, hwhmL, lineshape = _build_lineshape(task)
+    corr_file = task.get("correlations", "correlations.npz")
+    out_file = task.get("spectra", task.get("spectrum", corr_file))
+
+    logger.info(f"compute the spectrum from the autocorrelation "
+                f"in '{corr_file}'")
+    data = dict(np.load(corr_file))
+    _log_time_grid(data)
+    energies, spectrum = spectrum_from_correlation(
+        data["times"], data["autocorrelation"], lineshape)
+
+    data["spectrum_broadening"] = broad
+    data["spectrum_hwhmG"] = hwhmG
+    data["spectrum_hwhmL"] = hwhmL
+    data["spectrum_energies"] = energies
+    data["spectrum"] = spectrum.real
+
+    if "autocorrelation_stderr" in data:
+        sigma = fourier_stderr(data["times"], data["autocorrelation_stderr"],
+                               lineshape)
+        data["spectrum_stderr"] = sigma
+        logger.info(f"spectrum MC stderr (per energy point): {sigma:.3e}")
+
+    # S integrates to f~(0) C(0) ~ 1 for a normalised, converged ensemble
+    s = spectrum.real
+    total = float(np.sum(0.5 * (s[1:] + s[:-1]) * np.diff(energies)))
+    logger.info(f"spectrum normalization integral S(E) dE = {total:.6f} "
+                f"(~1 for a normalized wavepacket)")
+    logger.info(f"the spectrum is saved to '{out_file}'")
+    np.savez(out_file, **data)
 
 
 if __name__ == "__main__":

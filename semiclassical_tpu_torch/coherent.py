@@ -4,11 +4,14 @@
     <x|q,p,G> = (det(G)/pi^N)^{1/4}
                 exp(-1/2 (x-q)^T G (x-q) + i/hbar p^T (x-q))
 
-The port of `OverlapParams`, the overlap exponents and `overlap_vector`
-of `semiclassical_tpu.coherent` — what the HK batch constants and the
-per-step autocorrelation use. The spectral work on the constant width
-matrices happens once on the host (`OverlapParams.create`); the device
-functions are batched with the trajectory axis leading.
+The port of `semiclassical_tpu.coherent`: `OverlapParams`, the overlap
+exponents and `overlap_vector` (the HK batch constants and the per-step
+autocorrelation), the pair-overlap matrix of the O(n^2) norm
+(`overlap_exponent_matrix`, `overlap_matrix`) and the grid wavefunction
+(`WavefunctionParams`, `wavefunction`, `wavefunction_log`). The spectral
+work on the constant width matrices happens once on the host
+(`OverlapParams.create`); the device functions are batched with the
+trajectory axis leading.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import torch
 from semiclassical_tpu_torch import linalg
 from semiclassical_tpu_torch.units import hbar
 
-__all__ = ["OverlapParams", "overlap_exponent_vector", "overlap_vector"]
+__all__ = ["OverlapParams", "WavefunctionParams", "overlap_exponent_vector",
+           "overlap_vector", "overlap_exponent_matrix", "overlap_matrix",
+           "wavefunction", "wavefunction_log"]
 
 
 @dataclass(frozen=True)
@@ -110,3 +115,98 @@ def overlap_vector(ov: OverlapParams, qi, pi, qj, pj):
     complex (n,)."""
     re, im = overlap_exponent_vector(ov, qi, pi, qj, pj)
     return ov.fac * torch.polar(torch.exp(re), im)
+
+
+def overlap_exponent_matrix(ov: OverlapParams, qi, pi, qj, pj):
+    """(re, im) exponent parts of the pair-overlap matrix <qi(i)|qj(j)>,
+    (ni, nj) each — for callers that fold log-scale factors (the
+    log-coefficients of the norm) into the exponent before exponentiating.
+
+    The quadratic forms are expanded, so the pair structure reduces to
+    per-vector diagonals plus (ni, d) @ (d, nj) matmuls: O(ni nj d) matmul
+    work in O(ni nj) memory, with no (ni, nj, d) displacement tensor."""
+    A = ov.Gi_iGij_Gj
+    B = ov.iGij / hbar**2
+    C = ov.Gj_iGij
+    Aqj, Bpj, Cpj = qj @ A.T, pj @ B.T, pj @ C.T       # (nj, d)
+    Cpi = pi @ C.T                                      # (ni, d)
+
+    # -1/2 (qj-qi)^T A (qj-qi) - 1/(2 hbar^2) (pj-pi)^T B (pj-pi)
+    aq_ii = torch.sum(qi * (qi @ A.T), dim=1)
+    aq_jj = torch.sum(qj * Aqj, dim=1)
+    bp_ii = torch.sum(pi * (pi @ B.T), dim=1)
+    bp_jj = torch.sum(pj * Bpj, dim=1)
+    re = (-0.5 * (aq_ii[:, None] + aq_jj[None, :] - 2.0 * qi @ Aqj.T)
+          - 0.5 * (bp_ii[:, None] + bp_jj[None, :] - 2.0 * pi @ Bpj.T))
+
+    # [-pj.(qj-qi) + (qj-qi)^T C (pj-pi)] / hbar, fully expanded:
+    #   (qj C pj - qj pj)[j] + qi.pj[i,j] - (qj C pi)[j,i] - (qi C pj)[i,j]
+    #   + (qi C pi)[i]
+    qcp_jj = torch.sum(qj * Cpj, dim=1)
+    qcp_ii = torch.sum(qi * Cpi, dim=1)
+    qp_jj = torch.sum(qj * pj, dim=1)
+    im = ((qcp_jj - qp_jj)[None, :] + qi @ pj.T - (qj @ Cpi.T).T
+          - qi @ Cpj.T + qcp_ii[:, None]) / hbar
+    return re, im
+
+
+def overlap_matrix(ov: OverlapParams, qi, pi, qj, pj):
+    """The pair-overlap matrix <qi(i)|qj(j)>, complex (ni, nj)."""
+    re, im = overlap_exponent_matrix(ov, qi, pi, qj, pj)
+    return ov.fac * torch.polar(torch.exp(re), im)
+
+
+@dataclass(frozen=True)
+class WavefunctionParams:
+    """Constants for superpositions of frozen Gaussians on grids."""
+
+    G: torch.Tensor   # (d, d)
+    fac: float        # (det G / pi^rank)^{1/4}
+    rank: int
+
+    @staticmethod
+    def create(G, device):
+        G = np.asarray(G, dtype=np.float64)
+        e, _ = linalg.sym_eigh(G)
+        nz = np.abs(e) > linalg.ZERO
+        rank = int(np.count_nonzero(nz))
+        fac = (np.prod(e[nz]) / np.pi**rank) ** 0.25
+        return WavefunctionParams.from_arrays(G, fac, rank, device)
+
+    @staticmethod
+    def from_arrays(G, fac, rank, device):
+        return WavefunctionParams(
+            G=torch.tensor(np.asarray(G, dtype=np.float64), device=device),
+            fac=float(fac), rank=int(rank))
+
+
+def _grid_exponent(wf: WavefunctionParams, q, p, x):
+    """(re, im) of the Gaussians' exponents <x|q_i, p_i>, (n, nx) each."""
+    dx = x[None, :, :] - q[:, None, :]                      # (n, nx, d)
+    re = -0.5 * torch.einsum("nxa,ab,nxb->nx", dx, wf.G, dx)
+    im = torch.einsum("na,nxa->nx", p, dx) / hbar
+    return re, im
+
+
+def wavefunction(wf: WavefunctionParams, q, p, v, x):
+    """phi(x) = sum_i v_i <x|q_i,p_i> on a spatial grid.
+
+    q, p : (n, d); v : complex (n,); x : (nx, d). Returns complex (nx,)."""
+    re, im = _grid_exponent(wf, q, p, x)
+    return torch.einsum("n,nx->x", v, wf.fac * torch.polar(torch.exp(re), im))
+
+
+def wavefunction_log(wf: WavefunctionParams, q, p, log_v, x):
+    """phi(x) from log-coefficients (log |v|, arg v): each trajectory's
+    log |v| joins its Gaussian exponent and the trajectory sum is
+    exponent-shifted, so the evaluation works where the linear
+    coefficients over/underflow. Returns (psi_shifted (nx,) complex,
+    zmax (nx,) real): phi = psi_shifted * exp(zmax), recombined by the
+    caller on the host."""
+    log_re, log_im = log_v
+    re, im = _grid_exponent(wf, q, p, x)
+    Zre = log_re[:, None] + re + float(np.log(abs(wf.fac)))
+    Zim = log_im[:, None] + im
+    zmax = torch.max(Zre, dim=0).values                     # (nx,)
+    psi = torch.sum(torch.polar(torch.exp(Zre - zmax[None, :]), Zim), dim=0)
+    return psi, zmax

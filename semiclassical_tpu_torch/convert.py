@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from semiclassical_tpu_torch.coherent import OverlapParams
+from semiclassical_tpu_torch.coherent import OverlapParams, WavefunctionParams
 from semiclassical_tpu_torch.gdml import GDMLParams
 from semiclassical_tpu_torch.potentials.model import (MorsePotential,
                                                       NonHarmonicPotential)
@@ -108,10 +108,16 @@ def _overlap_params(f, device):
         int(f["rank"]), device, diag_w=f.get("diag_w"))
 
 
+def _wavefunction_params(f, device):
+    return WavefunctionParams.from_arrays(f["G"], float(f["fac"]),
+                                          int(f["rank"]), device)
+
+
 def hk_params(f, device):
     """From the fields of `HKParams` (the f64 mode: no comp32 residuals);
-    the re/im planes of the factors are joined into complex factors, and
-    the separable-path scales diag_ka .. diag_ke are stacked."""
+    the re/im planes of the factors are joined into complex factors, the
+    separable-path scales diag_ka .. diag_ke are stacked, and the norm's
+    csott and the wavefunction's wf are carried when present."""
     if f.get("q0c") is not None:
         raise ValueError("comp32 parameter packs are not ported")
     plane = lambda name: (np.asarray(f[name + "_re"])
@@ -125,7 +131,11 @@ def hk_params(f, device):
         iGi0=f["iGi0"], R=f["R"],
         csoi0=_overlap_params(f["csoi0"], device),
         csot0=_overlap_params(f["csot0"], device), device=device,
-        diag=diag)
+        diag=diag,
+        csott=(None if f.get("csott") is None
+               else _overlap_params(f["csott"], device)),
+        wf=None if f.get("wf") is None else _wavefunction_params(f["wf"],
+                                                                  device))
 
 
 def batch_constants(f, device):
@@ -151,7 +161,8 @@ def wm_params(f, device):
         hk_params(hk, device), device, U=hk["U"], iGi0=hk["iGi0"],
         G0=hk["G0"], **{name: f[name] for name in _WM_ARRAYS},
         alpha=f["alpha"], beta=f["beta"], auto_pref=f["auto_pref"],
-        m_scale=f["m_scale"], m_log_det=f["m_log_det"], dim=f["dim"],
+        m_scale=f["m_scale"], m_log_det=f["m_log_det"],
+        log_coef_pref=f["log_coef_pref"], dim=f["dim"],
         rank=f["rank"], scan_diag=f["scan_diag"], diag=f.get("diag"))
 
 

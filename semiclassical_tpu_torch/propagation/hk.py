@@ -26,11 +26,23 @@ The port of `semiclassical_tpu.propagation.hk` on two paths:
   preallocated device tensors — no host synchronisation per step. C(t),
   k~ic(t) and the batch-mean energies come to the host once per call,
   where the energy-conservation guard and the separable phases apply.
+  With `error_bars` every step also writes the second moments
+  sum_i |x_i|^2 of both per-trajectory contribution vectors, which become
+  the per-step Monte-Carlo standard errors on the host; with
+  `micro_batch` every segment runs sub-batch by sub-batch and the sums
+  and moments add up (the JAX package's `_micro_scan`);
+* the granular API (`semiclassical_prefactor`, `autocorrelation`,
+  `coefficients`, `norm`, `wavefunction`, ...) works on the current state;
+  the O(n^2) norm is a loop over block pairs on the device with one host
+  read (`blocked_pair_sum`, `subsampled_pair_sum`), its block size chosen
+  from a memory budget (`pair_block`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,8 +50,11 @@ import torch
 
 from semiclassical_tpu_torch import linalg
 from semiclassical_tpu_torch.coherent import (OverlapParams,
+                                              WavefunctionParams,
+                                              overlap_exponent_matrix,
                                               overlap_exponent_vector,
-                                              overlap_vector)
+                                              overlap_matrix, overlap_vector,
+                                              wavefunction_log)
 from semiclassical_tpu_torch.potentials.base import (ConstHessian,
                                                      DenseHessian,
                                                      DiagHessian)
@@ -48,7 +63,9 @@ from semiclassical_tpu_torch.propagation.eom import (const_step_map,
                                                      rk4_step)
 from semiclassical_tpu_torch.propagation.state import SignTracker, TrajState
 from semiclassical_tpu_torch.sampling import (SamplingParams,
-                                              sample_initial_conditions)
+                                              log_sampling_statistics,
+                                              sample_initial_conditions,
+                                              standard_normals)
 from semiclassical_tpu_torch.units import hbar
 
 logger = logging.getLogger(__name__)
@@ -62,6 +79,15 @@ __all__ = [
     "hk_prefactor_det",
     "hk_batch_constants",
     "hk_observables",
+    "hk_observables_qp",
+    "second_moment",
+    "hk_coefficients",
+    "hk_log_coefficients",
+    "pair_block",
+    "blocked_pair_sum",
+    "subsampled_pair_sum",
+    "pairwise_norm",
+    "pairwise_norm_log",
     "check_energy_conservation",
 ]
 
@@ -109,6 +135,9 @@ class HKParams:
     diag_k: torch.Tensor | None = None
     R_diag: torch.Tensor | None = None      # (d,) diagonal of R, if diagonal
     shift_diag: torch.Tensor | None = None  # (d,) diagonal of shift, ditto
+    # the norm and the grid wavefunction
+    csott: OverlapParams | None = None      # <.,Gt | .,Gt>
+    wf: WavefunctionParams | None = None    # Gamma_t
 
     @property
     def factors_diag(self):
@@ -116,7 +145,7 @@ class HKParams:
 
     @staticmethod
     def from_factors(Lt_s, Lt_i, Ri_s, Ri_i, q0, p0, G0, iGi0, R,
-                     csoi0, csot0, device, diag=None):
+                     csoi0, csot0, device, diag=None, csott=None, wf=None):
         """Pack the complex factors (host numpy) for the device. The
         separable-path fields diag_k, R_diag and shift_diag are derived
         here unless given (as the dict `diag`)."""
@@ -143,7 +172,8 @@ class HKParams:
             right=t(np.concatenate([rst.real, rst.imag], axis=1)),
             q0=t(q0), p0=t(p0), R=t(R), shift=t(shift),
             csoi0=csoi0, csot0=csot0, dim=int(d), rank=int(r),
-            diag_K=t(diag_K), **{k: t(v) for k, v in diag.items()})
+            diag_K=t(diag_K), **{k: t(v) for k, v in diag.items()},
+            csott=csott, wf=wf)
 
 
 def _is_diag(M):
@@ -185,7 +215,9 @@ def build_hk_params(Gamma_i, Gamma_t, Gamma_0, q0, p0, U, iGi0, device):
         R=Gamma_0 @ iGi0 @ Gamma_i,
         csoi0=OverlapParams.create(Gamma_i, Gamma_0, device),
         csot0=OverlapParams.create(Gamma_t, Gamma_0, device),
-        device=device)
+        device=device,
+        csott=OverlapParams.create(Gamma_t, Gamma_t, device),
+        wf=WavefunctionParams.create(Gamma_t, device))
 
 
 @dataclass(frozen=True)
@@ -332,16 +364,275 @@ def hk_autocorr_qp(params: HKParams, bc: BatchConstants, state: TrajState,
     return fac * c_signed * torch.polar(torch.exp(total_re), total_im)
 
 
+def hk_observables_qp(params: HKParams, bc: BatchConstants,
+                      state: TrajState, c_signed, potential):
+    """The per-trajectory contributions (cauto_qp, kic_qp), complex (n,)
+    each, whose batch sums are C_auto(t) and k~ic(t)."""
+    cauto_qp = hk_autocorr_qp(params, bc, state, c_signed)
+    nacQ = _nac_factor(params, potential, state.q,
+                       _shifted_momentum(params, state.p), -1.0)
+    return cauto_qp, (1.0 / hbar**2) * nacQ * bc.nacq * cauto_qp
+
+
 def hk_observables(params: HKParams, bc: BatchConstants, state: TrajState,
                    c_signed, potential):
     """(C_auto(t), k~ic(t)) reduced over the trajectory batch as 0-d device
     tensors, *without* the excited-state dynamical phase exp(i t E0/hbar)
     and the weight scale — both are applied on the host."""
-    cauto_qp = hk_autocorr_qp(params, bc, state, c_signed)
-    nacQ = _nac_factor(params, potential, state.q,
-                       _shifted_momentum(params, state.p), -1.0)
-    kic_qp = (1.0 / hbar**2) * nacQ * bc.nacq * cauto_qp
+    cauto_qp, kic_qp = hk_observables_qp(params, bc, state, c_signed,
+                                         potential)
     return torch.sum(cauto_qp), torch.sum(kic_qp)
+
+
+def second_moment(x_qp, mode=True):
+    """sum_i |x_i|^2 of per-sample contributions, a 0-d device tensor.
+
+    `mode` True treats every trajectory as a sample; "pairs" (antithetic
+    sampling) first folds each interleaved +-pair into one sample — its
+    members are anticorrelated by construction, so the i.i.d. formula over
+    single trajectories would misstate the error. At float64 the plain sum
+    is safe: |x_i| ~ 1e-23 at 60 modes, its square far above the range
+    floor (the JAX package's factored (max, sum) form guards float32)."""
+    if mode == "pairs":
+        x_qp = x_qp.view(-1, 2).sum(dim=1)
+    return torch.sum(x_qp.real**2 + x_qp.imag**2)
+
+
+def _moments(cauto_qp, kic_qp, m2_mode):
+    """The second moments of both contribution vectors, or (None, None)."""
+    if not m2_mode:
+        return None, None
+    return second_moment(cauto_qp, m2_mode), second_moment(kic_qp, m2_mode)
+
+
+def hk_coefficients(params: HKParams, bc: BatchConstants, state: TrajState,
+                    c_signed):
+    """Expansion coefficients v_i of the HK wavefunction in the
+    coherent-state basis, without the weight scale."""
+    return (c_signed * torch.polar(torch.ones_like(state.S), state.S / hbar)
+            * bc.vi * bc.weight)
+
+
+def hk_log_coefficients(params: HKParams, bc: BatchConstants,
+                        state: TrajState, c_signed):
+    """log v_i of the fully weighted HK coefficients as two float64 tensors
+    (log |v_i|, arg v_i): the range-safe form of `hk_coefficients` (the
+    normalised weights alone span exp(+-O(100)) at many modes, while the
+    combined exponent stays O(-log n) for every contributing trajectory)."""
+    fac = params.csoi0.fac
+    log_re = (torch.log(torch.abs(c_signed)) + bc.obs_re
+              + float(np.log(abs(fac))) + bc.log_weight_scale)
+    log_im = (torch.angle(c_signed) + state.S / hbar + bc.obs_im
+              + float(np.angle(fac)))
+    return log_re, log_im
+
+
+# ---------------------------------------------------------------------------
+# the O(n^2) pair sums of the norm
+# ---------------------------------------------------------------------------
+
+# The memory one block pair's intermediates may take: the JAX package's
+# default block of 4096 would form (4096, 4096, d, d) complex128 tensors in
+# the WM norm (38 GB at d = 12), so the port sizes the block from this
+# budget and the block term's bytes per pair (`pair_block`).
+PAIR_BUDGET_BYTES = {"cuda": 2 << 30, "cpu": 32 << 20}
+# bytes of intermediates per pair of the HK block term: about ten (n, n)
+# float64 planes (the expanded exponents, their sums, the complex terms)
+HK_PAIR_BYTES = 128
+
+
+def pair_block(n, bytes_per_pair, device):
+    """The block size of a pair sum: the largest b <= n with b^2
+    bytes_per_pair <= PAIR_BUDGET_BYTES of the device type (2 GiB on the
+    card: b = 4096 for the HK norm; 32 MiB on the CPU)."""
+    kind = "cuda" if torch.device(device).type == "cuda" else "cpu"
+    b = math.isqrt(PAIR_BUDGET_BYTES[kind] // int(bytes_per_pair))
+    return max(1, min(int(n), b))
+
+
+def _block_starts(n, block):
+    return list(range(0, n, block))
+
+
+def _block(arrays, start, block):
+    return tuple(a[start:start + block] for a in arrays)
+
+
+def blocked_pair_sum(block_term, params, arrays, block, hermitian=True,
+                     pairs=None):
+    """sum_ij Re term(i, j) over the block pairs of `arrays` (per-trajectory
+    tensors, trajectory axis leading), as one loop on the device with one
+    host read.
+
+    `block_term(params, *blk_i, *blk_j)` returns the complex sum of one
+    block pair. `hermitian`: the pair matrix is Hermitian (identical bra
+    and ket widths), so the upper triangle runs and off-diagonal blocks
+    count twice; otherwise the full ordered grid runs. Blocks need not
+    divide n (the last one is shorter). `pairs`, if given, restricts the
+    sum to those (ib, jb) block indices."""
+    n = arrays[0].shape[0]
+    starts = _block_starts(n, block)
+    if pairs is None:
+        nb = len(starts)
+        pairs = [(i, j) for i in range(nb)
+                 for j in (range(i, nb) if hermitian else range(nb))]
+    total = torch.zeros((), dtype=torch.float64, device=arrays[0].device)
+    for i, j in pairs:
+        t = block_term(params, *_block(arrays, starts[i], block),
+                       *_block(arrays, starts[j], block)).real
+        total = total + (2.0 * t if hermitian and i != j else t)
+    return float(total)
+
+
+def subsampled_pair_sum(block_term, params, arrays, block, sample_pairs=512,
+                        key=0, hermitian=True):
+    """Unbiased estimate of the O(n^2) pair sum from a random subsample of
+    off-diagonal block pairs, with its Monte-Carlo standard error.
+
+    The diagonal block pairs (the positive |v_i|^2 mass) run exactly;
+    `sample_pairs` of the P off-diagonal pairs (the upper triangle when
+    `hermitian`, else the P = nb (nb - 1) ordered ones, terms not doubled)
+    are drawn without replacement by a `torch.Generator` seeded with `key`:
+
+        sum_est = diag + (P/m) sum_sample t_k
+        var_est = P^2 var(t_k) / m * (1 - m/P)   (finite population)
+
+    `block` must divide n. sample_pairs >= P gives the exact sum with
+    stderr 0. Returns (sum, stderr); every block term stays on the device
+    until one host read."""
+    n = arrays[0].shape[0]
+    if n % block:
+        raise ValueError(f"the subsampled pair sum needs a block that "
+                         f"divides n, got block {block} for n = {n}")
+    nb = n // block
+    if hermitian:
+        iu, ju = torch.triu_indices(nb, nb, offset=1)
+    else:
+        ii, jj = torch.meshgrid(torch.arange(nb), torch.arange(nb),
+                                indexing="ij")
+        off = ii != jj
+        iu, ju = ii[off], jj[off]
+    P = int(iu.shape[0])
+    m = min(int(sample_pairs), P)
+    gen = torch.Generator().manual_seed(int(key))
+    sel = torch.randperm(P, generator=gen)[:m]
+    pairs = ([(i, i) for i in range(nb)]
+             + list(zip(iu[sel].tolist(), ju[sel].tolist())))
+    terms = torch.stack([
+        block_term(params, *_block(arrays, i * block, block),
+                   *_block(arrays, j * block, block)).real
+        for i, j in pairs]).cpu().numpy()
+    diag_sum = float(np.sum(terms[:nb]))
+    if m == 0:
+        return diag_sum, 0.0
+    sampled = (2.0 if hermitian else 1.0) * terms[nb:]
+    var = (P * P * float(np.var(sampled, ddof=1)) / m * (1.0 - m / P)
+           if 1 < m < P else 0.0)
+    return diag_sum + P * float(np.mean(sampled)), float(np.sqrt(var))
+
+
+def _divisor_block(n, block):
+    """The largest divisor of n that is at most `block`."""
+    return next(b for b in range(min(block, n), 0, -1) if n % b == 0)
+
+
+def _sqrt_norm(norm2, err2=None):
+    """|psi| from the pair sum norm^2 (and its stderr, propagated through
+    the square root; a sum within noise of zero returns (0, err2))."""
+    if err2 is None:
+        return float(np.sqrt(norm2))
+    if norm2 <= 0.0:
+        return 0.0, float(err2)
+    norm = float(np.sqrt(norm2))
+    return norm, err2 / (2.0 * norm)
+
+
+def _hk_norm_block_term(ov, qi, pi, vi, qj, pj, vj):
+    return torch.einsum("i,ij,j->", vi.conj(), overlap_matrix(ov, qi, pi, qj,
+                                                              pj), vj)
+
+
+def _hk_norm_log_block_term(ov, qi, pi, lri, lii, qj, pj, lrj, lij):
+    """conj(v_i) <g_i|g_j> v_j of one block pair, each entry assembled as
+    ONE exponent (log-coefficients + pair-overlap exponent + log fac):
+    finite wherever the true pair term is."""
+    re, im = overlap_exponent_matrix(ov, qi, pi, qj, pj)
+    total_re = (lri[:, None] + lrj[None, :] + re
+                + float(np.log(abs(ov.fac))))
+    total_im = -lii[:, None] + lij[None, :] + im + float(np.angle(ov.fac))
+    return torch.sum(torch.polar(torch.exp(total_re), total_im))
+
+
+def pairwise_norm(ov: OverlapParams, q, p, v, block=None):
+    """|psi| = sqrt(sum_ij v_i^* <g_i|g_j> v_j) from linear coefficients,
+    by blocked accumulation over the Hermitian upper triangle. O(n^2):
+    an opt-in convergence diagnostic."""
+    if block is None:
+        block = pair_block(q.shape[0], HK_PAIR_BYTES, q.device)
+    return _sqrt_norm(blocked_pair_sum(_hk_norm_block_term, ov, (q, p, v),
+                                       block))
+
+
+def pairwise_norm_log(ov: OverlapParams, q, p, log_v, block=None,
+                      sample_pairs=None, key=0):
+    """|psi| from log-coefficients — the range-safe pairwise norm.
+
+    With `sample_pairs`: the subsampled estimate (`subsampled_pair_sum`,
+    at the largest block that divides n) as (norm, stderr), the stderr
+    propagated through the square root."""
+    n = q.shape[0]
+    if block is None:
+        block = pair_block(n, HK_PAIR_BYTES, q.device)
+    arrays = (q, p, *log_v)
+    if sample_pairs is not None:
+        return _sqrt_norm(*subsampled_pair_sum(
+            _hk_norm_log_block_term, ov, arrays, _divisor_block(n, block),
+            sample_pairs=sample_pairs, key=key))
+    return _sqrt_norm(blocked_pair_sum(_hk_norm_log_block_term, ov, arrays,
+                                       block))
+
+
+# ---------------------------------------------------------------------------
+# sub-batches of the micro-batched time loop
+# ---------------------------------------------------------------------------
+
+def _batch_rows(obj, a, b):
+    """Trajectories a:b of a per-batch object (TrajState, a tracker, the
+    batch constants): every tensor field sliced along its trajectory axis
+    (axis 1 of a diagonal-representation monodromy), nested packs likewise,
+    scalars kept. The slices are views."""
+    if isinstance(obj, TrajState):
+        Z = obj.Z[:, a:b] if obj.diag_monodromy else obj.Z[a:b]
+        return TrajState(q=obj.q[a:b], p=obj.p[a:b], Z=Z, S=obj.S[a:b])
+    fields = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v[a:b]
+        elif dataclasses.is_dataclass(v):
+            v = _batch_rows(v, a, b)
+        fields[f.name] = v
+    return dataclasses.replace(obj, **fields)
+
+
+def _cat_batches(parts):
+    """The inverse of `_batch_rows` over consecutive sub-batches."""
+    first = parts[0]
+    if isinstance(first, TrajState):
+        dim = 1 if first.diag_monodromy else 0
+        return TrajState(q=torch.cat([x.q for x in parts]),
+                         p=torch.cat([x.p for x in parts]),
+                         Z=torch.cat([x.Z for x in parts], dim=dim),
+                         S=torch.cat([x.S for x in parts]))
+    fields = {}
+    for f in dataclasses.fields(first):
+        v = getattr(first, f.name)
+        if isinstance(v, torch.Tensor):
+            v = torch.cat([getattr(x, f.name) for x in parts])
+        elif dataclasses.is_dataclass(v):
+            v = _cat_batches([getattr(x, f.name) for x in parts])
+        fields[f.name] = v
+    return dataclasses.replace(first, **fields)
 
 
 def check_energy_conservation(energies, change_tol=1.0e-2):
@@ -371,8 +662,11 @@ class HermanKlukPropagator:
     """HK propagation of one trajectory batch on one device.
 
     `initial_conditions` samples the batch and builds its constants,
-    `propagate` runs `nt` steps and returns C(t) and k~ic(t), `step`
-    advances one step.
+    `propagate` runs `nt` steps and returns C(t) and k~ic(t) (and their
+    per-step standard errors with `error_bars`), `step` advances one step;
+    the granular accessors (`semiclassical_prefactor`, `autocorrelation`,
+    `ic_correlation`, `coefficients`, `log_coefficients`, `norm`,
+    `wavefunction`, the state accessors) read the current state.
     """
 
     def __init__(self, Gamma_i, Gamma_t, device):
@@ -387,9 +681,13 @@ class HermanKlukPropagator:
         self.device = torch.device(device)
         self.state = None
         self.last_energies = np.zeros(0)
+        # sub-batch size of the time loop (0: the whole batch at once)
+        self.micro_batch = 0
+        self.sampling_method = "pseudo"
 
     def initial_conditions(self, q0, p0, Gamma_0, potential, ntraj=5000,
-                           generator=None, normals=None):
+                           generator=None, normals=None,
+                           sampling_method="pseudo"):
         """Sample initial phase-space points and initialise the state.
 
         Parameters
@@ -403,12 +701,17 @@ class HermanKlukPropagator:
         generator : torch.Generator on the propagator's device
         normals : optional (ntraj, 2 rank) standard normals used in place
             of the generator's draws
+        sampling_method : "pseudo" | "antithetic" | "sobol", the draw of
+            the standard normals (`sampling.standard_normals`); with
+            "antithetic" the error bars count each +-pair as one sample
         """
         q0 = np.asarray(q0, dtype=np.float64)
         p0 = np.asarray(p0, dtype=np.float64)
         Gamma_0 = np.asarray(Gamma_0, dtype=np.float64)
         sampling = SamplingParams.create(q0, p0, Gamma_0, self.Gamma_i,
                                          self.device)
+        self.sampling = sampling
+        self.sampling_method = sampling_method
         self.params = self._make_params(Gamma_0, q0, p0, sampling)
         logger.info("== Initial Conditions ==")
         logger.info(f"number of dimensions   :  {self.params.dim}")
@@ -416,8 +719,12 @@ class HermanKlukPropagator:
                     f"{self.params.dim - self.params.rank}")
         logger.info(f"number of trajectories :  {ntraj}")
 
-        qi, pi, log_prob = sample_initial_conditions(
-            sampling, ntraj, generator=generator, normals=normals)
+        if normals is None:
+            normals = standard_normals(sampling, ntraj, sampling_method,
+                                       generator)
+        qi, pi, log_prob = sample_initial_conditions(sampling, ntraj,
+                                                     normals=normals)
+        log_sampling_statistics(sampling, qi, pi)
         hess = potential.local_expansion(qi[:1])[2]
         if not isinstance(hess, (ConstHessian, DenseHessian, DiagHessian)):
             raise NotImplementedError(
@@ -447,18 +754,42 @@ class HermanKlukPropagator:
         """The branch-cut tracking state at the initial conditions."""
         return SignTracker.fresh(hk_prefactor_det(self.params, state))
 
-    def _observe(self, state, tracker, potential):
-        """One step's observables: the tracker advanced to `state` and the
-        (C_auto, k~ic) batch sums as 0-d device tensors."""
+    def _observe(self, state, tracker, potential, bc, m2_mode=False):
+        """One step's observables: the tracker advanced to `state`, the
+        (C_auto, k~ic) batch sums as 0-d device tensors, and their second
+        moments (`second_moment`; None unless `m2_mode`)."""
         tracker = tracker.update(hk_prefactor_det(self.params, state))
-        cauto, kic = hk_observables(self.params, self.bc, state,
-                                    tracker.sqrt(), potential)
-        return tracker, cauto, kic
+        cauto_qp, kic_qp = hk_observables_qp(self.params, bc, state,
+                                             tracker.sqrt(), potential)
+        return (tracker, torch.sum(cauto_qp), torch.sum(kic_qp),
+                *_moments(cauto_qp, kic_qp, m2_mode))
 
-    def _run(self, potential, dt, nt, chunk=None, progress=None):
+    def _micro_k(self, m2_mode):
+        """The number of sub-batches of the time loop: ntraj / micro_batch
+        when `micro_batch` is set, smaller than the batch and divides it;
+        else 1 (with a warning where it does not divide)."""
+        m, n = int(self.micro_batch or 0), self.ntraj
+        if m <= 0 or n <= m:
+            return 1
+        if n % m:
+            logger.warning(f"micro_batch={m} does not divide the batch "
+                           f"({n}); running the whole batch")
+            return 1
+        if m2_mode == "pairs" and m % 2:
+            raise ValueError(
+                f"antithetic error bars need an even micro-batch size, got "
+                f"{m} (= {n} trajectories / {n // m} sub-batches) — "
+                "interleaved +-pairs must not straddle a sub-batch boundary")
+        return n // m
+
+    def _run(self, potential, dt, nt, chunk=None, progress=None,
+             m2_mode=False):
         """The time loop: `nt` steps from the current state, in scan
-        segments of at most `chunk` steps. Returns the device tensors
-        (cauto, kic, energies) of length nt.
+        segments of at most `chunk` steps, each segment sub-batch by
+        sub-batch under `micro_batch`. Returns the device tensors (cauto,
+        kic, energies) of length nt and the second moments (2, nt) (None
+        unless `m2_mode`); sub-batch sums and moments add, energies
+        average.
 
         A `taylor_every` window (`eom.make_taylor_window`) restarts at the
         head of every segment, as the JAX package's scans do, so `chunk`
@@ -488,27 +819,49 @@ class HermanKlukPropagator:
         else:
             segments = [chunk] * (nt // chunk) + ([nt % chunk]
                                                    if nt % chunk else [])
-        cauto = torch.empty(nt, dtype=torch.complex128, device=self.device)
-        kic = torch.empty(nt, dtype=torch.complex128, device=self.device)
-        energies = torch.empty(nt, dtype=torch.float64, device=self.device)
+        k, n = self._micro_k(m2_mode), self.ntraj
+        rows = [(s * n // k, (s + 1) * n // k) for s in range(k)]
+        bcs = ([self.bc] if k == 1
+               else [_batch_rows(self.bc, a, b) for a, b in rows])
+        cauto = torch.empty(k, nt, dtype=torch.complex128, device=self.device)
+        kic = torch.empty(k, nt, dtype=torch.complex128, device=self.device)
+        energies = torch.empty(k, nt, dtype=torch.float64, device=self.device)
+        m2 = (torch.empty(2, k, nt, dtype=torch.float64, device=self.device)
+              if m2_mode else None)
         state, tracker = self.state, self.tracker
         done = 0
         for seg in segments:
-            carry = fresh(state)
-            for i in range(done, done + seg):
-                tracker, cauto[i], kic[i] = self._observe(state, tracker,
-                                                          potential)
-                state, energies[i], carry = advance(state, carry)
+            parts = []
+            for s, (a, b) in enumerate(rows):
+                st, tr = ((state, tracker) if k == 1 else
+                          (_batch_rows(state, a, b),
+                           _batch_rows(tracker, a, b)))
+                carry = fresh(st)
+                for i in range(done, done + seg):
+                    tr, cauto[s, i], kic[s, i], m2c, m2k = self._observe(
+                        st, tr, potential, bcs[s], m2_mode)
+                    if m2_mode:
+                        m2[0, s, i], m2[1, s, i] = m2c, m2k
+                    st, energies[s, i], carry = advance(st, carry)
+                parts.append((st, tr))
+            state, tracker = (parts[0] if k == 1 else
+                              tuple(_cat_batches(list(x))
+                                    for x in zip(*parts)))
             done += seg
             if progress is not None and chunk:
-                progress(done, nt, complex(cauto[done - 1])
+                progress(done, nt, complex(torch.sum(cauto[:, done - 1]))
                          * self.bc.weight_scale)
         self.state, self.tracker = state, tracker
         self.t += nt * float(dt)
-        return cauto, kic, energies
+        if k == 1:
+            return cauto[0], kic[0], energies[0], (None if m2 is None
+                                                   else m2[:, 0])
+        return (cauto.sum(dim=0), kic.sum(dim=0), energies.mean(dim=0),
+                None if m2 is None else m2.sum(dim=1))
 
     def propagate(self, potential, dt, nt, energy0_es=0.0, check_energy=True,
-                  chunk=None, progress=None):
+                  chunk=None, progress=None, error_bars=False,
+                  micro_batch=None):
         """Run `nt` steps.
 
         Returns (autocorrelation (nt,), ic_correlation (nt,)) as numpy
@@ -518,9 +871,26 @@ class HermanKlukPropagator:
         given, is called after every segment with (steps_done, nt, C(t) at
         the last step) — the one host read per segment. The per-step
         batch-mean energies of the run are kept in `self.last_energies`.
+
+        `error_bars=True` returns a 4-tuple (cauto, kic, cauto_stderr,
+        kic_stderr): the per-step Monte-Carlo standard errors of the
+        complex means, sigma = sqrt(sum_i |x_i|^2 - |sum_i x_i|^2 / n) over
+        the weighted contributions x_i (n samples: the trajectories, or the
+        +-pairs of an antithetic batch), invariant under the host phase.
+
+        `micro_batch`, if given, sets `self.micro_batch`: every segment
+        runs sub-batch by sub-batch (per-trajectory results unchanged, the
+        batch sums re-associate); ignored where it does not divide the
+        batch.
         """
+        if micro_batch is not None:
+            self.micro_batch = int(micro_batch)
+        m2_mode = False
+        if error_bars:
+            m2_mode = "pairs" if self.sampling_method == "antithetic" else True
         t_start = self.t
-        cauto, kic, energies = self._run(potential, dt, nt, chunk, progress)
+        cauto, kic, energies, m2 = self._run(potential, dt, nt, chunk,
+                                             progress, m2_mode)
         cauto = cauto.cpu().numpy()
         kic = kic.cpu().numpy()
         self.last_energies = energies.cpu().numpy()
@@ -529,8 +899,92 @@ class HermanKlukPropagator:
         ts = t_start + float(dt) * np.arange(nt)
         phase = np.exp(1j / hbar * energy0_es * ts)
         scale = self.bc.weight_scale
-        return cauto * scale * phase, kic * scale * phase
+        out = (cauto * scale * phase, kic * scale * phase)
+        if not error_bars:
+            return out
+        n = self.ntraj // 2 if m2_mode == "pairs" else self.ntraj
+        m2 = m2.cpu().numpy()
+        return (*out, *(scale * np.sqrt(np.maximum(
+            moment - np.abs(total) ** 2 / n, 0.0))
+            for moment, total in zip(m2, (cauto, kic))))
 
     def step(self, potential, dt):
         """Advance one time step t -> t + dt (updates the sign tracker)."""
         self._run(potential, dt, 1)
+
+    # -- granular API ---------------------------------------------------------
+
+    def _phase(self, energy0_es):
+        return np.exp(1j / hbar * self.t * energy0_es)
+
+    def semiclassical_prefactor(self):
+        """The sign-aligned HK prefactor C(t) at the current state, (n,)
+        complex; advances the tracker to the state first (a no-op when it
+        is already there)."""
+        self.tracker = self.tracker.update(hk_prefactor_det(self.params,
+                                                            self.state))
+        return self.tracker.sqrt()
+
+    def autocorrelation(self, energy0_es=0.0):
+        """C(t) at the current state."""
+        c = self.semiclassical_prefactor()
+        cauto = torch.sum(hk_autocorr_qp(self.params, self.bc, self.state, c))
+        return complex(cauto) * self.bc.weight_scale * self._phase(energy0_es)
+
+    def ic_correlation(self, potential, energy0_es=0.0):
+        """k~ic(t) at the current state."""
+        c = self.semiclassical_prefactor()
+        _, kic = hk_observables(self.params, self.bc, self.state, c,
+                                potential)
+        return complex(kic) * self.bc.weight_scale * self._phase(energy0_es)
+
+    def coefficients(self):
+        """The linear coefficients v_i, weight scale included; they
+        over/underflow where the true magnitude does (`log_coefficients`
+        is exact at any mode count)."""
+        v = hk_coefficients(self.params, self.bc, self.state,
+                            self.semiclassical_prefactor())
+        return v * self.bc.weight_scale
+
+    def _log_coefficients(self):
+        return hk_log_coefficients(self.params, self.bc, self.state,
+                                   self.semiclassical_prefactor())
+
+    def log_coefficients(self):
+        """(log |v|, arg v) as float64 numpy arrays."""
+        return tuple(x.cpu().numpy() for x in self._log_coefficients())
+
+    def norm(self, sample_pairs=None, key=0, block=None):
+        """|psi| of the frozen-Gaussian wavefunction (O(n^2), diagnostic),
+        from log-coefficients; `block` defaults to `pair_block`'s rule.
+        With `sample_pairs`: the subsampled estimate (norm, stderr)."""
+        return pairwise_norm_log(self.params.csott, self.state.q,
+                                 self.state.p, self._log_coefficients(),
+                                 block=block, sample_pairs=sample_pairs,
+                                 key=key)
+
+    def wavefunction(self, x):
+        """psi(x, t) on a grid x (nx, d), complex numpy (nx,), from
+        log-coefficients with the exponent shift recombined on the host."""
+        x = torch.as_tensor(np.asarray(x), dtype=torch.float64,
+                            device=self.device)
+        psi, zmax = wavefunction_log(self.params.wf, self.state.q,
+                                     self.state.p, self._log_coefficients(),
+                                     x)
+        return psi.cpu().numpy() * np.exp(zmax.cpu().numpy())
+
+    def initial_positions_and_momenta(self):
+        return self.bc.qi, self.bc.pi
+
+    def current_positions_and_momenta(self):
+        return self.state.q, self.state.p
+
+    def classical_action(self):
+        return self.state.S
+
+    def monodromy_matrices(self):
+        """The monodromy blocks (Mqq, Mqp, Mpq, Mpp), each (n, d, d) with
+        the trajectory axis leading (the diagonal representation
+        expanded)."""
+        Z, d = self.state.dense_Z(), self.state.dim
+        return Z[:, :d, :d], Z[:, :d, d:], Z[:, d:, :d], Z[:, d:, d:]

@@ -33,14 +33,21 @@ path (all widths diagonal at full rank, `scan_diag`):
   complex systems (`WMDiagConsts`, `_wm_diag_core`), and the whole
   time-dependent chain of a step — the 2x2 algebra, the mode-sum Gram
   forms and the per-mode det planes — is one call of `ops.wm_diag`: the
-  fused CUDA kernel K5 on the card (`_wm_scan_derived_diag`).
+  fused CUDA kernel K5 on the card (`_wm_scan_derived_diag`);
+* the observables' per-trajectory contributions also give the second
+  moments of the error bars, and the HK propagator's time loop runs the
+  micro-batches;
+* the coefficients (eqn. 75, in log space), the grid wavefunction and the
+  O(n^2) norm (`wm_norm`) read the full tensors of `wm_derived`; each
+  (bi, bj) block pair of the norm inverts its (bi bj, r, r) pair matrices
+  with `linalg.batched_det_inv`: K3 on the card.
 
-Not ported: the comp32 residuals, coefficients, wavefunction, norm,
-micro-batching and the exact integrators.
+Not ported: the comp32 residuals and the exact integrators.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -51,16 +58,23 @@ from semiclassical_tpu_torch import linalg
 from semiclassical_tpu_torch.ops import wm_diag as _wm_diag_ops
 from semiclassical_tpu_torch.propagation.hk import (BatchConstants, HKParams,
                                                     HermanKlukPropagator,
+                                                    _divisor_block, _moments,
+                                                    _sqrt_norm,
+                                                    blocked_pair_sum,
                                                     hk_batch_constants,
-                                                    hk_prefactor_det)
+                                                    hk_prefactor_det,
+                                                    pair_block,
+                                                    subsampled_pair_sum)
 from semiclassical_tpu_torch.propagation.state import SignTracker, TrajState
 from semiclassical_tpu_torch.units import hbar
 
 __all__ = ["WMParams", "WMDiagConsts", "WMBatchConstants", "WMDerived",
            "WMScanDerived", "WMTrackers", "WaltonManolopoulosPropagator",
            "wm_batch_constants", "wm_derived", "wm_scan_derived",
-           "wm_scan_observables", "wm_autocorr_qp", "wm_observables",
-           "wm_diag_inputs"]
+           "wm_scan_observables", "wm_scan_observables_qp",
+           "wm_autocorr_qp", "wm_observables", "wm_diag_inputs",
+           "wm_coefficients", "wm_log_coefficients", "wm_wavefunction",
+           "wm_norm", "wm_pair_bytes"]
 
 
 def _c(x):
@@ -161,6 +175,8 @@ class WMParams:
                              # / exp(m_log_det / 2), combined in log space
     m_scale: float           # 2 pi exp(m_log_det / r)
     m_log_det: float         # log of the factored-out detM scale
+    log_coef_pref: float     # log of detG0^{1/4} detGt^{1/4} detGi^{1/4}
+                             # / detGi0^{1/2}, the coefficients' prefactor
     dim: int
     rank: int
     scan_diag: bool          # all widths diagonal at full rank: the
@@ -168,9 +184,14 @@ class WMParams:
     diag: WMDiagConsts | None = None     # per-mode constants (scan_diag)
     diag_pack: torch.Tensor | None = None  # (17, d) K5's constant pack
 
+    @property
+    def coef_pref(self):
+        return float(np.exp(self.log_coef_pref))
+
     @staticmethod
     def from_arrays(hk, device, *, alpha, beta, auto_pref, m_scale,
-                    m_log_det, dim, rank, scan_diag, diag=None, **arrays):
+                    m_log_det, log_coef_pref, dim, rank, scan_diag,
+                    diag=None, **arrays):
         """Pack host arrays (real -> float64, complex -> complex128) for
         the device; `arrays` holds every tensor field, `diag` the
         WMDiagConsts fields (scan_diag only)."""
@@ -186,7 +207,8 @@ class WMParams:
         return WMParams(hk=hk, **{k: t(v) for k, v in arrays.items()},
                         alpha=float(alpha), beta=float(beta),
                         auto_pref=float(auto_pref), m_scale=float(m_scale),
-                        m_log_det=float(m_log_det), dim=int(dim),
+                        m_log_det=float(m_log_det),
+                        log_coef_pref=float(log_coef_pref), dim=int(dim),
                         rank=int(rank), scan_diag=bool(scan_diag), diag=dg,
                         diag_pack=pack)
 
@@ -263,6 +285,7 @@ def _build_wm_params(hk, Gamma_i, Gamma_t, Gamma_0, U, iGi0, alpha, beta,
         M0=U.T @ (Gamma_0 + Gamma_t) @ U,
         alpha=alpha, beta=beta, auto_pref=auto_pref,
         m_scale=2.0 * np.pi * np.exp(m_log_det / r), m_log_det=m_log_det,
+        log_coef_pref=0.25 * (ld0 + ldt + ldi) - 0.5 * ldi0,
         dim=d, rank=r, scan_diag=scan_diag,
         diag=(_diag_consts(Gamma_i, Gamma_t, Gamma_0, alpha, beta)
               if scan_diag else None))
@@ -606,18 +629,27 @@ def _prefactor(params, state, c_signed, detA, detM, signs_A, signs_M):
             * signs_A / torch.sqrt(detA) * signs_M / torch.sqrt(detM))
 
 
+def wm_scan_observables_qp(params: WMParams, bc: WMBatchConstants,
+                           state: TrajState, sd: WMScanDerived, c_signed,
+                           signs_A, signs_M):
+    """The per-trajectory contributions (cauto_qp, kic_qp) of eqns. 85,
+    89-100 from the scalar forms, complex (n,) each."""
+    expo = (sd.gamma + bc.base.logw_norm
+            - 0.5 * sd.rqq - 0.5 * sd.rQQ + sd.rqQ
+            + 1j * ((sd.PQ_dQ - sd.Pq_dq) / hbar))
+    cauto_qp = _prefactor(params, state, c_signed, sd.detA, sd.detM,
+                          signs_A, signs_M) * torch.exp(expo)
+    return cauto_qp, (1.0 / hbar**2) * sd.kfac * cauto_qp
+
+
 def wm_scan_observables(params: WMParams, bc: WMBatchConstants,
                         state: TrajState, sd: WMScanDerived, c_signed,
                         signs_A, signs_M):
     """(C_auto(t), k~ic(t)) batch sums from the scalar forms (eqns. 85,
     89-100) as 0-d device tensors, without the weight scale and the
     excited-state phase (both applied on the host)."""
-    expo = (sd.gamma + bc.base.logw_norm
-            - 0.5 * sd.rqq - 0.5 * sd.rQQ + sd.rqQ
-            + 1j * ((sd.PQ_dQ - sd.Pq_dq) / hbar))
-    cauto_qp = _prefactor(params, state, c_signed, sd.detA, sd.detM,
-                          signs_A, signs_M) * torch.exp(expo)
-    kic_qp = (1.0 / hbar**2) * sd.kfac * cauto_qp
+    cauto_qp, kic_qp = wm_scan_observables_qp(params, bc, state, sd,
+                                              c_signed, signs_A, signs_M)
     return torch.sum(cauto_qp), torch.sum(kic_qp)
 
 
@@ -664,6 +696,131 @@ def wm_observables(params: WMParams, bc: WMBatchConstants, state: TrajState,
             + 1j * (torch.sum(derived.Pq * n1q, dim=1) / hbar))
     kic_qp = (1.0 / hbar**2) * (nacqQ + nacQ * nacq) * cauto_qp
     return torch.sum(cauto_qp), torch.sum(kic_qp)
+
+
+# ---------------------------------------------------------------------------
+# coefficients, wavefunction and norm
+# ---------------------------------------------------------------------------
+
+def wm_coefficients(params: WMParams, bc: WMBatchConstants, state: TrajState,
+                    derived: WMDerived, c_signed, signs_A):
+    """Gaussian expansion coefficients (eqn. 75), without the weight scale.
+    The pi / 2 pi factors are absorbed in the pseudo-determinants; the
+    1/(2 pi)^d of eqn. 75 is the (2 pi hbar)^d of the Monte-Carlo weight."""
+    dq = _c(params.hk.q0[None, :] - bc.base.qi)
+    phase = torch.polar(torch.ones_like(state.S), state.S / hbar)
+    v = (params.coef_pref * c_signed * phase * signs_A
+         / torch.sqrt(derived.detA) * torch.exp(_c(bc.eps)))
+    v = v * torch.exp(-0.5 * torch.einsum("ni,ij,nj->n", dq,
+                                          _c(params.Cqq), dq)
+                      - 1j * (torch.sum(_c(bc.PIq) * dq, dim=1) / hbar))
+    return v * bc.base.weight
+
+
+def wm_log_coefficients(params: WMParams, bc: WMBatchConstants,
+                        state: TrajState, derived: WMDerived, c_signed,
+                        signs_A):
+    """log v_i of the coefficients (eqn. 75) as two float64 tensors
+    (log |v_i|, arg v_i, the phase unwrapped additively): the range-safe
+    form, weight and weight scale included, so exp(log v) is the fully
+    weighted coefficient."""
+    dq = params.hk.q0[None, :] - bc.base.qi
+    quad = 0.5 * torch.einsum("ni,ij,nj->n", dq, params.Cqq, dq)
+    phase_pi = torch.sum(bc.PIq * dq, dim=1) / hbar
+    log_re = (params.log_coef_pref + torch.log(torch.abs(c_signed))
+              - 0.5 * torch.log(torch.abs(derived.detA)) + bc.eps
+              + bc.base.logw_norm + bc.base.log_weight_scale - quad)
+    log_im = (torch.angle(c_signed) + state.S / hbar
+              - 0.5 * torch.angle(derived.detA)
+              + 0.5 * math.pi * (1.0 - signs_A) - phase_pi)
+    return log_re, log_im
+
+
+def wm_wavefunction(params: WMParams, bc: WMBatchConstants,
+                    state: TrajState, derived: WMDerived, log_v, x):
+    """psi(x, t) on a grid x (nx, d) (eqn. 75) from log-coefficients: each
+    trajectory's log |v| joins its Gaussian exponent and the trajectory
+    sum is exponent-shifted. Returns (psi_shifted (nx,), zmax (nx,)):
+    psi = psi_shifted * exp(zmax), recombined by the caller on the host."""
+    log_re, log_im = log_v
+    dxQ = _c(x[None, :, :] - state.q[:, None, :])             # (n, nx, d)
+    dq = _c(params.hk.q0[None, :] - bc.base.qi)
+    expo = (-0.5 * torch.einsum("nxi,nij,nxj->nx", dxQ, derived.CQQ, dxQ)
+            + torch.einsum("ni,nij,nxj->nx", dq, derived.CqQ, dxQ)
+            + 1j * (torch.einsum("ni,nxi->nx", derived.PIQ, dxQ) / hbar))
+    Zre = log_re[:, None] + expo.real
+    Zim = log_im[:, None] + expo.imag
+    zmax = torch.max(Zre, dim=0).values
+    return torch.sum(torch.polar(torch.exp(Zre - zmax[None, :]), Zim),
+                     dim=0), zmax
+
+
+def wm_pair_bytes(dim, rank):
+    """Bytes of intermediates per pair of the WM norm's block term: the
+    (r, r) pair matrix, its scaled copy, inverse and product (complex), the
+    (d,)-vectors of the pair exponent, with room to spare."""
+    return 16 * (6 * rank * rank + 8 * dim)
+
+
+def _wm_norm_block_term(pack, Qi, di, Ci, UCi, CUi, dUi, lri, lii,
+                        Qj, dj, Cj, UCj, CUj, dUj, lrj, lij):
+    """One (bi, bj) block pair of the WM pair sum (ordered grid).
+
+    Per trajectory: Q = q(t), d = CqQ^T (q0 - q(0)) + i PIQ / hbar, C = CQQ
+    (d, d), UC = U^T CQQ (r, d), CU = U^T CQQ U (r, r), dU = d U, and the
+    log-coefficients. The pair matrix D_ij = conj(CQQ_i) + CQQ_j is formed
+    in the projected space (U is real, so U^T D_ij U = conj(CU_i) + CU_j),
+    scaled by m_scale and inverted with `det_inv` (K3 on the card)."""
+    m_scale, m_log_det, det_inv = pack
+    dQ = _c(Qj[None, :, :] - Qi[:, None, :])                  # (bi, bj, d)
+    detD, iD_s = det_inv((CUi.conj()[:, None] + CUj[None, :]) / m_scale)
+    iD = iD_s / m_scale                                       # (bi, bj, r, r)
+    bU = (torch.einsum("nab,mnb->mna", UCj, dQ)
+          + dUi.conj()[:, None, :] + dUj[None, :, :])         # (bi, bj, r)
+    pair_expo = (-0.5 * torch.einsum("mna,nab,mnb->mn", dQ, Cj, dQ)
+                 - torch.einsum("na,mna->mn", dj, dQ)
+                 + 0.5 * torch.einsum("mna,mnab,mnb->mn", bU, iD, bU))
+    total_re = (lri[:, None] + lrj[None, :] + pair_expo.real
+                - 0.5 * (torch.log(torch.abs(detD)) + m_log_det))
+    total_im = (-lii[:, None] + lij[None, :] + pair_expo.imag
+                - 0.5 * torch.angle(detD))
+    return torch.sum(torch.polar(torch.exp(total_re), total_im))
+
+
+def wm_norm_arrays(params: WMParams, bc: WMBatchConstants, state: TrajState,
+                   derived: WMDerived, log_v, det_inv=None):
+    """(pack, arrays) of the WM pair sum (see `_wm_norm_block_term`);
+    `det_inv` defaults to `linalg.batched_det_inv` (K3 on the card; a
+    check can hand it the plain version instead)."""
+    U = _c(params.U)
+    dq0i = _c(params.hk.q0[None, :] - bc.base.qi)
+    dvec = (torch.einsum("nji,nj->ni", derived.CqQ, dq0i)
+            + 1j * (derived.PIQ / hbar))                      # (n, d)
+    UC = torch.einsum("ia,nij->naj", U, derived.CQQ)          # (n, r, d)
+    pack = (params.m_scale, params.m_log_det,
+            det_inv or linalg.batched_det_inv)
+    return pack, (state.q, dvec, derived.CQQ, UC, UC @ U, dvec @ U, *log_v)
+
+
+def wm_norm(params: WMParams, bc: WMBatchConstants, state: TrajState,
+            derived: WMDerived, log_v, block=None, sample_pairs=None, key=0):
+    """|psi| of the WM wavefunction: O(n^2) with an r x r inverse per
+    pair, each entry of the pair sum assembled as ONE exponent (log v_m^*
+    + log v_n + the pair-overlap exponent - 1/2 Log det), over the full
+    ordered block-pair grid (the pair exponent is not assembled
+    symmetrically). `block` defaults to `pair_block` at `wm_pair_bytes`;
+    with `sample_pairs` the subsampled estimate (norm, stderr)."""
+    pack, arrays = wm_norm_arrays(params, bc, state, derived, log_v)
+    n = state.q.shape[0]
+    if block is None:
+        block = pair_block(n, wm_pair_bytes(params.dim, params.rank),
+                           state.q.device)
+    if sample_pairs is not None:
+        return _sqrt_norm(*subsampled_pair_sum(
+            _wm_norm_block_term, pack, arrays, _divisor_block(n, block),
+            sample_pairs=sample_pairs, key=key, hermitian=False))
+    return _sqrt_norm(blocked_pair_sum(_wm_norm_block_term, pack, arrays,
+                                       block, hermitian=False))
 
 
 # ---------------------------------------------------------------------------
@@ -721,13 +878,85 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
                                                           state)),
             detA=SignTracker.fresh(detA), detM=SignTracker.fresh(detM))
 
-    def _observe(self, state, tracker, potential):
+    def _observe(self, state, tracker, potential, bc, m2_mode=False):
         prefactorC = tracker.prefactorC.update(
             hk_prefactor_det(self.params.hk, state))
-        sd = wm_scan_derived(self.params, self.bc, state, potential)
+        sd = wm_scan_derived(self.params, bc, state, potential)
         detA = tracker.detA.update(sd.detA)
         detM = tracker.detM.update(sd.detM)
-        cauto, kic = wm_scan_observables(self.params, self.bc, state, sd,
-                                         prefactorC.sqrt(), detA.signs,
-                                         detM.signs)
-        return WMTrackers(prefactorC, detA, detM), cauto, kic
+        cauto_qp, kic_qp = wm_scan_observables_qp(
+            self.params, bc, state, sd, prefactorC.sqrt(), detA.signs,
+            detM.signs)
+        return (WMTrackers(prefactorC, detA, detM), torch.sum(cauto_qp),
+                torch.sum(kic_qp), *_moments(cauto_qp, kic_qp, m2_mode))
+
+    # -- granular API ---------------------------------------------------------
+
+    def semiclassical_prefactor(self):
+        prefactorC = self.tracker.prefactorC.update(
+            hk_prefactor_det(self.params.hk, self.state))
+        self.tracker = dataclasses.replace(self.tracker,
+                                           prefactorC=prefactorC)
+        return prefactorC.sqrt()
+
+    def initial_positions_and_momenta(self):
+        return self.bc.base.qi, self.bc.base.pi
+
+    def _sync_derived(self):
+        """The full tensors of `wm_derived` at the current state (K3 on
+        the A- and M-matrices), with the detA / detM trackers advanced to
+        it (dense and diagonal states alike)."""
+        derived = wm_derived(self.params, self.bc, self.state)
+        self.tracker = dataclasses.replace(
+            self.tracker, detA=self.tracker.detA.update(derived.detA),
+            detM=self.tracker.detM.update(derived.detM))
+        return derived
+
+    def autocorrelation(self, energy0_es=0.0):
+        c = self.semiclassical_prefactor()
+        derived = self._sync_derived()
+        cauto = torch.sum(wm_autocorr_qp(
+            self.params, self.bc, self.state, derived, c,
+            self.tracker.detA.signs, self.tracker.detM.signs))
+        return complex(cauto) * self.bc.weight_scale * self._phase(energy0_es)
+
+    def ic_correlation(self, potential, energy0_es=0.0):
+        c = self.semiclassical_prefactor()
+        derived = self._sync_derived()
+        _, kic = wm_observables(self.params, self.bc, self.state, derived, c,
+                                self.tracker.detA.signs,
+                                self.tracker.detM.signs, potential)
+        return complex(kic) * self.bc.weight_scale * self._phase(energy0_es)
+
+    def coefficients(self):
+        """Linear-scale coefficients; they underflow where the true
+        magnitude does — use `log_coefficients` at high mode counts."""
+        c = self.semiclassical_prefactor()
+        derived = self._sync_derived()
+        v = wm_coefficients(self.params, self.bc, self.state, derived, c,
+                            self.tracker.detA.signs)
+        return v * self.bc.weight_scale
+
+    def _log_coefficients_and_derived(self):
+        c = self.semiclassical_prefactor()
+        derived = self._sync_derived()
+        return wm_log_coefficients(self.params, self.bc, self.state, derived,
+                                   c, self.tracker.detA.signs), derived
+
+    def _log_coefficients(self):
+        return self._log_coefficients_and_derived()[0]
+
+    def wavefunction(self, x):
+        log_v, derived = self._log_coefficients_and_derived()
+        x = torch.as_tensor(np.asarray(x), dtype=torch.float64,
+                            device=self.device)
+        psi, zmax = wm_wavefunction(self.params, self.bc, self.state,
+                                    derived, log_v, x)
+        return psi.cpu().numpy() * np.exp(zmax.cpu().numpy())
+
+    def norm(self, sample_pairs=None, key=0, block=None):
+        """|psi| (O(n^2) with K3 on every block pair's (bi bj, r, r) pair
+        matrices); see `wm_norm`."""
+        log_v, derived = self._log_coefficients_and_derived()
+        return wm_norm(self.params, self.bc, self.state, derived, log_v,
+                       block=block, sample_pairs=sample_pairs, key=key)

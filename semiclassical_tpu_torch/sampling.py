@@ -6,14 +6,17 @@ to |<qi,pi,Gamma_i|q0,p0,Gamma_0>|^2. The singular covariance is factorised
 once on the host through eigendecompositions of Gamma_i + Gamma_0
 (momentum block) and Gamma_i [Gamma_i+Gamma_0]^{-1} Gamma_0 (position
 block); zero-frequency modes are excluded from sampling. The port of
-`SamplingParams` and the "pseudo" method of `sample_initial_conditions` in
 `semiclassical_tpu.sampling`: the standard normals come from an explicit
-`torch.Generator` on the device, or are passed in (`normals=`) so that two
-implementations can be fed the same draws.
+`torch.Generator` on the device ("pseudo", and the "antithetic" pairs), from
+scrambled Sobol' points whose scramble seed the generator draws ("sobol"),
+or are passed in (`normals=`) so that two implementations can be fed the
+same draws. `sampling_statistics` compares the sample moments with the
+analytic ones in float64.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -21,7 +24,13 @@ import torch
 
 from semiclassical_tpu_torch import linalg
 
-__all__ = ["SamplingParams", "sample_initial_conditions"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["SamplingParams", "SAMPLING_METHODS", "standard_normals",
+           "scramble_seed", "sample_initial_conditions",
+           "sampling_statistics", "log_sampling_statistics"]
+
+SAMPLING_METHODS = ("pseudo", "antithetic", "sobol")
 
 
 @dataclass(frozen=True)
@@ -92,13 +101,76 @@ class SamplingParams:
                               dim=int(dim), rank=int(rank))
 
 
+def _gaussian(shape, generator, dtype, device):
+    """i.i.d. standard normals of `shape` from `generator`."""
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+
+
+def scramble_seed(generator):
+    """The Sobol' scramble seed of a batch, drawn from `generator` (an int
+    in [0, 2^31 - 1), as the JAX package draws it from its key)."""
+    device = None if generator is None else generator.device
+    return int(torch.randint(0, 2**31 - 1, (), generator=generator,
+                             device=device))
+
+
+def standard_normals(params: SamplingParams, ntraj: int, method="pseudo",
+                     generator=None, seed=None):
+    """(ntraj, 2 rank) standard-normal draws for the sampling transform.
+
+    method:
+    * "pseudo"     — i.i.d. draws from `generator`;
+    * "antithetic" — ntraj/2 i.i.d. draws and their negations, interleaved
+                     so that each +-pair occupies adjacent rows (a pair stays
+                     together under any even-sized contiguous split); the
+                     Gaussian density is even, so the estimator stays
+                     unbiased while every odd-in-x error component cancels
+                     within each pair. Raises on an odd ntraj;
+    * "sobol"      — scrambled Sobol' points (host-side `scipy.stats.qmc`)
+                     through the inverse normal CDF; the scramble seed is
+                     `seed` if given, else drawn from `generator`, so
+                     independent generators give independent randomisations
+                     and the estimator is unbiased. Best balanced at a
+                     power-of-two ntraj (a warning otherwise).
+    """
+    shape = (ntraj, 2 * params.rank)
+    dtype, device = params.iLz.dtype, params.iLz.device
+    if method == "pseudo":
+        return _gaussian(shape, generator, dtype, device)
+    if method == "antithetic":
+        if ntraj % 2:
+            raise ValueError(f"antithetic sampling needs an even number of "
+                             f"trajectories, got {ntraj}")
+        half = _gaussian((ntraj // 2, shape[1]), generator, dtype, device)
+        return torch.stack([half, -half], dim=1).reshape(shape)
+    if method == "sobol":
+        from scipy.special import ndtri
+        from scipy.stats import qmc
+        if seed is None:
+            seed = scramble_seed(generator)
+        sampler = qmc.Sobol(d=shape[1], scramble=True, seed=int(seed))
+        m = ntraj.bit_length() - 1
+        if ntraj == 1 << m:
+            u = sampler.random_base2(m)
+        else:
+            logger.warning(f"sobol sampling with non-power-of-two "
+                           f"ntraj={ntraj}: balance properties degrade")
+            u = sampler.random(ntraj)
+        # the scrambled points lie in [0, 1); clip away an exact 0 before
+        # the inverse CDF (ndtri(0) = -inf)
+        u = np.clip(u, 1e-16, 1.0 - 1e-16)
+        return torch.tensor(ndtri(u), dtype=dtype, device=device)
+    raise ValueError(f"unknown sampling method {method!r} "
+                     "(expected 'pseudo', 'antithetic' or 'sobol')")
+
+
 def sample_initial_conditions(params: SamplingParams, ntraj: int,
                               generator=None, normals=None):
     """Draw `ntraj` initial phase-space points and their sampling densities.
 
-    The standard normals are drawn from `generator` (a `torch.Generator` on
-    the parameters' device), or taken from `normals`, an (ntraj, 2 rank)
-    tensor.
+    The standard normals are drawn from `generator` (a `torch.Generator`
+    on the parameters' device), or taken from `normals`, an (ntraj,
+    2 rank) tensor (`standard_normals` draws them by method).
 
     Returns
     -------
@@ -114,8 +186,7 @@ def sample_initial_conditions(params: SamplingParams, ntraj: int,
     d = params.dim
     shape = (ntraj, 2 * params.rank)
     if normals is None:
-        x = torch.randn(shape, generator=generator, dtype=params.iLz.dtype,
-                        device=params.iLz.device)
+        x = standard_normals(params, ntraj, "pseudo", generator)
     else:
         x = torch.as_tensor(normals, dtype=params.iLz.dtype,
                             device=params.iLz.device)
@@ -127,3 +198,43 @@ def sample_initial_conditions(params: SamplingParams, ntraj: int,
     log_prob = (params.log_detLz - d * np.log(2.0 * np.pi)
                 - 0.5 * torch.sum(x * x, dim=1))
     return q, p, log_prob
+
+
+def sampling_statistics(params: SamplingParams, q, p):
+    """Deviation of the sample moments from the analytic distribution.
+
+    The sampled points are z = z0 + x iLz with x ~ N(0, 1), so E[z] = z0
+    and cov(z) = iLz^T iLz (singular on the zero modes, which are never
+    sampled). Returns the largest deviations in standard-deviation units —
+    mean deviation over sigma_i, covariance deviation over sigma_i sigma_j,
+    zero modes skipped — as two floats from one host read. A healthy
+    sampler sits at ~sqrt(2/ntraj) whatever the mode widths. The whole
+    batch enters, in float64 (the JAX package's float32 covariance product
+    is a TPU shortcut; the two differ by ~1e-6).
+    """
+    z = torch.cat([q, p], dim=1).to(torch.float64)
+    n = z.shape[0]
+    mean = torch.mean(z, dim=0)
+    dz = z - mean[None, :]
+    cov = (dz.T @ dz) / max(n - 1, 1)
+    iLz = params.iLz.to(torch.float64)
+    ana_cov = iLz.T @ iLz
+    sigma = torch.sqrt(torch.diagonal(ana_cov))
+    live = sigma > 0.0
+    scale = torch.where(live, sigma, torch.ones_like(sigma))
+    zero = torch.zeros((), dtype=torch.float64, device=z.device)
+    mean_dev = torch.max(torch.where(live, torch.abs(mean - params.z0), zero)
+                         / scale)
+    pair_live = live[:, None] & live[None, :]
+    cov_dev = torch.max(torch.where(pair_live, torch.abs(cov - ana_cov), zero)
+                        / (scale[:, None] * scale[None, :]))
+    both = torch.stack([mean_dev, cov_dev]).cpu()
+    return float(both[0]), float(both[1])
+
+
+def log_sampling_statistics(params: SamplingParams, q, p):
+    """Log the two `sampling_statistics` lines; returns the values."""
+    mean_dev, cov_dev = sampling_statistics(params, q, p)
+    logger.info(f"max |<z> - z0| / sigma           :  {mean_dev:.6f}")
+    logger.info(f"max |cov(z) - analytic| / sigma2 :  {cov_dev:.6f}")
+    return mean_dev, cov_dev

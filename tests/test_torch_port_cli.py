@@ -2,8 +2,9 @@
 """The port's CLI (`python -m semiclassical_tpu_torch.cli dynamics|rates`)
 on the CPU: methylium at 64 trajectories x 20 steps end to end with HK and
 with WM, the npz contract against the JAX CLI's file for the same task,
-and the refusals — keywords and subcommands outside the ported slice,
-precisions other than f64, and a CUDA run without CUDA.
+and the refusals — keywords and subcommands outside the ported slice, an
+odd antithetic micro-batch under error bars, precisions other than f64,
+and a CUDA run without CUDA.
 """
 
 import json
@@ -85,13 +86,8 @@ OUT_OF_SLICE = [
     ("potential.type", "gdml"),
     ("potential.type", "anharmonic AS"),
     ("integrator", "exact"),
-    ("sampling", "sobol"),
-    ("sampling", "antithetic"),
     ("checkpoint", "run.ckpt"),
-    ("error_bars", True),
-    ("calc_norm_every", 10),
-    ("norm_samples", 8),
-    ("micro_batch", 16),
+    ("checkpoint_every", 5),
     ("export_initial", "initial.xyz"),
     ("export_final", "final.xyz"),
 ]
@@ -115,8 +111,7 @@ def test_out_of_slice_keyword_raises(config, tmp_path, key, value):
             named = "bfloat16"
     else:
         task[key] = value
-        named = key if key not in ("propagator", "integrator",
-                                   "sampling") else value
+        named = key if key not in ("propagator", "integrator") else value
     path = _write(config, tmp_path / "semi.json")
     with pytest.raises(ConfigurationError, match=f"'{named}'.*not ported"):
         cli.main(["dynamics", path, "--device", "cpu"])
@@ -151,10 +146,13 @@ def test_dynamics_log_names_the_run(config, tmp_path, caplog, propagator):
 
 
 def test_wm_micro_batch_raises(config, tmp_path):
-    """micro_batch is not ported, with WM as with HK."""
-    config["semi"][0].update(propagator="WM", micro_batch=16)
+    """An odd micro-batch under antithetic error bars is refused up front,
+    before the npz is written: interleaved +-pairs would straddle the
+    sub-batches."""
+    config["semi"][0].update(propagator="WM", micro_batch=1,
+                             sampling="antithetic", error_bars=True)
     path = _write(config, tmp_path / "semi.json")
-    with pytest.raises(ConfigurationError, match="'micro_batch'.*not ported"):
+    with pytest.raises(ConfigurationError, match="'micro_batch'.*odd"):
         cli.main(["dynamics", path, "--device", "cpu"])
     assert not pathlib.Path(
         config["semi"][0]["results"]["correlations"]).exists()

@@ -21,7 +21,11 @@ output's largest entry, on identity-plus-noise monodromy planes. K4
 (`ops.det_block.batched_det_block`, csrc/det_lu_block.cu, one thread block
 per matrix) is held against the same plain version as K1 at the same
 limits, and `linalg.batched_det` is checked to launch K1 for r <=
-`linalg.DET_WARP_MAX_R` and K4 above.
+`linalg.DET_WARP_MAX_R` and K4 above. K3 also runs at the WM norm's pair
+blocks (bi, bj, r, r) through `linalg.batched_det_inv`, with bi bj
+matrices that fill no whole warp; and the HK and WM norms on the card
+equal the same norms on the CPU to 1e-10 relative, with one K3 launch per
+block pair of the WM norm.
 """
 
 import numpy as np
@@ -300,3 +304,62 @@ def test_block_empty_batch_launches_nothing(card):
     got = det_block.batched_det_block(
         torch.empty((0, 45, 45), dtype=torch.complex128, device=card))
     assert got.shape == (0,) and det_block.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bi, bj, r", [(37, 41, 6), (37, 43, 12)],
+                         ids=["r6", "r12"])
+def test_inv_kernel_at_pair_blocks(card, bi, bj, r):
+    """The WM norm's (bi, bj, r, r) pair matrices through
+    `linalg.batched_det_inv` (one K3 launch on the flattened batch): bi bj
+    = 1517 matrices at r = 6 (5 to a warp) and 1591 at r = 12 (2 to a
+    warp) leave the last warp part-filled."""
+    A = _well_conditioned(bi * bj, r, torch.complex128, card, seed=bi + r)
+    before = gj.LAUNCHES["det_inv"]
+    det, inv = linalg.batched_det_inv(A.view(bi, bj, r, r))
+    torch.cuda.synchronize()
+    assert gj.LAUNCHES["det_inv"] == before + 1
+    assert det.shape == (bi, bj) and inv.shape == (bi, bj, r, r)
+    det_p, inv_p = gj.batched_det_inv_gj_plain(A)
+    assert float(((det.reshape(-1) - det_p).abs() / det_p.abs()).max()) \
+        <= 1e-12
+    assert _rel(inv.reshape(-1, r, r), inv_p) <= 1e-12
+
+
+@pytest.mark.parametrize("name", ["HK", "WM"])
+def test_norm_on_card_equals_cpu(card, name):
+    """A 3-mode Morse batch of 200 trajectories, 5 steps, the same normals
+    on both devices: |psi| on the card equals |psi| on the CPU to 1e-10
+    relative, exact and subsampled, at blocks of 64 (4 x 4 block pairs,
+    the last one short); the WM norm launches K3 on every block pair."""
+    from semiclassical_tpu_torch.potentials import MorsePotential
+    from semiclassical_tpu_torch.propagation import (
+        HermanKlukPropagator, WaltonManolopoulosPropagator)
+
+    omega = np.array([0.004, 0.0065, 0.009])
+    G = np.diag(omega)
+    q0 = np.array([0.3, -0.2, 0.25])
+    normals = torch.from_numpy(
+        np.random.default_rng(3).standard_normal((200, 6)))
+    norms = []
+    for device in ("cpu", card):
+        pot = MorsePotential.create(omega, np.full(3, 0.02),
+                                    np.array([0.5, -0.3, 0.8]),
+                                    device=device)
+        prop = (WaltonManolopoulosPropagator(G, G, 500.0, 500.0,
+                                             device=device)
+                if name == "WM" else HermanKlukPropagator(G, G,
+                                                          device=device))
+        prop.initial_conditions(q0, 0 * q0, G, pot, ntraj=200,
+                                normals=normals.to(device))
+        prop.propagate(pot, 20.0, 5)
+        before = gj.LAUNCHES["det_inv"]
+        exact = prop.norm(block=64)
+        launched = gj.LAUNCHES["det_inv"] - before
+        norms.append((exact, prop.norm(sample_pairs=6, key=2, block=50)))
+    (cpu, cpu_sub), (gpu, gpu_sub) = norms
+    assert np.isfinite(gpu) and abs(gpu - cpu) < 1e-10 * cpu
+    assert abs(gpu_sub[0] - cpu_sub[0]) < 1e-10 * cpu_sub[0]
+    assert abs(gpu_sub[1] - cpu_sub[1]) <= 1e-8 * cpu_sub[1]
+    if name == "WM":
+        # the pair blocks, and the A- and M-matrices of `wm_derived`
+        assert launched >= 16
