@@ -102,6 +102,32 @@ each, each with its wall time:
              same gates, the rate at its maximum within 4.1e-4 of the HK AS
              run's (10x the JAX package's WM - HK gap at the same draws,
              scripts/as_wm_hk_gap.py), and K5 launched on every step;
+6b. HK methylium exact — the HK methylium run with `integrator` "exact"
+             at the same seed and size: the same gates, max_t |C_exact -
+             C_rk4| against the HK methylium run within 10x the JAX
+             package's gap at the same draws (EXACT_RK4_GAP_JAX, held by
+             tests/test_torch_port_exact_gap.py), K1 on every step, and
+             ms and launches per step beside the RK4 run's;
+6c. WM methylium exact — the same with propagator "WM": the rate at the HK
+             exact run's maximum within 1e-3 of it, K2 three times per
+             step;
+8a. HK AS exact, WM AS exact — semi.json and semi_wm.json as shipped
+             plus `integrator` "exact": the AS gates, the C(t) gap to the
+             HK AS / WM AS runs gated as for methylium, the RK4-routed rows
+             of the 98,304, K5 on every WM step, ms per step;
+8a'. AS exact coarse dt — HK AS exact at 16 x time_step_fs over 2000 /
+             16 steps: C(t) against every 16th point of the full exact run
+             printed (the RK4-routed rows and the branch tracking of
+             sqrt(C^2) at the coarse step move it); in memory, the first
+             batch fine and coarse: q, p, S, the monodromy planes and C^2
+             of the closed-form rows at t = 2000 dt within 1e-9 of each
+             field's largest value, and the rows whose branch signs differ
+             counted;
+8a''. checkpoint — HK AS exact with `checkpoint` and `checkpoint_every`
+             500, killed from the progress callback after its second
+             segment and resumed in the same process: C(t), k~ic(t) and
+             their stderr within 1e-10 of the uninterrupted exact run's,
+             with the seconds per checkpoint write and the file's size;
 8b. sampling — the HK AS example at 32,768 x 200 steps with error bars and
              `sampling` "antithetic", then "sobol": |C(0) - 1| < 1e-3,
              finite stderr, the two sampling-statistics lines logged;
@@ -149,6 +175,7 @@ each, each with its wall time:
 TF32 stays off: the script fails if float32 matmuls would run in TF32.
 """
 
+import dataclasses
 import json
 import logging
 import math
@@ -173,6 +200,18 @@ WM_HK_GAP_FACTOR = 10.0
 RATE_GATE = 0.03
 WM_HK_GATE = 1e-3
 WM_HK_GATE_AS = 4.1e-4
+# max_t |C_exact(t) - C_rk4(t)| of the JAX package at float64 on the CPU,
+# same draws, 256 trajectories x 2000 steps of 0.005 fs (recomputed and held
+# to these values by tests/test_torch_port_exact_gap.py); the port's gap on
+# the card is gated at EXACT_GAP_FACTOR times them
+EXACT_RK4_GAP_JAX = {"HK methylium": 3.057e-13, "HK AS": 1.464e-11,
+                     "WM AS": 1.458e-11}
+EXACT_GAP_FACTOR = 10.0
+# the coarse-grid run's (16x time_step_fs) closed-form rows against the
+# full run's at the same time, relative to each field's largest value
+COARSE_GATE = 1e-9
+# the resumed checkpointed run against the uninterrupted one
+RESUME_GATE = 1e-10
 SEED = 1234
 CELL_WIDTH = 10000.0
 HBM_BYTES_PER_S = 3.35e12
@@ -834,7 +873,7 @@ def methylium_run(cli, ops, smi, label, **task_keys):
     check(launches["K1"] >= nsteps * nrep,
           f"{label}: K1 launched {launches['K1']} times for {nsteps} x "
           f"{nrep} steps")
-    data.update(imax=imax, nsteps=nsteps, nrep=nrep)
+    data.update(imax=imax, nsteps=nsteps, nrep=nrep, wall=wall)
     return data, launches
 
 
@@ -858,7 +897,7 @@ def wm_phase(cli, ops, smi, hk):
           f"WM: K2 launched {launches['K2']} times for {nsteps} x {nrep} steps")
     check(launches["K3"] >= 2 * nrep,
           f"WM: K3 launched {launches['K3']} times for {nrep} batches")
-    return launches
+    return wm, launches
 
 
 def write_as_model(tmp):
@@ -883,15 +922,16 @@ def as_config(file, model, **dynamics_keys):
     return config
 
 
-def as_run(cli, ops, smi, model, label, file):
-    """examples/as_model/`file` as shipped, at its own size, through the
-    port's CLI on cuda; the error-bar and spectrum gates where the file
-    asks for them."""
+def as_run(cli, ops, smi, model, label, file, **dynamics_keys):
+    """examples/as_model/`file` as shipped (with `dynamics_keys` set on its
+    dynamics task), at its own size, through the port's CLI on cuda; the
+    error-bar and spectrum gates where the file asks for them."""
     import numpy as np
 
-    config = as_config(file, model)
+    config = as_config(file, model, **dynamics_keys)
     with tempfile.TemporaryDirectory() as tmp:
-        data, launches, task, wall, _ = run_path(cli, ops, config, {}, tmp)
+        data, launches, task, wall, lines = run_path(cli, ops, config, {},
+                                                     tmp)
     nsteps = task["num_steps"]
     nrep = max(task["num_trajectories"] // task["batch_size"], 1)
     ntraj = nrep * task["batch_size"]
@@ -926,7 +966,7 @@ def as_run(cli, ops, smi, model, label, file):
         check(bool(np.isfinite(s).all()), f"{label} AS spectrum not finite")
         check(dev < 1e-2, f"{label} AS spectrum integral off by {dev}")
         check(np.isfinite(band), f"{label} AS spectrum_stderr {band}")
-    data.update(imax=imax, nsteps=nsteps, nrep=nrep)
+    data.update(imax=imax, nsteps=nsteps, nrep=nrep, wall=wall, lines=lines)
     return data, launches
 
 
@@ -1000,6 +1040,221 @@ def micro_phase(cli, ops, smi, model):
     check(max(errs) <= 1e-12, f"micro_batch vs whole batch: {errs}")
 
 
+def exact_gap(label, exact, rk4):
+    """The exact run's C(t) against the RK4 run's at the same seed: the
+    largest gap, gated at EXACT_GAP_FACTOR x the JAX package's own."""
+    import numpy as np
+
+    gap = float(np.abs(exact["autocorrelation"]
+                       - rk4["autocorrelation"]).max())
+    gate = EXACT_GAP_FACTOR * EXACT_RK4_GAP_JAX[label]
+    print(f"{label} exact vs RK4 at seed {SEED}: max_t |C_exact - C_rk4| = "
+          f"{gap:.3e} (gate {gate:.3e}: {EXACT_GAP_FACTOR:g}x the JAX "
+          f"package's {EXACT_RK4_GAP_JAX[label]:.3e})", flush=True)
+    check(gap < gate, f"{label} exact vs RK4 gap {gap:.3e} >= {gate:.3e}")
+
+
+def per_step(label, exact, ex_launches, rk4, rk4_launches, smi):
+    """ms per step (the dynamics command's wall over its steps) and each
+    kernel's launches per step, exact beside RK4."""
+    steps = exact["nsteps"] * exact["nrep"]
+    fmt = lambda launches: ", ".join(f"{k} {v / steps:.3f}"
+                                     for k, v in launches.items() if v)
+    print(f"{label} per step: exact {1e3 * exact['wall'] / steps:.4f} ms "
+          f"(launches per step: {fmt(ex_launches) or 'none'}), RK4 "
+          f"{1e3 * rk4['wall'] / steps:.4f} ms (launches per step: "
+          f"{fmt(rk4_launches) or 'none'}) [{smi}]", flush=True)
+
+
+def exact_methylium_phase(cli, ops, smi, hk, hk_launches):
+    """The HK methylium run with integrator "exact" at the RK4 phase's seed
+    and size: its gates, the gap to the RK4 run, K1 on every step."""
+    ex, launches = methylium_run(cli, ops, smi, "HK exact",
+                                 integrator="exact")
+    exact_gap("HK methylium", ex, hk)
+    per_step("HK methylium", ex, launches, hk, hk_launches, smi)
+    return ex
+
+
+def exact_wm_methylium_phase(cli, ops, smi, hk_ex, wm, wm_launches):
+    """WM methylium with integrator "exact" at the HK exact phase's seed
+    and size, held against it; K2 three times per step."""
+    ex, launches = methylium_run(cli, ops, smi, "WM exact", propagator="WM",
+                                 cell_width=CELL_WIDTH, integrator="exact")
+    wm_vs_hk("methylium exact", ex, hk_ex, WM_HK_GATE)
+    steps = ex["nsteps"] * ex["nrep"]
+    check(launches["K2"] >= 3 * steps,
+          f"WM exact: K2 launched {launches['K2']} times for {steps} steps")
+    per_step("WM methylium", ex, launches, wm, wm_launches, smi)
+
+
+def routed_rows(lines):
+    """The RK4-routed rows the exact Morse map logged (0 when none)."""
+    for line in lines:
+        if line.startswith("exact Morse map:"):
+            return line.split(":")[1].split()[0]
+    return "0/all"
+
+
+def exact_as_phase(cli, ops, smi, model, label, file, rk4, rk4_launches):
+    """The AS example `file` as shipped plus integrator "exact": its gates,
+    the gap to the RK4 run at the same seed, the routed rows."""
+    ex, launches = as_run(cli, ops, smi, model, f"{label} exact", file,
+                          integrator="exact")
+    print(f"{label} AS exact: RK4-routed rows {routed_rows(ex['lines'])}",
+          flush=True)
+    exact_gap(f"{label} AS", ex, rk4)
+    per_step(f"{label} AS", ex, launches, rk4, rk4_launches, smi)
+    if label == "WM":
+        steps = ex["nsteps"] * ex["nrep"]
+        check(launches["K5"] >= steps,
+              f"WM AS exact: K5 launched {launches['K5']} times for {steps} "
+              "steps")
+    return ex
+
+
+def coarse_phase(cli, ops, smi, model, full):
+    """HK AS exact at 16 x time_step_fs and 2000 / 16 steps. The CLI run's
+    C(t) against every 16th point of the full exact run is printed: the
+    RK4-routed rows step by RK4 at the coarse step, and at 16x the step
+    the branch tracking of sqrt(C^2) misses crossings of some trajectories,
+    so C(t) moves well beyond rounding. The map itself is gated: the first
+    batch in memory, fine and coarse, whose closed-form rows must reach one
+    state at t = 2000 dt (q, p, S, the monodromy planes and C^2) to
+    COARSE_GATE of each field's largest value."""
+    import numpy as np
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.propagation import HermanKlukPropagator
+
+    config = as_config("semi.json", model, integrator="exact")
+    task = config["semi"][0]
+    task.update(time_step_fs=16 * task["time_step_fs"],
+                num_steps=task["num_steps"] // 16)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, _, task, wall, lines = run_path(cli, ops, config, {}, tmp)
+    errs = [float(np.abs(data[k] - full[k][::16]).max()
+                  / np.abs(full[k]).max())
+            for k in ("autocorrelation", "ic_correlation")]
+    print(f"AS exact coarse dt: HK {task['batch_size']} x "
+          f"{task['num_steps']} steps of {task['time_step_fs']} fs, dynamics "
+          f"command {wall:.3f} s [{smi}], RK4-routed rows "
+          f"{routed_rows(lines)}; against every 16th point of the full run: "
+          f"C(t) {errs[0]:.3e}, k~ic(t) {errs[1]:.3e} of their largest "
+          "modulus", flush=True)
+
+    dyn = as_config("semi.json", model)["semi"][0]
+    potential, q0, _, G, zpe, _, _ = cli._build_potential(dyn, "cuda")
+    dt = dyn["time_step_fs"] / units.autime_to_fs
+    props = []
+    for mult in (1, 16):
+        prop = HermanKlukPropagator(G, G, device="cuda", integrator="exact")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(cli._repetition_seed(SEED, 0))
+        prop.initial_conditions(q0, 0 * q0, G, potential,
+                                ntraj=dyn["batch_size"], generator=gen)
+        prop.propagate(potential, mult * dt, dyn["num_steps"] // mult,
+                       energy0_es=zpe, chunk=500)
+        prop.semiclassical_prefactor()     # the trackers at t = 2000 dt
+        props.append(prop)
+    fine, coarse = props
+    bound = torch.ones(fine.ntraj, dtype=torch.bool, device="cuda")
+    if fine._morse.pack.sub_idx is not None:
+        bound[fine._morse.pack.sub_idx] = False
+    fields = {name: (getattr(coarse.state, name), getattr(fine.state, name))
+              for name in ("q", "p", "S")}
+    fields["Z"] = (coarse.state.Z[:, bound], fine.state.Z[:, bound])
+    fields["C^2"] = (coarse.tracker.previous, fine.tracker.previous)
+    errs = {name: float((c if name == "Z" else c[bound])
+                        .sub(f if name == "Z" else f[bound]).abs().max()
+                        / (f if name == "Z" else f[bound]).abs().max())
+            for name, (c, f) in fields.items()}
+    flips = int(((coarse.tracker.signs != fine.tracker.signs) & bound).sum())
+    print(f"AS exact coarse dt, the map: {int(bound.sum())} closed-form rows "
+          f"at t = 2000 dt, coarse vs fine "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" of the largest value (gate {COARSE_GATE:g}); branch signs of "
+          f"sqrt(C^2) differ on {flips} of them", flush=True)
+    check(max(errs.values()) < COARSE_GATE,
+          f"coarse-dt state of the closed-form rows off by {errs}")
+
+
+class Killed(Exception):
+    """Raised from the progress callback to kill a checkpointed run."""
+
+
+def checkpoint_phase(cli, ops, smi, model, full):
+    """HK AS exact with `checkpoint` and `checkpoint_every` 500, killed
+    from the progress callback after its second segment, then resumed in
+    this process: the npz equals the uninterrupted run's to RESUME_GATE."""
+    import numpy as np
+
+    from semiclassical_tpu_torch import checkpoint
+
+    writes = []
+    kill = {"on": True}
+    real_save, real_init = (checkpoint.save_propagator_state,
+                            checkpoint.CheckpointedRun.__init__)
+
+    def timed_save(filename, propagator, partial=None):
+        t0 = time.perf_counter()
+        real_save(filename, propagator, partial)
+        writes.append((time.perf_counter() - t0,
+                       pathlib.Path(filename).stat().st_size))
+
+    def init(run, *args, **kwargs):
+        real_init(run, *args, **kwargs)
+        progress = run.progress
+
+        def killing(done, nt, c_last):
+            progress(done, nt, c_last)
+            if kill["on"] and done >= 2 * run.segment:
+                raise Killed(done)
+
+        run.progress = killing
+
+    checkpoint.save_propagator_state = timed_save
+    checkpoint.CheckpointedRun.__init__ = init
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = str(pathlib.Path(tmp) / "run.ckpt.npz")
+            config = as_config("semi.json", model, integrator="exact",
+                               checkpoint=ckpt, checkpoint_every=500)
+            t0 = time.perf_counter()
+            try:
+                run_path(cli, ops, config, {}, tmp)
+                check(False, "checkpoint: the run was not killed")
+            except Killed as done:
+                killed_at = int(str(done))
+            killed_wall = time.perf_counter() - t0
+            meta = checkpoint.peek_checkpoint(ckpt)
+            check(int(meta["steps_done"]) == killed_at == 1000,
+                  f"checkpoint: killed at {killed_at}, the file at "
+                  f"{int(meta['steps_done'])}")
+            kill["on"] = False
+            data, _, _, wall, lines = run_path(cli, ops, config, {}, tmp)
+            check(not pathlib.Path(ckpt).exists(),
+                  "checkpoint: the file survived the finished run")
+    finally:
+        checkpoint.save_propagator_state = real_save
+        checkpoint.CheckpointedRun.__init__ = real_init
+    check(any("resuming" in line for line in lines),
+          "checkpoint: the second run did not resume")
+    errs = {k: float(np.abs(data[k] - full[k]).max() / np.abs(full[k]).max())
+            for k in ("autocorrelation", "ic_correlation",
+                      "autocorrelation_stderr", "ic_correlation_stderr")}
+    secs = [w[0] for w in writes]
+    print(f"checkpoint: HK AS exact, checkpoint_every 500, killed at step "
+          f"{killed_at} after {killed_wall:.3f} s, resumed in {wall:.3f} s "
+          f"[{smi}]; {len(writes)} writes of {writes[0][1] / 1e6:.1f} MB, "
+          f"{min(secs):.3f}-{max(secs):.3f} s each; resumed vs uninterrupted "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" of their largest value (gate {RESUME_GATE:g})", flush=True)
+    check(max(errs.values()) < RESUME_GATE,
+          f"checkpoint: the resumed run is off by {errs}")
+
+
 class NormCalls:
     """Wraps a propagator class's `norm` while active, recording each
     call's wall seconds and K3 launches."""
@@ -1043,7 +1298,7 @@ def first_batch(cli, task, cls, *args):
     draws it at seed SEED."""
     import torch
 
-    potential, q0, p0, G, _, _ = cli._build_potential(task, "cuda")
+    potential, q0, p0, G, _, _, _ = cli._build_potential(task, "cuda")
     prop = cls(G, G, *args, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cli._repetition_seed(SEED, 0))
@@ -1177,7 +1432,7 @@ def k5_phase(cli, wm_diag, model):
         WaltonManolopoulosPropagator, wm)
 
     task = {"potential": {"type": "anharmonic AS", "model_file": model}}
-    potential, q0, _, G, _, _ = cli._build_potential(task, "cuda")
+    potential, q0, _, G, _, _, _ = cli._build_potential(task, "cuda")
     prop = WaltonManolopoulosPropagator(G, G, CELL_WIDTH, CELL_WIDTH,
                                         device="cuda")
     g = torch.Generator(device="cuda")
@@ -1246,8 +1501,6 @@ def reference_phase(cli):
     """The committed JAX f64 CPU curves of the coumarin example against the
     port on cuda, from the file's standard normals and energy origin, with
     the example's potential at an f64 Hessian."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -1261,7 +1514,7 @@ def reference_phase(cli):
     task["potential"].pop("hess_dtype")
     check(task["potential"]["taylor_every"] == int(ref["taylor_every"]),
           "the reference file's taylor_every is not the example's")
-    potential, q0, p0, G, zpe, _ = cli._build_potential(task, "cuda")
+    potential, q0, p0, G, zpe, _, _ = cli._build_potential(task, "cuda")
     print(f"coumarin reference: energy origin on the card "
           f"{potential.origin:.10f} Ha, the file's {float(ref['origin']):.10f}"
           f" Ha (the file's is used)", flush=True)
@@ -1392,12 +1645,23 @@ def main():
         k5 = phase("K5", k5_phase, cli, wm_diag, model)
         hk, hk_launches = phase("HK methylium", methylium_run, cli, ops, smi,
                                 "HK")
-        wm_launches = phase("WM methylium", wm_phase, cli, ops, smi, hk)
-        hk_as, _ = phase("HK AS", as_run, cli, ops, smi, model, "HK",
-                         "semi.json")
+        wm, wm_launches = phase("WM methylium", wm_phase, cli, ops, smi, hk)
+        hk_ex = phase("HK methylium exact", exact_methylium_phase, cli, ops,
+                      smi, hk, hk_launches)
+        phase("WM methylium exact", exact_wm_methylium_phase, cli, ops, smi,
+              hk_ex, wm, wm_launches)
+        hk_as, hk_as_launches = phase("HK AS", as_run, cli, ops, smi, model,
+                                      "HK", "semi.json")
         phase("HK AS error bars", error_bars_identity, cli, ops, model)
         wm_as, wm_as_launches = phase("WM AS", as_run, cli, ops, smi, model,
                                       "WM", "semi_wm.json")
+        hk_as_ex = phase("HK AS exact", exact_as_phase, cli, ops, smi, model,
+                         "HK", "semi.json", hk_as, hk_as_launches)
+        phase("WM AS exact", exact_as_phase, cli, ops, smi, model, "WM",
+              "semi_wm.json", wm_as, wm_as_launches)
+        phase("AS exact coarse dt", coarse_phase, cli, ops, smi, model,
+              hk_as_ex)
+        phase("checkpoint", checkpoint_phase, cli, ops, smi, model, hk_as_ex)
         phase("sampling", sampling_phase, cli, ops, smi, model)
         phase("micro_batch", micro_phase, cli, ops, smi, model)
         phase("HK AS norm", hk_norm_phase, cli, ops, smi, model)

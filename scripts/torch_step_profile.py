@@ -28,13 +28,17 @@ with HK and with WM (cell width 1e4), and for each:
 With `--error-bars` each propagator also runs with the per-step second
 moments of the error bars (keys "HK error_bars", "WM error_bars"; the
 windows in turns plain, error bars, error bars, plain), so the two
-reductions' launches and ms per step read as the differences.
+reductions' launches and ms per step read as the differences. With
+`--integrator exact` (methylium: the exact harmonic map; as: the exact
+Morse map) each propagator also runs with the exact integrator on the same
+batch (keys "HK exact", "WM exact", the windows in turns with the RK4
+ones), and "exact_rk4_routed" counts the Morse map's RK4-routed rows.
 
 Prints one JSON object, and writes it to `--out` if given.
 
     python scripts/torch_step_profile.py [--example as|coumarin|methylium]
         [--ntraj N] [--steps 48] [--window 200] [--error-bars]
-        [--out profile.json]
+        [--integrator rk4|exact] [--out profile.json]
 """
 
 import argparse
@@ -51,14 +55,16 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 
-def _propagator(name, G, q0, potential, ntraj, seed):
+def _propagator(name, G, q0, potential, ntraj, seed, integrator="rk4"):
     from semiclassical_tpu_torch.propagation import (
         HermanKlukPropagator, WaltonManolopoulosPropagator)
 
     if name == "WM":
-        prop = WaltonManolopoulosPropagator(G, G, 1e4, 1e4, device="cuda")
+        prop = WaltonManolopoulosPropagator(G, G, 1e4, 1e4, device="cuda",
+                                            integrator=integrator)
     else:
-        prop = HermanKlukPropagator(G, G, device="cuda")
+        prop = HermanKlukPropagator(G, G, device="cuda",
+                                    integrator=integrator)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     prop.initial_conditions(q0, 0 * q0, G, potential, ntraj=ntraj,
@@ -113,7 +119,7 @@ def _as_potential(cli):
                                 / "make_model.py")], stdout=f, check=True)
         task = {"potential": {"type": "anharmonic AS",
                               "model_file": str(model)}}
-        potential, q0, _, G, _, _ = cli._build_potential(task, "cuda")
+        potential, q0, _, G, _, _, _ = cli._build_potential(task, "cuda")
     return potential, q0, G
 
 
@@ -126,7 +132,7 @@ def _json_potential(cli, example):
         task = json.load(f)["semi"][0]
     for key in ("ground", "excited", "coupling"):
         task["potential"][key] = str(example / task["potential"][key])
-    potential, q0, _, G, _, _ = cli._build_potential(task, "cuda")
+    potential, q0, _, G, _, _, _ = cli._build_potential(task, "cuda")
     return potential, q0, G
 
 
@@ -139,8 +145,13 @@ def main(argv=None):
     parser.add_argument("--window", type=int, default=200)
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--error-bars", action="store_true")
+    parser.add_argument("--integrator", choices=("rk4", "exact"),
+                        default="rk4")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
+    if args.integrator == "exact" and args.example == "coumarin":
+        parser.error("the exact integrators cover the 'as' and 'methylium' "
+                     "examples")
     if not torch.cuda.is_available():
         print("torch_step_profile: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -168,6 +179,12 @@ def main(argv=None):
     if args.error_bars:
         runs = [run for name in props for run in
                 ((name, name, False), (f"{name} error_bars", name, True))]
+    if args.integrator == "exact":
+        for name in ("HK", "WM"):
+            props[f"{name} exact"] = _propagator(name, G, q0, potential,
+                                                 args.ntraj, args.seed,
+                                                 "exact")
+            runs.append((f"{name} exact", f"{name} exact", False))
     for prop in props.values():
         prop._run(potential, dt, 20)                  # warm-up
     windows = {label: [] for label, _, _ in runs}
@@ -195,6 +212,9 @@ def main(argv=None):
             launches_per_step={k: (after[k] - before[k]) / args.steps
                                for k in after})
         result[label] = trace
+    if args.integrator == "exact" and props["HK exact"]._morse is not None:
+        sub = props["HK exact"]._morse.pack.sub_idx
+        result["exact_rk4_routed"] = 0 if sub is None else int(sub.numel())
     result["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
     text = json.dumps(result, indent=1)
     print(text)

@@ -3,16 +3,21 @@
 
 The same user contract as `semi` (semiclassical_tpu.cli): JSON input
 documents of the form {"semi": [task, ...]}, the same task keywords and the
-same `.npz` accumulation semantics, for the subcommands ported so far:
+same `.npz` accumulation semantics:
 
     python -m semiclassical_tpu_torch.cli dynamics input.json [--device cuda]
     python -m semiclassical_tpu_torch.cli rates input.json
     python -m semiclassical_tpu_torch.cli spectrum input.json
+    python -m semiclassical_tpu_torch.cli plot correlations.npz [--save f.png]
+    python -m semiclassical_tpu_torch.cli export correlations.npz
+    python -m semiclassical_tpu_torch.cli show correlations.npz
 
 `dynamics` runs on the device named by `--device` (default `cuda`); it
 raises when that device is not available and never moves to another one.
-Task keywords and subcommands outside the ported slice raise
-`ConfigurationError` naming them, rather than being ignored.
+Task keywords outside the ported slice (the reduced-precision modes, the
+AS model's reduced-cost Hessian) raise `ConfigurationError` naming them,
+rather than being ignored. The checkpoints of `checkpoint` are the port's
+own format (`semiclassical_tpu_torch.checkpoint`).
 """
 
 from __future__ import annotations
@@ -33,15 +38,9 @@ logger = logging.getLogger(__name__)
 __all__ = ["main", "run_semiclassical_dynamics", "calculate_rates",
            "calculate_spectrum", "check_slice", "ConfigurationError"]
 
-# subcommands of `semi` that the port does not have yet
-NOT_PORTED_COMMANDS = ("show", "export", "plot")
 # potential types of the ported slice
 PORTED_POTENTIALS = ("harmonic", "anharmonic AS", "gdml")
-_SLICE = ("the port runs HK and WM on the 'harmonic', 'anharmonic AS' and "
-          "'gdml' potentials")
-# dynamics task keywords whose features the port does not have yet
-NOT_PORTED_KEYS = ("checkpoint", "checkpoint_every", "export_initial",
-                   "export_final")
+INTEGRATORS = ("rk4", "exact")
 
 
 def main(argv=None):
@@ -78,18 +77,33 @@ def main(argv=None):
              "autocorrelation function")
     parser_spectrum.add_argument("json_input", type=str, metavar="input.json")
 
-    for name in NOT_PORTED_COMMANDS:
-        sub = subparsers.add_parser(name, help="not ported yet")
-        sub.add_argument("rest", nargs="*")
+    parser_plot = subparsers.add_parser(
+        "plot", help="plot correlation and rate functions from .npz files "
+                     "(needs matplotlib)")
+    parser_plot.add_argument("correlation_files", type=str, nargs="+",
+                             metavar="correlations.npz")
+    parser_plot.add_argument(
+        "--save", type=str, default="", metavar="figure.png",
+        help="write the figure to this file (Agg backend, no display "
+             "needed) instead of opening a window")
+
+    parser_export = subparsers.add_parser(
+        "export",
+        help="export correlation functions and rates from .npz to .dat "
+             "tables (autocorrelation.dat, ic_correlation.dat, ic_rate.dat, "
+             "spectrum.dat)")
+    parser_export.add_argument("correlation_file", type=str,
+                               metavar="correlations.npz")
+
+    parser_show = subparsers.add_parser(
+        "show", help="show information about a .npz results file")
+    parser_show.add_argument("correlation_file", type=str,
+                             metavar="correlations.npz")
 
     args = parser.parse_args(argv)
     logging.basicConfig(format="[%(module)-12s] %(message)s",
                         level=logging.INFO)
 
-    if args.command in NOT_PORTED_COMMANDS:
-        raise ConfigurationError(
-            f"subcommand '{args.command}' is not ported yet (ported: "
-            f"dynamics, rates, spectrum; {_SLICE})")
     if args.command == "dynamics":
         tasks = _load_tasks(args.json_input, "dynamics")
         for task in tasks:
@@ -106,6 +120,12 @@ def main(argv=None):
             calculate_spectrum
         for task in _load_tasks(args.json_input, args.command):
             run(task)
+    elif args.command == "plot":
+        _plot_correlation_functions(args.correlation_files, save=args.save)
+    elif args.command == "export":
+        _export_tables(args.correlation_file)
+    elif args.command == "show":
+        _show_information(args.correlation_file)
     else:
         parser.print_help()
     return 0
@@ -126,9 +146,9 @@ def check_slice(task):
     that asks for anything outside the ported slice (HK, or WM with
     `cell_width`; the molecular harmonic PES and the anharmonic AS model
     with the 4-stage Hessian, the sGDML PES with `hess_dtype`,
-    `hessian_eval`, `taylor_every` and `eg_mode`; RK4), and validate the
-    statistics keywords up front: `sampling`, `micro_batch`,
-    `calc_norm_every` and `norm_samples`."""
+    `hessian_eval`, `taylor_every` and `eg_mode`), and validate up front
+    the integrator name and the statistics keywords `sampling`,
+    `micro_batch`, `calc_norm_every` and `norm_samples`."""
     propagator = task.get("propagator", "HK")
     if propagator not in ("HK", "WM"):
         raise ConfigurationError(
@@ -157,14 +177,10 @@ def check_slice(task):
                 f"potential keyword 'taylor_every' is not ported yet for "
                 f"the '{ptype}' potential (the 'gdml' potential takes it)")
     integrator = task.get("integrator", "rk4")
-    if integrator != "rk4":
+    if integrator not in INTEGRATORS:
         raise ConfigurationError(
-            f"integrator '{integrator}' is not ported yet (ported: 'rk4')")
-    for key in NOT_PORTED_KEYS:
-        if key in task:
-            raise ConfigurationError(
-                f"task keyword '{key}' is not ported yet ({_SLICE}, with "
-                "RK4)")
+            f"integrator '{integrator}' is unknown (expected 'rk4' or "
+            "'exact')")
     for key in ("micro_batch", "calc_norm_every", "norm_samples"):
         value = task.get(key, 0)
         if isinstance(value, bool) or not isinstance(value, int) or value < 0:
@@ -193,11 +209,12 @@ def check_slice(task):
 
 
 def _build_potential(task, device):
-    """(potential, q0, p0, Gamma_0, en_zpt, adiabatic_gap) from the task's
-    `potential` section. For the molecular PES (harmonic, gdml) the energy
-    origin is moved to the minimum of the final PES and the wavepacket is
-    the vibrational ground state of the excited-state fchk; the AS model
-    has no adiabatic gap (NaN)."""
+    """(potential, q0, p0, Gamma_0, en_zpt, adiabatic_gap, atomic_numbers)
+    from the task's `potential` section. For the molecular PES (harmonic,
+    gdml) the energy origin is moved to the minimum of the final PES, the
+    wavepacket is the vibrational ground state of the excited-state fchk
+    and the atomic numbers are that fchk's; the AS model has no adiabatic
+    gap (NaN) and no atoms (None)."""
     from semiclassical_tpu_torch import units
     from semiclassical_tpu_torch.io import FormattedCheckpointFile
     from semiclassical_tpu_torch.potentials import (MolecularGDMLPotential,
@@ -218,7 +235,7 @@ def _build_potential(task, device):
         dQ[omega == 0.0] = 0.0
         potential = MorsePotential.create(omega, chi, nac, device=device)
         return (potential, dQ, 0.0 * dQ, np.diag(omega),
-                float(np.sum(0.5 * omega)), np.nan)
+                float(np.sum(0.5 * omega)), np.nan, None)
     with open(p["coupling"]) as f:
         nacs_fchk = FormattedCheckpointFile(f)
     if p["type"] == "gdml":
@@ -251,7 +268,8 @@ def _build_potential(task, device):
     logger.info(
         "  adiabatic excitation energy               : "
         f"{adiabatic_gap * units.hartree_to_ev:.4f} eV")
-    return potential, q0, p0, Gamma_0, en_zpt, adiabatic_gap
+    return (potential, q0, p0, Gamma_0, en_zpt, adiabatic_gap,
+            excited_fchk.atomic_numbers())
 
 
 def _repetition_seed(seed, repetition):
@@ -265,6 +283,8 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
     import torch
 
     from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.checkpoint import (CheckpointedRun,
+                                                    peek_checkpoint)
     from semiclassical_tpu_torch.io.results import (accumulate_results,
                                                     init_results)
     from semiclassical_tpu_torch.profiling import PhaseTimer, RunMetrics
@@ -281,8 +301,8 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
             "CUDA is not available; pass device 'cpu' (--device cpu) to run "
             "on the CPU explicitly")
 
-    (potential, q0, p0, Gamma_0, en_zpt,
-     adiabatic_gap) = _build_potential(task, device)
+    (potential, q0, p0, Gamma_0, en_zpt, adiabatic_gap,
+     atomic_numbers) = _build_potential(task, device)
     Gamma_i = Gamma_0
     Gamma_t = Gamma_0
 
@@ -309,9 +329,8 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
     propagator_name = task.get("propagator", "HK")
     logger.info(f"  propagator                                : "
                 f"{propagator_name}")
-    # `check_slice` has refused every integrator but the default
-    logger.info(f"  integrator                                : "
-                f"{task.get('integrator', 'rk4')}")
+    integrator = task.get("integrator", "rk4")
+    logger.info(f"  integrator                                : {integrator}")
     logger.info(f"  device                                    : {device}")
     calc_norm_every = task.get("calc_norm_every", 0)
     norm_samples = task.get("norm_samples", 0)
@@ -342,10 +361,25 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
             "Multiple runs with the same sequence of random numbers make no "
             "sense! Do not use `manual_seed` and `overwrite=False` at the "
             "same time")
+    # mid-batch checkpoint/resume: with `checkpoint` set, each repetition
+    # saves its state every `checkpoint_every` steps; a killed run loses
+    # at most one segment and resumes where the checkpoint stands
+    ckpt_file = task.get("checkpoint", "")
+    ckpt_every = task.get("checkpoint_every", 500)
+    resume_rep = None
+    resume_steps_done = 0
+    if ckpt_file and os.path.exists(ckpt_file):
+        meta = peek_checkpoint(ckpt_file)
+        resume_rep = int(meta.get("repetition", 0))
+        resume_steps_done = int(meta.get("steps_done", 0))
+        logger.info(f"found checkpoint '{ckpt_file}' at repetition "
+                    f"{resume_rep + 1}, step {resume_steps_done} — "
+                    "resuming (completed repetitions are already in "
+                    f"'{filename}')")
     # WM: Filinov cell widths alpha = beta
     cell_width = task.get("cell_width", 10000.0)
     init_results(filename, propagator_name, times, adiabatic_gap, en_zpt,
-                 overwrite=overwrite)
+                 overwrite=overwrite and resume_rep is None)
     if seed is None:
         seed = int(np.random.SeedSequence().entropy)
     else:
@@ -368,23 +402,29 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
                     f"|C(t)|= {abs(cauto_last):.6f}")
 
     ptimer = PhaseTimer(device)
-    traj_steps = 0
+    traj_steps = 0   # traj-steps propagated by this process
     for repetition in range(num_repetitions):
+        if resume_rep is not None and repetition < resume_rep:
+            continue
         logger.info(f"*** Repetition {repetition + 1} ***")
         generator = torch.Generator(device=device)
         generator.manual_seed(_repetition_seed(seed, repetition))
         if propagator_name == "WM":
             propagator = WaltonManolopoulosPropagator(
-                Gamma_i, Gamma_t, cell_width, cell_width, device=device)
+                Gamma_i, Gamma_t, cell_width, cell_width, device=device,
+                integrator=integrator)
         else:
             propagator = HermanKlukPropagator(Gamma_i, Gamma_t,
-                                              device=device)
+                                              device=device,
+                                              integrator=integrator)
         propagator.micro_batch = micro
         with ptimer.phase("sample"):
             propagator.initial_conditions(q0, p0, Gamma_0, potential,
                                           ntraj=num_samples,
                                           generator=generator,
                                           sampling_method=sampling_method)
+        _export_trajectories(task.get("export_initial", ""), atomic_numbers,
+                             propagator, append=(repetition > 0))
 
         def _norm_log(step):
             t_fs = times[step] * units.autime_to_fs
@@ -398,37 +438,65 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
                             f"norm= {propagator.norm():9.6f}")
 
         err_c = err_k = None
-        if calc_norm_every > 0:
-            # segments of calc_norm_every steps with the norm before each
-            cauto = np.zeros(nt, dtype=complex)
-            kic = np.zeros(nt, dtype=complex)
-            if error_bars:
-                err_c, err_k = np.zeros(nt), np.zeros(nt)
-            done = 0
-            while done < nt:
-                seg = min(calc_norm_every, nt - done)
-                _norm_log(done)
+        try:
+            if ckpt_file:
+                run = CheckpointedRun(
+                    ckpt_file, propagator, potential, dt=dt, nt=nt,
+                    energy0_es=en_zpt, segment=ckpt_every, chunk=scan_chunk,
+                    repetition=repetition, progress=_progress,
+                    error_bars=error_bars, norm_every=calc_norm_every,
+                    norm_callback=_norm_log)
+                # the stderr comes back None when a resumed checkpoint was
+                # written without error bars
                 with ptimer.phase("scan"):
-                    out = propagator.propagate(potential, dt, seg,
-                                               energy0_es=en_zpt,
-                                               error_bars=error_bars)
-                cauto[done:done + seg], kic[done:done + seg] = out[:2]
+                    cauto, kic, err_c, err_k = run.run()
+            elif calc_norm_every > 0:
+                # segments of calc_norm_every steps with the norm before each
+                cauto = np.zeros(nt, dtype=complex)
+                kic = np.zeros(nt, dtype=complex)
                 if error_bars:
-                    err_c[done:done + seg], err_k[done:done + seg] = out[2:]
-                done += seg
-        else:
-            with ptimer.phase("scan"):
-                out = propagator.propagate(
-                    potential, dt, nt, energy0_es=en_zpt, chunk=scan_chunk,
-                    progress=_progress, error_bars=error_bars)
-            cauto, kic = out[:2]
-            if error_bars:
-                err_c, err_k = out[2:]
-        # NaN watchdog (the energy guard inside propagate already raised
-        # for NaN trajectories; this catches NaN prefactors/observables)
-        if np.isnan(cauto).any() or np.isnan(kic).any():
-            raise RuntimeError("encountered NaN's in correlations")
+                    err_c, err_k = np.zeros(nt), np.zeros(nt)
+                done = 0
+                while done < nt:
+                    seg = min(calc_norm_every, nt - done)
+                    _norm_log(done)
+                    with ptimer.phase("scan"):
+                        out = propagator.propagate(potential, dt, seg,
+                                                   energy0_es=en_zpt,
+                                                   error_bars=error_bars)
+                    cauto[done:done + seg], kic[done:done + seg] = out[:2]
+                    if error_bars:
+                        err_c[done:done + seg] = out[2]
+                        err_k[done:done + seg] = out[3]
+                    done += seg
+            else:
+                with ptimer.phase("scan"):
+                    out = propagator.propagate(
+                        potential, dt, nt, energy0_es=en_zpt,
+                        chunk=scan_chunk, progress=_progress,
+                        error_bars=error_bars)
+                cauto, kic = out[:2]
+                if error_bars:
+                    err_c, err_k = out[2:]
+            # the energy guard inside propagate raises for NaN
+            # trajectories; this catches NaN prefactors and observables
+            if np.isnan(cauto).any() or np.isnan(kic).any():
+                raise RuntimeError("encountered NaN's in correlations")
+        except RuntimeError:
+            # NaN watchdog: the trajectories as they stand, for debugging
+            if atomic_numbers is not None:
+                logger.info("NaN's/instability detected, saving trajectories "
+                            "to 'current_trajectories.xyz' for debugging ...")
+                _export_trajectories("current_trajectories.xyz",
+                                     atomic_numbers, propagator, append=False)
+            raise
+        _export_trajectories(task.get("export_final", ""), atomic_numbers,
+                             propagator, append=(repetition > 0))
         RunMetrics.from_run(propagator.last_energies, cauto, kic).log()
+        if ckpt_file and os.path.exists(ckpt_file):
+            # removed before accumulating: a kill between the two loses
+            # this batch but can never count it twice on resume
+            os.remove(ckpt_file)
         with ptimer.phase("reduce"):
             total = accumulate_results(filename, cauto, kic,
                                        propagator.ntraj,
@@ -438,9 +506,25 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
         if err_c is not None:
             logger.info(f"  MC stderr: |C(t)| max {err_c.max():.2e}, "
                         f"k~ic max {err_k.max():.2e}")
-        traj_steps += propagator.ntraj * nt
+        steps_run = nt
+        if repetition == resume_rep:
+            steps_run = max(nt - resume_steps_done, 0)
+        traj_steps += propagator.ntraj * steps_run
     ptimer.log(traj_steps)
     return ptimer
+
+
+def _export_trajectories(filename, atomic_numbers, propagator, append=False):
+    """Write the current positions and momenta as extended XYZ (molecular
+    potentials only: the AS model has no atoms)."""
+    if filename == "" or atomic_numbers is None:
+        return
+    from semiclassical_tpu_torch.io.extxyz import write_extxyz
+
+    q, p = propagator.current_positions_and_momenta()
+    write_extxyz(filename, atomic_numbers, q.cpu().numpy(), p.cpu().numpy(),
+                 append=append)
+    logger.info(f"positions and momenta saved to '{filename}'")
 
 
 def _build_lineshape(task):
@@ -559,6 +643,210 @@ def calculate_spectrum(task):
                 f"(~1 for a normalized wavepacket)")
     logger.info(f"the spectrum is saved to '{out_file}'")
     np.savez(out_file, **data)
+
+
+def _export_tables(filename):
+    """Export correlations, rates and the spectrum to .dat tables in the
+    working directory."""
+    from semiclassical_tpu_torch import units
+
+    data = np.load(filename)
+    trajectories = int(data["trajectories"])
+    propagator = str(data["propagator"])
+
+    logger.info(f"exporting correlation functions from '{filename}' to "
+                "tables 'autocorrelation.dat' and 'ic_correlation.dat'")
+    with open("autocorrelation.dat", "w") as f:
+        f.write("# autocorrelation function\n")
+        f.write(f"# propagator: {propagator}   trajectories: "
+                f"{trajectories}\n")
+        f.write(f"# zero-point energy: "
+                f"{data['zero_point_energy'] * units.hartree_to_wavenumbers:.2f} cm-1\n")
+        f.write("#\n")
+        f.write("# Time/fs                  Re[C(t)]                  "
+                "Im[C(t)]\n")
+        np.savetxt(f, np.vstack((data["times"] * units.autime_to_fs,
+                                 data["autocorrelation"].real,
+                                 data["autocorrelation"].imag)).T)
+    with open("ic_correlation.dat", "w") as f:
+        f.write("# IC-correlation function\n")
+        f.write(f"# propagator: {propagator}   trajectories: "
+                f"{trajectories}\n")
+        f.write("#\n")
+        f.write("# Time/fs                  Re[kIC(t)]                "
+                "Im[kIC(t)]\n")
+        np.savetxt(f, np.vstack((data["times"] * units.autime_to_fs,
+                                 data["ic_correlation"].real,
+                                 data["ic_correlation"].imag)).T)
+    if "ic_rate" in data:
+        logger.info(f"exporting IC rates from '{filename}' to 'ic_rate.dat'")
+        with open("ic_rate.dat", "w") as f:
+            f.write("# internal conversion rate\n")
+            f.write(f"# propagator: {propagator}   trajectories: "
+                    f"{trajectories}\n")
+            f.write(f"# broadening: {data['broadening']}   HWHM_G: "
+                    f"{data['hwhmG']} eV   HWHM_L: {data['hwhmL']} eV\n")
+            f.write(f"# tmin: {data['times'].min() * units.autime_to_fs:.4f} "
+                    f"fs  tmax: {data['times'].max() * units.autime_to_fs:.4f}"
+                    f" fs  steps= {len(data['times'])}\n")
+            f.write("#\n")
+            f.write("# Energy/eV                kIC(E)/s^-1\n")
+            np.savetxt(f, np.vstack((data["energies"] * units.hartree_to_ev,
+                                     data["ic_rate"].real)).T)
+    if "spectrum" in data:
+        logger.info(f"exporting the spectrum from '{filename}' to "
+                    "'spectrum.dat'")
+        with open("spectrum.dat", "w") as f:
+            f.write("# Franck-Condon spectral density S(E) of the "
+                    "wavepacket autocorrelation\n")
+            f.write(f"# propagator: {propagator}   trajectories: "
+                    f"{trajectories}\n")
+            f.write(f"# broadening: {data['spectrum_broadening']}   HWHM_G: "
+                    f"{data['spectrum_hwhmG']} eV   HWHM_L: "
+                    f"{data['spectrum_hwhmL']} eV\n")
+            f.write("# energies are relative to the initial-state "
+                    "zero-point energy\n")
+            f.write("#\n")
+            f.write("# Energy/eV                S(E)/(1/Hartree)\n")
+            np.savetxt(f, np.vstack(
+                (data["spectrum_energies"] * units.hartree_to_ev,
+                 data["spectrum"].real)).T)
+
+
+def _plot_correlation_functions(filenames, save=""):
+    """Render C(t), k~ic(t) and k_IC(E) for one or more results files.
+
+    The rate at the adiabatic gap is marked with an annotated point, and
+    each file's propagator and trajectory count ride in its legend entry.
+    With `save` the figure goes to a file (forcing the Agg backend, so it
+    works without a display) instead of an interactive window. Needs
+    matplotlib, imported here only.
+    """
+    from semiclassical_tpu_torch import units
+
+    if save:
+        import matplotlib
+        matplotlib.use("Agg", force=True)
+    import matplotlib.pyplot as plt
+
+    fig, (ax_auto, ax_ic, ax_rate) = plt.subplots(
+        1, 3, figsize=(13.0, 5.0))
+
+    for filename in filenames:
+        data = np.load(filename)
+        t_fs = data["times"] * units.autime_to_fs
+        tag = (f"{filename} [{data['propagator']}, "
+               f"{int(data['trajectories'])} traj]")
+
+        for ax, key in ((ax_auto, "autocorrelation"),
+                        (ax_ic, "ic_correlation")):
+            curve = data[key]
+            line, = ax.plot(t_fs, curve.real, label=f"Re {tag}")
+            ax.plot(t_fs, curve.imag, ls="--", alpha=0.6,
+                    color=line.get_color(), label=f"Im {tag}")
+            # Monte-Carlo error band (error_bars task keyword): the stderr
+            # of the complex mean, drawn around the real part
+            if key + "_stderr" in data:
+                err = data[key + "_stderr"]
+                ax.fill_between(t_fs, curve.real - err, curve.real + err,
+                                color=line.get_color(), alpha=0.2, lw=0)
+
+        if "ic_rate" in data:
+            en_ev = data["energies"] * units.hartree_to_ev
+            line, = ax_rate.plot(en_ev, data["ic_rate"], label=tag)
+            # the propagated MC band is one scalar for the whole curve
+            # (fourier_stderr); on the log axis a 0 lower edge would render
+            # down to the axis floor and swamp the tails, so mask the band
+            # wherever the curve falls below the stderr
+            if "ic_rate_stderr" in data:
+                err = float(data["ic_rate_stderr"])
+                lower = data["ic_rate"] - err
+                lower = np.where(lower > 0.0, lower, np.nan)
+                ax_rate.fill_between(
+                    en_ev, lower, data["ic_rate"] + err,
+                    color=line.get_color(), alpha=0.2, lw=0)
+            gap = float(data["adiabatic_gap"])
+            if np.isfinite(gap):
+                idx = int(np.argmin(np.abs(data["energies"] - gap)))
+                kic = data["ic_rate"][idx]
+                ax_rate.plot([gap * units.hartree_to_ev], [kic], "o",
+                             color=line.get_color())
+                ax_rate.annotate(
+                    f"{kic:.2e}" r" s$^{-1}$",
+                    (gap * units.hartree_to_ev, kic),
+                    textcoords="offset points", xytext=(6, 6),
+                    fontsize=9, color=line.get_color())
+
+    ax_auto.set_title("autocorrelation")
+    ax_auto.set_xlabel("time / fs")
+    ax_auto.set_ylabel(r"$e^{i E_0^{(es)} t / \hbar}"
+                       r"\,\langle\phi(0)|\phi(t)\rangle$")
+    ax_ic.set_title("IC correlation")
+    ax_ic.set_xlabel("time / fs")
+    ax_ic.set_ylabel(r"$\tilde{k}_{IC}(t)$")
+    ax_ic.legend(fontsize=8)
+    ax_rate.set_title("IC rate (dot: at adiabatic gap)")
+    ax_rate.set_xlabel("energy gap / eV")
+    ax_rate.set_ylabel(r"$k_{IC}(E)$ / s$^{-1}$")
+    ax_rate.set_yscale("log")
+    ax_rate.set_xlim(0.0, 10.0)
+    if ax_rate.get_legend_handles_labels()[0]:
+        ax_rate.legend(fontsize=8)
+    fig.tight_layout()
+    if save:
+        fig.savefig(save, dpi=150)
+        print(f"figure written to {save}")
+    else:
+        plt.show()
+
+
+def _show_information(filename):
+    """Print a summary of a results file."""
+    from semiclassical_tpu_torch import units
+
+    data = np.load(filename)
+    print(f"""
+    filename                 : {filename}
+    propagator               : {data['propagator']}
+    trajectories             : {int(data['trajectories']):10}
+    time step (fs)           : {(data['times'][1] - data['times'][0]) * units.autime_to_fs:10.4f}
+    propagation time (fs)    : {max(data['times']) * units.autime_to_fs:10.4f}
+    zero-point energy (cm-1) : {float(data['zero_point_energy']) * units.hartree_to_wavenumbers:10.4f}
+    """)
+    if "ic_rate" in data:
+        if not np.isnan(data["adiabatic_gap"]):
+            iclosest = np.argmin(abs(data["energies"] - data["adiabatic_gap"]))
+            kic = data["ic_rate"][iclosest]
+        else:
+            kic = np.nan
+        print(f"""
+    adiabatic gap Ead (eV)   : {float(data['adiabatic_gap']) * units.hartree_to_ev:6.3f}
+    IC rate kic(Ead) (s-1)   : {kic:6.3e}
+        """)
+        imax = np.argmax(data["ic_rate"])
+        print(f"""
+    position of maximum (eV) : {data['energies'][imax] * units.hartree_to_ev:6.3f}
+    maximum of IC rate (s-1) : {data['ic_rate'][imax]:6.3e}
+        """)
+        if "ic_rate_stderr" in data:
+            print(f"    rate MC stderr (s-1)     : "
+                  f"{float(data['ic_rate_stderr']):6.3e}")
+        print("IC rates are only reliable around the maximum of the curve.")
+    else:
+        print("  No rates found in file, you have to compute them first "
+              "with the command 'semi rates'.")
+    if "spectrum" in data:
+        en = data["spectrum_energies"]
+        sp = data["spectrum"]
+        imax = np.argmax(sp)
+        total = float(np.trapezoid(sp, en))
+        print(f"""
+    spectrum maximum (eV, rel. ZPE) : {en[imax] * units.hartree_to_ev:6.3f}
+    spectrum integral (~1)          : {total:8.5f}
+        """)
+        if "spectrum_stderr" in data:
+            print(f"    spectrum MC stderr (1/Ha)       : "
+                  f"{float(data['spectrum_stderr']):6.3e}")
 
 
 if __name__ == "__main__":

@@ -31,6 +31,11 @@ The port of `semiclassical_tpu.propagation.hk` on two paths:
   the per-step Monte-Carlo standard errors on the host; with
   `micro_batch` every segment runs sub-batch by sub-batch and the sums
   and moments add up (the JAX package's `_micro_scan`);
+* `integrator="exact"` replaces RK4 by a map with no time-discretization
+  error: the affine map of a constant-Hessian PES (`exact_harmonic`) or
+  the closed-form Morse map with its RK4 side-channel (`exact_morse`),
+  whose constants and phase persist across segments and calls until dt,
+  the potential object or the state itself is replaced;
 * the granular API (`semiclassical_prefactor`, `autocorrelation`,
   `coefficients`, `norm`, `wavefunction`, ...) works on the current state;
   the O(n^2) norm is a loop over block pairs on the device with one host
@@ -61,6 +66,11 @@ from semiclassical_tpu_torch.potentials.base import (ConstHessian,
 from semiclassical_tpu_torch.propagation.eom import (const_step_map,
                                                      make_taylor_window,
                                                      rk4_step)
+from semiclassical_tpu_torch.propagation.exact_harmonic import (
+    build_harmonic_map, harmonic_step, supports_exact_harmonic)
+from semiclassical_tpu_torch.propagation.exact_morse import (
+    MorseMapCarry, MorseMapPack, build_morse_map, morse_map_advance,
+    morse_map_state, supports_exact_morse)
 from semiclassical_tpu_torch.propagation.state import SignTracker, TrajState
 from semiclassical_tpu_torch.sampling import (SamplingParams,
                                               log_sampling_statistics,
@@ -635,6 +645,18 @@ def _cat_batches(parts):
     return dataclasses.replace(first, **fields)
 
 
+@dataclass
+class _MorseCache:
+    """The exact Morse map of a propagator: its constants, its carry, and
+    the (dt, potential, state) it belongs to."""
+
+    dt: float
+    potential: object
+    state: TrajState
+    pack: MorseMapPack
+    carry: MorseMapCarry
+
+
 def check_energy_conservation(energies, change_tol=1.0e-2):
     """Post-propagation guard: raise if the batch-mean <T+V> drifts between
     steps or if the trace contains NaNs."""
@@ -667,9 +689,19 @@ class HermanKlukPropagator:
     the granular accessors (`semiclassical_prefactor`, `autocorrelation`,
     `ic_correlation`, `coefficients`, `log_coefficients`, `norm`,
     `wavefunction`, the state accessors) read the current state.
+
+    `integrator` is "rk4" (fixed-step Runge-Kutta) or "exact" (no
+    time-discretization error at any dt: the affine map of a
+    constant-Hessian molecular PES, or the closed-form map of a
+    non-harmonic separable Morse PES with its RK4 side-channel).
     """
 
-    def __init__(self, Gamma_i, Gamma_t, device):
+    def __init__(self, Gamma_i, Gamma_t, device, integrator="rk4"):
+        if integrator not in ("rk4", "exact"):
+            raise ValueError(f"unknown integrator {integrator!r} "
+                             "(expected 'rk4' or 'exact')")
+        self.integrator = integrator
+        self._invalidate_map()
         Gamma_i = np.asarray(Gamma_i, dtype=np.float64)
         Gamma_t = np.asarray(Gamma_t, dtype=np.float64)
         for name, G in (("Gamma_i", Gamma_i), ("Gamma_t", Gamma_t)):
@@ -738,6 +770,7 @@ class HermanKlukPropagator:
         self.tracker = self._make_trackers(self.state)
         self.ntraj = ntraj
         self.t = 0.0
+        self._invalidate_map()
 
     # -- hooks shared with the WM subclass -----------------------------------
 
@@ -771,6 +804,10 @@ class HermanKlukPropagator:
         m, n = int(self.micro_batch or 0), self.ntraj
         if m <= 0 or n <= m:
             return 1
+        if self.integrator == "exact":
+            logger.info(f"micro_batch={m} is ignored with integrator "
+                        "'exact': the whole batch runs at once")
+            return 1
         if n % m:
             logger.warning(f"micro_batch={m} does not divide the batch "
                            f"({n}); running the whole batch")
@@ -781,6 +818,79 @@ class HermanKlukPropagator:
                 f"{m} (= {n} trajectories / {n // m} sub-batches) — "
                 "interleaved +-pairs must not straddle a sub-batch boundary")
         return n // m
+
+    def _invalidate_map(self):
+        """Drop the exact maps' cached constants (a new batch, a restored
+        checkpoint)."""
+        self._hmap = None     # (dt, potential, HarmonicMap)
+        self._morse = None    # _MorseCache
+
+    def _stepper(self, potential, dt):
+        """(fresh, advance) of the time loop: `fresh(state)` gives the
+        state and carry at the head of a scan segment, `advance(state,
+        carry)` one step as (new state, mean energy at the step start,
+        new carry)."""
+        if self.integrator == "exact":
+            return self._exact_stepper(potential, dt)
+        every = int(getattr(potential, "taylor_every", 1) or 1)
+        if every > 1:
+            if getattr(potential, "hessian_eval", "stage") != "taylor":
+                raise ValueError(
+                    "taylor_every > 1 requires hessian_eval='taylor'")
+            window0, window_step = make_taylor_window(potential, dt, every)
+            return (lambda state: (state, window0(state))), window_step
+        step_map = None
+        if not self.state.diag_monodromy:
+            hess = potential.local_expansion(self.state.q[:1])[2]
+            if isinstance(hess, ConstHessian):
+                step_map = const_step_map(hess, potential.masses(), dt)
+
+        def advance(state, carry):
+            return (*rk4_step(state, potential, dt, step_map), carry)
+
+        return (lambda state: (state, None)), advance
+
+    def _exact_stepper(self, potential, dt):
+        """The exact map's (fresh, advance). The harmonic map is kept per
+        (dt, potential); the Morse map's constants and carry persist across
+        segments and calls while dt, the potential object and the state
+        object stay those it advanced (objects compared by retained
+        identity, so a replaced state or potential rebuilds it)."""
+        dt = float(dt)
+        if supports_exact_harmonic(potential):
+            if (self._hmap is None or self._hmap[0] != dt
+                    or self._hmap[1] is not potential):
+                self._hmap = (dt, potential,
+                              build_harmonic_map(potential, dt, self.state))
+            hmap = self._hmap[2]
+
+            def advance(state, carry):
+                return (*harmonic_step(hmap, state, potential), carry)
+
+            return (lambda state: (state, None)), advance
+        cache = self._morse
+        if (cache is None or cache.dt != dt or cache.potential is not potential
+                or cache.state is not self.state):
+            if not supports_exact_morse(potential, self.state):
+                raise ValueError(
+                    "integrator='exact' requires a non-harmonic separable "
+                    "MorsePotential (diagonal-monodromy state) or a "
+                    "constant-Hessian molecular harmonic potential; use "
+                    "integrator='rk4' for this potential")
+            pack, carry = build_morse_map(self.state, potential, dt)
+            cache = self._morse = _MorseCache(dt, potential, self.state,
+                                              pack, carry)
+
+        def fresh(state):
+            return morse_map_state(cache.pack, cache.carry), cache.carry
+
+        def advance(state, carry):
+            carry, energy = morse_map_advance(cache.pack, carry, dt,
+                                              potential)
+            cache.carry = carry
+            return morse_map_state(cache.pack, carry), energy, carry
+
+        return fresh, advance
 
     def _run(self, potential, dt, nt, chunk=None, progress=None,
              m2_mode=False):
@@ -795,25 +905,7 @@ class HermanKlukPropagator:
         head of every segment, as the JAX package's scans do, so `chunk`
         is part of the result there; `progress`, if given, is called at
         the end of every segment (one host read per segment)."""
-        every = int(getattr(potential, "taylor_every", 1) or 1)
-        if every > 1:
-            if getattr(potential, "hessian_eval", "stage") != "taylor":
-                raise ValueError(
-                    "taylor_every > 1 requires hessian_eval='taylor'")
-            fresh, advance = make_taylor_window(potential, dt, every)
-        else:
-            step_map = None
-            if not self.state.diag_monodromy:
-                hess = potential.local_expansion(self.state.q[:1])[2]
-                if isinstance(hess, ConstHessian):
-                    step_map = const_step_map(hess, potential.masses(), dt)
-
-            def fresh(state):
-                return None
-
-            def advance(state, carry):
-                return (*rk4_step(state, potential, dt, step_map), carry)
-
+        fresh, advance = self._stepper(potential, dt)
         if chunk is None or chunk >= nt:
             segments = [nt]
         else:
@@ -836,7 +928,7 @@ class HermanKlukPropagator:
                 st, tr = ((state, tracker) if k == 1 else
                           (_batch_rows(state, a, b),
                            _batch_rows(tracker, a, b)))
-                carry = fresh(st)
+                st, carry = fresh(st)
                 for i in range(done, done + seg):
                     tr, cauto[s, i], kic[s, i], m2c, m2k = self._observe(
                         st, tr, potential, bcs[s], m2_mode)
@@ -852,6 +944,8 @@ class HermanKlukPropagator:
                 progress(done, nt, complex(torch.sum(cauto[:, done - 1]))
                          * self.bc.weight_scale)
         self.state, self.tracker = state, tracker
+        if self._morse is not None:
+            self._morse.state = state    # the map's carry advanced with it
         self.t += nt * float(dt)
         if k == 1:
             return cauto[0], kic[0], energies[0], (None if m2 is None
@@ -888,6 +982,13 @@ class HermanKlukPropagator:
         m2_mode = False
         if error_bars:
             m2_mode = "pairs" if self.sampling_method == "antithetic" else True
+            if m2_mode == "pairs" and self.integrator == "exact":
+                # the JAX package's rule, kept so the npz matches its CLI's
+                logger.warning(
+                    "error_bars + antithetic sampling + integrator='exact': "
+                    "per-trajectory (conservative) stderr formula used — "
+                    "the side-channel split breaks pair bookkeeping")
+                m2_mode = True
         t_start = self.t
         cauto, kic, energies, m2 = self._run(potential, dt, nt, chunk,
                                              progress, m2_mode)

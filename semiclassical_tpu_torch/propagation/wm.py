@@ -40,9 +40,10 @@ path (all widths diagonal at full rank, `scan_diag`):
 * the coefficients (eqn. 75, in log space), the grid wavefunction and the
   O(n^2) norm (`wm_norm`) read the full tensors of `wm_derived`; each
   (bi, bj) block pair of the norm inverts its (bi bj, r, r) pair matrices
-  with `linalg.batched_det_inv`: K3 on the card.
+  with `linalg.batched_det_inv`: K3 on the card;
+* the exact integrators come with the HK propagator's time loop.
 
-Not ported: the comp32 residuals and the exact integrators.
+Not ported: the comp32 residuals.
 """
 
 from __future__ import annotations
@@ -849,10 +850,12 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
         Filinov cell parameters; larger values make the linearisation more
         accurate but need more trajectories.
     device : torch device of the propagation
+    integrator : "rk4" or "exact", as for HermanKlukPropagator
     """
 
-    def __init__(self, Gamma_i, Gamma_t, alpha, beta, device):
-        super().__init__(Gamma_i, Gamma_t, device)
+    def __init__(self, Gamma_i, Gamma_t, alpha, beta, device,
+                 integrator="rk4"):
+        super().__init__(Gamma_i, Gamma_t, device, integrator=integrator)
         self.alpha = float(alpha)
         self.beta = float(beta)
 

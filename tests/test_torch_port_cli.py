@@ -2,9 +2,9 @@
 """The port's CLI (`python -m semiclassical_tpu_torch.cli dynamics|rates`)
 on the CPU: methylium at 64 trajectories x 20 steps end to end with HK and
 with WM, the npz contract against the JAX CLI's file for the same task,
-and the refusals — keywords and subcommands outside the ported slice, an
-odd antithetic micro-batch under error bars, precisions other than f64,
-and a CUDA run without CUDA.
+and the refusals — keywords outside the ported slice, an unknown
+integrator, an odd antithetic micro-batch under error bars, precisions
+other than f64, and a CUDA run without CUDA.
 """
 
 import json
@@ -85,11 +85,6 @@ def test_dynamics_and_rates_on_cpu(config, tmp_path):
 OUT_OF_SLICE = [
     ("potential.type", "gdml"),
     ("potential.type", "anharmonic AS"),
-    ("integrator", "exact"),
-    ("checkpoint", "run.ckpt"),
-    ("checkpoint_every", 5),
-    ("export_initial", "initial.xyz"),
-    ("export_final", "final.xyz"),
 ]
 
 
@@ -109,12 +104,20 @@ def test_out_of_slice_keyword_raises(config, tmp_path, key, value):
             # sGDML is ported with a float32 or float64 Hessian only
             task["potential"]["hess_dtype"] = "bfloat16"
             named = "bfloat16"
-    else:
-        task[key] = value
-        named = key if key not in ("propagator", "integrator") else value
     path = _write(config, tmp_path / "semi.json")
     with pytest.raises(ConfigurationError, match=f"'{named}'.*not ported"):
         cli.main(["dynamics", path, "--device", "cpu"])
+
+
+def test_unknown_integrator_raises(config, tmp_path):
+    """An integrator name other than 'rk4' and 'exact' is refused up front,
+    naming it, before the npz is written."""
+    config["semi"][0]["integrator"] = "leapfrog"
+    path = _write(config, tmp_path / "semi.json")
+    with pytest.raises(ConfigurationError, match="'leapfrog' is unknown"):
+        cli.main(["dynamics", path, "--device", "cpu"])
+    assert not pathlib.Path(
+        config["semi"][0]["results"]["correlations"]).exists()
 
 
 def test_wm_dynamics_and_rates_on_cpu(config, tmp_path):
@@ -156,12 +159,6 @@ def test_wm_micro_batch_raises(config, tmp_path):
         cli.main(["dynamics", path, "--device", "cpu"])
     assert not pathlib.Path(
         config["semi"][0]["results"]["correlations"]).exists()
-
-
-@pytest.mark.parametrize("command", cli.NOT_PORTED_COMMANDS)
-def test_unported_subcommands_raise(command):
-    with pytest.raises(ConfigurationError, match=command):
-        cli.main([command, "correlations.npz"])
 
 
 def test_precision_other_than_f64_raises(config, tmp_path):
