@@ -12,8 +12,12 @@ non-zero at the first fault. Each kernel is timed in turns against its plain
 version and against the one PyTorch call that computes the same function
 (where there is one), beside its bound: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its flops over the
-FP64 peak of 34 TFLOP/s (NVIDIA's H100 SXM data sheet). Phases, one line
-each, each with its wall time:
+FP64 peak of 34 TFLOP/s, or the FP32 peak of 67 TFLOP/s for a complex64 /
+float32 row (NVIDIA's H100 SXM data sheet); each kernel is also timed at
+the reduced-precision modes' type at the paths' shapes (K1 (10^4, 6, 6),
+K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
+45) and the WM norm's pair block, K4 (2048, 45, 45) at complex64; K5
+(98304, 60) at float32). Phases, one line each, each with its wall time:
 
 1. device  — the card's name and power limit (nvidia-smi), the kernel build
              time and ptxas' register / shared-memory / spill report of
@@ -169,10 +173,32 @@ each, each with its wall time:
              JAX package's WM - HK gap at the same draws (the reference
              file's `wm_hk_gap`), K4 launched on every step, K2 three times
              per step and K3 twice per batch;
+P. the precision modes (`--precision`), each at its f64 phase's seed and
+             size, with a line naming the mode, the dtypes of q, qc, Z and
+             S, the launches by dtype and the device's busy share over 10
+             traced steps of the first batch; TF32 is checked off first:
+   HK / WM methylium mixed — after 6, the first batch of the example in
+             memory (10,000 x 2000 steps; cut from the five batches of the
+             CLI run to keep the script near 800 s) at f64 and at mixed
+             from the same draws: C(t) within 1e-4 and k~ic(t) within 1e-3
+             of the f64 batch's largest modulus, K1 at complex64 on every
+             step (and K2 three times per WM step), no complex128 launch
+             of K1-K4;
+   HK / WM AS comp32 — after 8: within 6e-4 (C) and 1.5e-3 (k~ic) of the
+             f64 runs, the AS gates, K5 at float32 on every WM step;
+   HK AS f32 — 98,304 x 200 steps (cut from 2000) at f32 and at f64, C(t)
+             within 5e-2 and k~ic(t) within 1e-1;
+   WM methylium norm mixed — after 8e: one batch of 10,000 after 100
+             steps in memory at f64 and mixed, the norms within 2e-3, K3
+             at complex64 on every block pair;
+   HK / WM coumarin mixed — after 11: within 1e-4 / 1e-3 of the f64 runs,
+             K4 at complex64 on every step (WM: K2 three times per step,
+             K3 twice per batch), no complex128 launch;
 12. the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-TF32 stays off: the script fails if float32 matmuls would run in TF32.
+TF32 stays off: the script fails if float32 matmuls would run in TF32
+(checked at the start and again before the precision phases).
 """
 
 import dataclasses
@@ -216,6 +242,18 @@ SEED = 1234
 CELL_WIDTH = 10000.0
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+# float32 outside the tensor cores (NVIDIA's H100 SXM data sheet): the
+# peak of the complex64 / float32 rows
+FP32_FLOPS = 67e12
+# the precision phases' gates against the f64 runs at the same draws, in
+# units of the f64 curve's largest modulus: the JAX package's own (mixed:
+# tests/test_precision.py, 1e-4 C(t) and 1e-3 k~ic(t); comp32: that plus
+# tests/test_comp32.py's 5e-4 against mixed; f32: test_precision.py's
+# 5e-2 and 1e-1)
+PRECISION_GATES = {"mixed": (1e-4, 1e-3), "comp32": (6e-4, 1.5e-3),
+                   "f32": (5e-2, 1e-1)}
+# the WM norm in mixed precision against f64 (JAX test_precision.py)
+NORM_MIXED_GATE = 2e-3
 # flops per (trajectory, mode) of K5, counted from csrc/wm_diag.cu
 K5_FLOPS = 290
 
@@ -415,10 +453,12 @@ def in_turns(kernel, plain, library, *args, others=None, plain_windows=None):
             **{f"{name}_ms": med[name] for name in (others or {})}}
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, fp32=False):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the flops over the FP64 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS
+    the flops over the FP64 peak (the FP32 peak for complex64 / float32
+    work: `fp32`)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (FP32_FLOPS if fp32 else FP64_FLOPS)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -582,6 +622,14 @@ def k1_phase(det):
                       "torch.linalg.det"), flush=True)
     host_line("K1", "(10000, 6, 6) complex128",
               lambda A: direct_det(det, A), det.batched_det, A)
+    # the reduced-precision modes' shape: complex64, the FP32 peak
+    A64 = well_conditioned(n, r, torch.complex64, g)
+    t64 = in_turns(det.batched_det, det.batched_det_lu_plain,
+                   torch.linalg.det, A64)
+    print(timing_line("K1", "(10000, 6, 6) complex64", t64,
+                      *bound(n * (r * r + 1) * 8, lu_flops(n, r), True),
+                      "torch.linalg.det"), flush=True)
+    del A64
     for n, r in K1_LARGE:
         A = well_conditioned(n, r, torch.complex128, g)
         large_row("K1", (n, r, r), lambda A: direct_det(det, A),
@@ -620,6 +668,13 @@ def k4_phase(det, det_block):
     print(timing_line("K4", "(2048, 45, 45) complex128", timed, *b,
                       "torch.linalg.det")
           + f"; K1 at the same shape {timed['K1_ms']:.4f} ms", flush=True)
+    A64 = well_conditioned(n, r, torch.complex64, g)
+    t64 = in_turns(det_block.batched_det_block,
+                   det_block.batched_det_lu_plain, torch.linalg.det, A64)
+    print(timing_line("K4", "(2048, 45, 45) complex64", t64,
+                      *bound(n * (r * r + 1) * 8, lu_flops(n, r), True),
+                      "torch.linalg.det"), flush=True)
+    del A64
     out = torch.empty(n, dtype=A.dtype, device="cuda")
     host_line("K4", "(2048, 45, 45) complex128",
               lambda A: direct_call("semi_det_lu_block_c128",
@@ -694,6 +749,19 @@ def k2_phase(gj):
     print(f"K2 at coumarin's three leaves: "
           f"{sum(results[leaf]['ms'] for leaf in K2_LEAVES):.4f} ms in all",
           flush=True)
+    # the reduced-precision modes' shapes: complex64, the FP32 peak
+    check_cases("K2", [(*leaf, "complex64", 1e-5, 1e-4)
+                       for leaf in K2_LEAVES], run, oracle, None)
+    for n, m, k in [(10000, 6, 12)] + K2_LEAVES:
+        A = well_conditioned(n, m, torch.complex64, g)
+        B = gaussian((n, m, k), torch.complex64, g)
+        timed = in_turns(gj.batched_det_solve_gj,
+                         gj.batched_det_solve_gj_plain, solve_library, A, B,
+                         plain_windows=(3, 2) if m > 6 else None)
+        print(timing_line("K2", f"({n}, {m}, {m} | {k}) complex64", timed,
+                          *bound(n * (m * m + 2 * m * k + 1) * 8,
+                                 gj_solve_flops(n, m, k), True),
+                          "torch.linalg.solve + det"), flush=True)
     return dict(results[(10000, 6, 12)], max_abs_err=main_abs_err)
 
 
@@ -724,6 +792,15 @@ def k3_phase(gj):
         results[(n, m)] = dict(timed, bound_ms=b[0], bound_by=b[1])
         host_line("K3", f"({n}, {m}, {m}) complex128",
                   lambda A: direct_inv(gj, A), gj.batched_det_inv_gj, A)
+        # the reduced-precision modes' shape: complex64, the FP32 peak
+        A64 = well_conditioned(n, m, torch.complex64, g)
+        t64 = in_turns(gj.batched_det_inv_gj, gj.batched_det_inv_gj_plain,
+                       inv_library, A64)
+        print(timing_line("K3", f"({n}, {m}, {m}) complex64", t64,
+                          *bound(n * (2 * m * m + 1) * 8,
+                                 gj_inv_flops(n, m), True),
+                          "torch.linalg.inv_ex + det"), flush=True)
+        del A64
 
     def oracle_err(got, A):
         ref = torch.linalg.inv(A)
@@ -760,18 +837,34 @@ def k3_phase(gj):
                       f"{m}) complex128", timed, *bnd,
                       "torch.linalg.inv_ex + det"), flush=True)
     del A
+    check_cases("K3 pair block", [(n, m, "complex64", 1e-5, 1e-4)], run,
+                oracle, None)
+    A = well_conditioned(n, m, torch.complex64, g)
+    t64 = in_turns(gj.batched_det_inv_gj, gj.batched_det_inv_gj_plain,
+                   inv_library, A, plain_windows=(3, 2))
+    print(timing_line("K3", f"the WM norm's pair block ({b}^2 = {n}, {m}, "
+                      f"{m}) complex64", t64,
+                      *bound(n * (2 * m * m + 1) * 8, gj_inv_flops(n, m),
+                             True), "torch.linalg.inv_ex + det"), flush=True)
+    del A
     torch.cuda.empty_cache()
     return dict(timed, max_abs_err=main_abs_err, bound_ms=bnd[0],
                 bound_by=bnd[1])
 
 
 def reset_counts(ops):
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and its counts by dtype, to 0."""
     ops["det"].LAUNCHES = 0
     ops["det_block"].LAUNCHES = 0
     for name in ops["gj"].LAUNCHES:
         ops["gj"].LAUNCHES[name] = 0
     ops["wm_diag"].LAUNCHES = 0
+    for counts in (ops["det"].LAUNCHES_BY_DTYPE,
+                   ops["det_block"].LAUNCHES_BY_DTYPE,
+                   *ops["gj"].LAUNCHES_BY_DTYPE.values(),
+                   ops["wm_diag"].LAUNCHES_BY_DTYPE):
+        for dtype in counts:
+            counts[dtype] = 0
 
 
 def read_counts(ops):
@@ -780,12 +873,26 @@ def read_counts(ops):
             "K4": ops["det_block"].LAUNCHES, "K5": ops["wm_diag"].LAUNCHES}
 
 
-def run_path(cli, ops, config, dynamics_keys, tmp):
-    """Run `config`'s dynamics task (updated with `dynamics_keys`), then its
-    rates and spectrum tasks, through the port's CLI on cuda, writing into
-    `tmp`; every launch count is set to 0 just before the dynamics command
-    and read just after. Returns (the npz as a dict, the launches, the
-    dynamics task, the dynamics command's wall seconds, the port's log
+def read_counts_by_dtype(ops):
+    """Each kernel's launches by the dtype it ran at."""
+    return {"K1": dict(ops["det"].LAUNCHES_BY_DTYPE),
+            "K2": dict(ops["gj"].LAUNCHES_BY_DTYPE["det_solve"]),
+            "K3": dict(ops["gj"].LAUNCHES_BY_DTYPE["det_inv"]),
+            "K4": dict(ops["det_block"].LAUNCHES_BY_DTYPE),
+            "K5": dict(ops["wm_diag"].LAUNCHES_BY_DTYPE)}
+
+
+# the launches by dtype of the last dynamics command `run_path` ran
+LAST_BY_DTYPE = {}
+
+
+def run_path(cli, ops, config, dynamics_keys, tmp, precision="f64"):
+    """Run `config`'s dynamics task (updated with `dynamics_keys`) at
+    `--precision precision`, then its rates and spectrum tasks, through the
+    port's CLI on cuda, writing into `tmp`; every launch count is set to 0
+    just before the dynamics command and read just after (the counts by
+    dtype into LAST_BY_DTYPE). Returns (the npz as a dict, the launches,
+    the dynamics task, the dynamics command's wall seconds, the port's log
     lines of the dynamics command)."""
     import numpy as np
     import torch
@@ -806,10 +913,13 @@ def run_path(cli, ops, config, dynamics_keys, tmp):
     reset_counts(ops)
     t0 = time.perf_counter()
     with LogLines() as log:
-        rc = cli.main(["dynamics", cfg, "--device", "cuda"])
+        rc = cli.main(["dynamics", cfg, "--device", "cuda", "--precision",
+                       precision])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(ops)
+    LAST_BY_DTYPE.clear()
+    LAST_BY_DTYPE.update(read_counts_by_dtype(ops))
     check(rc == 0, f"dynamics returned {rc}")
     for command in ("rates", "spectrum"):
         check(cli.main([command, cfg]) == 0, f"{command} failed")
@@ -848,10 +958,11 @@ def gate_rates(label, data, ref_file, ntraj, nsteps, energy_rtol):
     return imax
 
 
-def methylium_run(cli, ops, smi, label, **task_keys):
+def methylium_run(cli, ops, smi, label, precision="f64", **task_keys):
     """examples/methylium_AH at its own size through the port's CLI on
-    cuda, with `task_keys` set on the dynamics task. Returns (the rates
-    npz as a dict, the kernels' launches during the dynamics command)."""
+    cuda at `precision`, with `task_keys` set on the dynamics task. Returns
+    (the rates npz as a dict, the kernels' launches during the dynamics
+    command)."""
     with open(EXAMPLE) as f:
         config = json.load(f)
     for task in config["semi"]:
@@ -861,7 +972,7 @@ def methylium_run(cli, ops, smi, label, **task_keys):
                     (EXAMPLE.parent / task["potential"][key]).resolve())
     with tempfile.TemporaryDirectory() as tmp:
         data, launches, task, wall, _ = run_path(cli, ops, config,
-                                                 task_keys, tmp)
+                                                 task_keys, tmp, precision)
     nsteps, ntraj = task["num_steps"], task["num_trajectories"]
     nrep = ntraj // task["batch_size"]
     print(f"{label} methylium {ntraj} x {nsteps} steps ({nrep} batches): "
@@ -873,7 +984,7 @@ def methylium_run(cli, ops, smi, label, **task_keys):
     check(launches["K1"] >= nsteps * nrep,
           f"{label}: K1 launched {launches['K1']} times for {nsteps} x "
           f"{nrep} steps")
-    data.update(imax=imax, nsteps=nsteps, nrep=nrep, wall=wall)
+    data.update(imax=imax, nsteps=nsteps, nrep=nrep, wall=wall, task=task)
     return data, launches
 
 
@@ -922,16 +1033,18 @@ def as_config(file, model, **dynamics_keys):
     return config
 
 
-def as_run(cli, ops, smi, model, label, file, **dynamics_keys):
+def as_run(cli, ops, smi, model, label, file, precision="f64",
+           **dynamics_keys):
     """examples/as_model/`file` as shipped (with `dynamics_keys` set on its
-    dynamics task), at its own size, through the port's CLI on cuda; the
-    error-bar and spectrum gates where the file asks for them."""
+    dynamics task), at its own size, through the port's CLI on cuda at
+    `precision`; the error-bar and spectrum gates where the file asks for
+    them."""
     import numpy as np
 
     config = as_config(file, model, **dynamics_keys)
     with tempfile.TemporaryDirectory() as tmp:
         data, launches, task, wall, lines = run_path(cli, ops, config, {},
-                                                     tmp)
+                                                     tmp, precision)
     nsteps = task["num_steps"]
     nrep = max(task["num_trajectories"] // task["batch_size"], 1)
     ntraj = nrep * task["batch_size"]
@@ -966,7 +1079,8 @@ def as_run(cli, ops, smi, model, label, file, **dynamics_keys):
         check(bool(np.isfinite(s).all()), f"{label} AS spectrum not finite")
         check(dev < 1e-2, f"{label} AS spectrum integral off by {dev}")
         check(np.isfinite(band), f"{label} AS spectrum_stderr {band}")
-    data.update(imax=imax, nsteps=nsteps, nrep=nrep, wall=wall, lines=lines)
+    data.update(imax=imax, nsteps=nsteps, nrep=nrep, wall=wall, lines=lines,
+                task=task)
     return data, launches
 
 
@@ -1293,20 +1407,26 @@ def norm_lines(lines):
             for line in lines if "norm=" in line]
 
 
-def first_batch(cli, task, cls, *args):
+def first_batch(cli, task, cls, *args, precision="f64",
+                with_potential=False):
     """The first repetition's batch of `task` at t = 0, drawn as the CLI
-    draws it at seed SEED."""
+    draws it at seed SEED, at `precision` (the potential in the mode's
+    form, as the CLI builds it); with `with_potential`, (the propagator,
+    that potential)."""
     import torch
 
     potential, q0, p0, G, _, _, _ = cli._build_potential(task, "cuda")
-    prop = cls(G, G, *args, device="cuda")
+    dtype, traj_dtype = cli._precision_dtypes(precision)
+    potential = cli._reduced_potential(potential, dtype)
+    prop = cls(G, G, *args, device="cuda", dtype=dtype,
+               traj_dtype=traj_dtype)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cli._repetition_seed(SEED, 0))
     prop.initial_conditions(q0, p0, G, potential,
                             ntraj=min(task["batch_size"],
                                       task["num_trajectories"]),
                             generator=gen)
-    return prop
+    return (prop, potential) if with_potential else prop
 
 
 def hk_norm_phase(cli, ops, smi, model):
@@ -1479,7 +1599,14 @@ def k5_phase(cli, wm_diag, model):
               K5_FLOPS * n * d)
     print(timing_line("K5", "(98304, 60) float64", timed, *b, "none"),
           flush=True)
-    del planes
+    # the reduced-precision modes' type: float32, the FP32 peak
+    planes32 = [x.to(torch.float32).contiguous() for x in planes]
+    t32 = in_turns(wm_diag.wm_diag_derived, wm_diag.wm_diag_derived_plain,
+                   None, *planes32, pack.to(torch.float32).contiguous())
+    print(timing_line("K5", "(98304, 60) float32", t32,
+                      *bound((14 * n * d + wm_diag.N_SCAL * n + 17 * d) * 4,
+                             K5_FLOPS * n * d, True), "none"), flush=True)
+    del planes, planes32
     torch.cuda.empty_cache()
     return dict(timed, max_abs_err=main_abs_err, bound_ms=b[0],
                 bound_by=b[1])
@@ -1553,15 +1680,15 @@ def reference_phase(cli):
     return float(ref["wm_hk_gap"])
 
 
-def coumarin_run(cli, ops, smi, label, file):
+def coumarin_run(cli, ops, smi, label, file, precision="f64"):
     """examples/coumarin_gdml/`file` at its own size through the port's CLI
-    on cuda. Returns (the rates npz as a dict, the kernels' launches during
-    the dynamics command)."""
+    on cuda at `precision`. Returns (the rates npz as a dict, the kernels'
+    launches during the dynamics command)."""
     import numpy as np
 
     with tempfile.TemporaryDirectory() as tmp:
         data, launches, task, wall, _ = run_path(
-            cli, ops, coumarin_task(file), {}, tmp)
+            cli, ops, coumarin_task(file), {}, tmp, precision)
     nsteps, ntraj = task["num_steps"], task["num_trajectories"]
     nrep = max(ntraj // task["batch_size"], 1)
     print(f"{label} coumarin {ntraj} x {nsteps} steps ({nrep} batch): "
@@ -1585,8 +1712,263 @@ def coumarin_run(cli, ops, smi, label, file):
     print(f"{label} coumarin: |C(0) - 1| = {c0_dev:.2e}, rate at max "
           f"{data['ic_rate'][imax]:.6e} at {data['energies'][imax]:.6f}",
           flush=True)
-    data.update(imax=imax, nsteps=nsteps, nrep=nrep)
+    data.update(imax=imax, nsteps=nsteps, nrep=nrep, wall=wall, task=task)
     return data, launches
+
+def check_tf32():
+    """Fail if float32 matmuls would run in TF32 (the reduced-precision
+    modes' monodromy products must be true FP32)."""
+    import torch
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls would run in TF32")
+
+
+def trace_busy(prop, potential, dt, steps):
+    """(busy share, kernels per step, device ms per step) of `steps` steps
+    of `prop` under torch.profiler: the kernels' summed durations over the
+    traced wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prop._run(potential, dt, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    return busy / wall, len(kernels) / steps, 1e3 * busy / steps
+
+
+def mode_line(cli, label, precision, run, cls, args, by_dtype, smi,
+              prop=None):
+    """The precision phase's line: the mode, the dtypes of q, qc, Z and S
+    (of `prop`, or the first batch of the run's task drawn at the mode),
+    the launches by dtype, and the device's busy share over 10 traced
+    steps of that batch."""
+    import torch
+
+    from semiclassical_tpu_torch import units
+
+    task = run["task"]
+    if prop is None:
+        prop, potential = first_batch(cli, task, cls, *args,
+                                      precision=precision,
+                                      with_potential=True)
+    else:
+        potential = run["potential"]
+    st = prop.state
+    dt = task["time_step_fs"] / units.autime_to_fs
+    prop._run(potential, dt, 2)                      # warm-up
+    share, kernels, device_ms = trace_busy(prop, potential, dt, 10)
+    dtypes = {name: (None if getattr(st, name) is None
+                     else str(getattr(st, name).dtype).removeprefix("torch."))
+              for name in ("q", "qc", "Z", "S")}
+    print(f"{label} precision {precision}: dtypes {json.dumps(dtypes)}; "
+          f"launches by dtype {json.dumps(by_dtype)}; dynamics "
+          f"{run['wall']:.3f} s; device busy {100 * share:.1f}% over 10 "
+          f"traced steps of the first batch ({kernels:.1f} kernels, "
+          f"{device_ms:.4f} device ms per step) [{smi}]", flush=True)
+    del prop
+    torch.cuda.empty_cache()
+
+
+def precision_curves(label, precision, data, ref):
+    """C(t) and k~ic(t) of a reduced-precision run against the f64 run at
+    the same draws, within PRECISION_GATES of the f64 curve's largest
+    modulus."""
+    import numpy as np
+
+    gate_c, gate_k = PRECISION_GATES[precision]
+    errs = [float(np.abs(data[k] - ref[k]).max() / np.abs(ref[k]).max())
+            for k in ("autocorrelation", "ic_correlation")]
+    print(f"{label} {precision} vs f64 at seed {SEED}: max |C - C_f64| / "
+          f"max |C_f64| {errs[0]:.3e} (gate {gate_c:g}), k~ic {errs[1]:.3e} "
+          f"(gate {gate_k:g})", flush=True)
+    check(errs[0] <= gate_c and errs[1] <= gate_k,
+          f"{label} {precision} vs f64: {errs}")
+
+
+def reduced_launches(label, by_dtype, need):
+    """No complex128 launch of K1-K4 (and no float64 one of K5), and each
+    kernel of `need` ({kernel: least launches}) at its reduced type at
+    least that often."""
+    wide = {k: v.get("complex128", v.get("float64", 0))
+            for k, v in by_dtype.items()}
+    check(not any(wide.values()),
+          f"{label}: launches at complex128 / float64 {wide}")
+    for kernel, least in need.items():
+        got = by_dtype[kernel].get("complex64", by_dtype[kernel].get(
+            "float32", 0))
+        check(got >= least, f"{label}: {kernel} launched {got} times at its "
+                            f"reduced type, expected at least {least}")
+
+
+def methylium_mixed_phase(cli, ops, smi, label, f64_run):
+    """The first batch of the methylium task of `label` ("HK" or "WM", the
+    f64 phase's task) in memory, 10,000 trajectories x 2000 steps at f64
+    and at mixed from the same draws (cut from the example's 5 batches
+    through the CLI, to keep the script's wall near 800 s; the CLI's mixed
+    path runs in the AS and coumarin phases): C(t) and k~ic(t) against
+    f64, K1 at complex64 on every step (and K2 three times per WM step)
+    and no complex128 launch."""
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.propagation import (
+        HermanKlukPropagator, WaltonManolopoulosPropagator)
+
+    task = f64_run["task"]
+    cls, args = ((WaltonManolopoulosPropagator, (CELL_WIDTH, CELL_WIDTH))
+                 if label == "WM" else (HermanKlukPropagator, ()))
+    dt = task["time_step_fs"] / units.autime_to_fs
+    nsteps = task["num_steps"]
+    runs = {}
+    for precision in ("f64", "mixed"):
+        prop, potential = first_batch(cli, task, cls, *args,
+                                      precision=precision,
+                                      with_potential=True)
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        cauto, kic = prop.propagate(potential, dt, nsteps, chunk=100)
+        torch.cuda.synchronize()
+        runs[precision] = dict(autocorrelation=cauto, ic_correlation=kic,
+                               wall=time.perf_counter() - t0, task=task,
+                               potential=potential, prop=prop,
+                               by_dtype=read_counts_by_dtype(ops))
+        print(f"{label} methylium first batch {prop.ntraj} x {nsteps} steps "
+              f"at {precision}: {runs[precision]['wall']:.3f} s, "
+              f"{prop.ntraj * nsteps / runs[precision]['wall']:.0f} "
+              f"traj-steps/s [{smi}]", flush=True)
+        if precision == "f64":
+            del prop
+            runs["f64"].pop("prop")
+    mixed = runs["mixed"]
+    check(abs(mixed["autocorrelation"][0] - 1.0) < 1e-3,
+          f"{label} methylium mixed |C(0) - 1|")
+    precision_curves(f"{label} methylium first batch", "mixed", mixed,
+                     runs["f64"])
+    # the counts were set to 0 after the batch's trackers were built
+    need = {"K1": nsteps}
+    if label == "WM":
+        need["K2"] = 3 * nsteps
+    reduced_launches(f"{label} methylium mixed", mixed["by_dtype"], need)
+    mode_line(cli, f"{label} methylium", "mixed", mixed, cls, args,
+              mixed["by_dtype"], smi, prop=mixed.pop("prop"))
+
+
+def as_comp32_phase(cli, ops, smi, model, label, file, ref):
+    """The AS example `file` as shipped at --precision comp32, at the f64
+    run's seed and size: the AS gates, C(t) and k~ic(t) against the f64
+    run, K5 at float32 on every WM step."""
+    from semiclassical_tpu_torch.propagation import (
+        HermanKlukPropagator, WaltonManolopoulosPropagator)
+
+    run, _ = as_run(cli, ops, smi, model, f"{label} comp32", file, "comp32")
+    by_dtype = dict(LAST_BY_DTYPE)
+    precision_curves(f"{label} AS", "comp32", run, ref)
+    steps = run["nsteps"] * run["nrep"]
+    reduced_launches(f"{label} AS comp32", by_dtype,
+                     {"K5": steps} if label == "WM" else {})
+    cls, args = ((WaltonManolopoulosPropagator, (CELL_WIDTH, CELL_WIDTH))
+                 if label == "WM" else (HermanKlukPropagator, ()))
+    mode_line(cli, f"{label} AS", "comp32", run, cls, args, by_dtype, smi)
+
+
+def as_f32_phase(cli, ops, smi, model):
+    """The HK AS example cut to 98,304 x 200 steps at f64 and at
+    --precision f32, same seed: C(t) and k~ic(t) within the f32 gates."""
+    from semiclassical_tpu_torch.propagation import HermanKlukPropagator
+
+    runs = {}
+    for precision in ("f64", "f32"):
+        with tempfile.TemporaryDirectory() as tmp:
+            data, _, task, wall, _ = run_path(
+                cli, ops, as_config("semi.json", model, num_steps=200), {},
+                tmp, precision)
+        runs[precision] = dict(data, task=task, wall=wall,
+                               by_dtype=dict(LAST_BY_DTYPE))
+    print(f"HK AS 98304 x 200 steps: dynamics command "
+          f"{runs['f64']['wall']:.3f} s f64, {runs['f32']['wall']:.3f} s f32 "
+          f"[{smi}]", flush=True)
+    precision_curves("HK AS 98304 x 200", "f32", runs["f32"], runs["f64"])
+    mode_line(cli, "HK AS", "f32", runs["f32"], HermanKlukPropagator, (),
+              runs["f32"]["by_dtype"], smi)
+
+
+def coumarin_mixed_phase(cli, ops, smi, label, file, ref):
+    """The coumarin example `file` at --precision mixed, at the f64 run's
+    seed and size: its gates, C(t) and k~ic(t) against the f64 run, K4 at
+    complex64 on every step (under WM also K2 three times per step and K3
+    twice per batch) and no complex128 launch."""
+    from semiclassical_tpu_torch.propagation import (
+        HermanKlukPropagator, WaltonManolopoulosPropagator)
+
+    run, _ = coumarin_run(cli, ops, smi, f"{label} mixed", file, "mixed")
+    by_dtype = dict(LAST_BY_DTYPE)
+    precision_curves(f"{label} coumarin", "mixed", run, ref)
+    steps = run["nsteps"] * run["nrep"]
+    need = {"K4": steps}
+    if label == "WM":
+        need.update(K2=3 * steps, K3=2 * run["nrep"])
+    reduced_launches(f"{label} coumarin mixed", by_dtype, need)
+    cls, args = ((WaltonManolopoulosPropagator, (CELL_WIDTH, CELL_WIDTH))
+                 if label == "WM" else (HermanKlukPropagator, ()))
+    mode_line(cli, f"{label} coumarin", "mixed", run, cls, args, by_dtype,
+              smi)
+
+
+def wm_norm_mixed_phase(cli, ops, smi, norm_shape):
+    """The WM methylium norm's first batch of 10,000 after 100 steps at
+    f64 and at mixed precision, in memory: the mixed norm (K3 at complex64
+    on every block pair, none at complex128) within NORM_MIXED_GATE of the
+    f64 one."""
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.propagation import (
+        WaltonManolopoulosPropagator)
+
+    with open(EXAMPLE) as f:
+        task = json.load(f)["semi"][0]
+    for key in ("ground", "excited", "coupling"):
+        task["potential"][key] = str(
+            (EXAMPLE.parent / task["potential"][key]).resolve())
+    task.update(propagator="WM", cell_width=CELL_WIDTH, batch_size=10000,
+                num_trajectories=10000)
+    dt = task["time_step_fs"] / units.autime_to_fs
+    nb = -(-norm_shape["n"] // norm_shape["block"])
+    out = {}
+    for precision in ("f64", "mixed"):
+        prop, potential = first_batch(cli, task, WaltonManolopoulosPropagator,
+                                      CELL_WIDTH, CELL_WIDTH,
+                                      precision=precision,
+                                      with_potential=True)
+        prop._run(potential, dt, 100)
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        value = prop.norm()
+        torch.cuda.synchronize()
+        out[precision] = (value, time.perf_counter() - t0,
+                          read_counts_by_dtype(ops)["K3"])
+        del prop
+        torch.cuda.empty_cache()
+    rel = abs(out["mixed"][0] - out["f64"][0]) / abs(out["f64"][0])
+    print(f"WM methylium norm mixed: 10000 trajectories after 100 steps, "
+          f"norm {out['mixed'][0]:.9f} mixed ({out['mixed'][1]:.3f} s, K3 "
+          f"{json.dumps(out['mixed'][2])}), {out['f64'][0]:.9f} f64 "
+          f"({out['f64'][1]:.3f} s, K3 {json.dumps(out['f64'][2])}); rel "
+          f"dev {rel:.3e} (gate {NORM_MIXED_GATE:g}); {nb} x {nb} block "
+          f"pairs [{smi}]", flush=True)
+    check(rel <= NORM_MIXED_GATE, f"WM norm mixed vs f64: {rel}")
+    reduced_launches("WM methylium norm mixed",
+                     {"K3": out["mixed"][2]}, {"K3": nb * nb})
 
 
 def main():
@@ -1607,9 +1989,7 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"device: {smi}", flush=True)
-    check(not torch.backends.cuda.matmul.allow_tf32
-          and torch.get_float32_matmul_precision() == "highest",
-          "float32 matmuls would run in TF32")
+    check_tf32()
     print(f"TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
           f"{torch.backends.cudnn.allow_tf32} (no convolution runs), "
           f"float32 matmul precision "
@@ -1646,6 +2026,11 @@ def main():
         hk, hk_launches = phase("HK methylium", methylium_run, cli, ops, smi,
                                 "HK")
         wm, wm_launches = phase("WM methylium", wm_phase, cli, ops, smi, hk)
+        check_tf32()
+        phase("HK methylium mixed", methylium_mixed_phase, cli, ops, smi,
+              "HK", hk)
+        phase("WM methylium mixed", methylium_mixed_phase, cli, ops, smi,
+              "WM", wm)
         hk_ex = phase("HK methylium exact", exact_methylium_phase, cli, ops,
                       smi, hk, hk_launches)
         phase("WM methylium exact", exact_wm_methylium_phase, cli, ops, smi,
@@ -1655,6 +2040,11 @@ def main():
         phase("HK AS error bars", error_bars_identity, cli, ops, model)
         wm_as, wm_as_launches = phase("WM AS", as_run, cli, ops, smi, model,
                                       "WM", "semi_wm.json")
+        phase("HK AS comp32", as_comp32_phase, cli, ops, smi, model, "HK",
+              "semi.json", hk_as)
+        phase("WM AS comp32", as_comp32_phase, cli, ops, smi, model, "WM",
+              "semi_wm.json", wm_as)
+        phase("HK AS f32", as_f32_phase, cli, ops, smi, model)
         hk_as_ex = phase("HK AS exact", exact_as_phase, cli, ops, smi, model,
                          "HK", "semi.json", hk_as, hk_as_launches)
         phase("WM AS exact", exact_as_phase, cli, ops, smi, model, "WM",
@@ -1665,8 +2055,10 @@ def main():
         phase("sampling", sampling_phase, cli, ops, smi, model)
         phase("micro_batch", micro_phase, cli, ops, smi, model)
         phase("HK AS norm", hk_norm_phase, cli, ops, smi, model)
-    wm_norm_launches, _ = phase("WM methylium norm", wm_norm_phase, cli, ops,
-                                smi)
+    wm_norm_launches, norm_shape = phase("WM methylium norm", wm_norm_phase,
+                                         cli, ops, smi)
+    phase("WM methylium norm mixed", wm_norm_mixed_phase, cli, ops, smi,
+          norm_shape)
     wm_vs_hk("AS", wm_as, hk_as, WM_HK_GATE_AS)
     steps = wm_as["nsteps"] * wm_as["nrep"]
     check(wm_as_launches["K5"] >= steps,
@@ -1678,6 +2070,10 @@ def main():
     wm_c, wm_c_launches = phase("WM coumarin", coumarin_run, cli, ops, smi,
                                 "WM", "semi_wm.json")
     wm_vs_hk("coumarin", wm_c, hk_c, WM_HK_GAP_FACTOR * gap)
+    phase("HK coumarin mixed", coumarin_mixed_phase, cli, ops, smi, "HK",
+          "semi.json", hk_c)
+    phase("WM coumarin mixed", coumarin_mixed_phase, cli, ops, smi, "WM",
+          "semi_wm.json", wm_c)
     steps = wm_c["nsteps"] * wm_c["nrep"]
     check(wm_c_launches["K2"] >= 3 * steps,
           f"WM coumarin: K2 launched {wm_c_launches['K2']} times for "

@@ -32,13 +32,19 @@ reductions' launches and ms per step read as the differences. With
 `--integrator exact` (methylium: the exact harmonic map; as: the exact
 Morse map) each propagator also runs with the exact integrator on the same
 batch (keys "HK exact", "WM exact", the windows in turns with the RK4
-ones), and "exact_rk4_routed" counts the Morse map's RK4-routed rows.
+ones), and "exact_rk4_routed" counts the Morse map's RK4-routed rows. With
+`--precision mixed|comp32|f32` each propagator also runs in that mode of
+the CLI on the same draws, its potential in the mode's form (keys "HK
+mixed", "WM mixed", ..., the windows in turns with the f64 ones), and each
+run's entry names the dtypes of q, Z and S and the launches per step by
+dtype.
 
 Prints one JSON object, and writes it to `--out` if given.
 
     python scripts/torch_step_profile.py [--example as|coumarin|methylium]
         [--ntraj N] [--steps 48] [--window 200] [--error-bars]
-        [--integrator rk4|exact] [--out profile.json]
+        [--integrator rk4|exact] [--precision mixed|comp32|f32]
+        [--out profile.json]
 """
 
 import argparse
@@ -55,16 +61,21 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 
-def _propagator(name, G, q0, potential, ntraj, seed, integrator="rk4"):
+def _propagator(name, G, q0, potential, ntraj, seed, integrator="rk4",
+                dtypes=(torch.float64, torch.float64)):
     from semiclassical_tpu_torch.propagation import (
         HermanKlukPropagator, WaltonManolopoulosPropagator)
 
+    dtype, traj_dtype = dtypes
     if name == "WM":
         prop = WaltonManolopoulosPropagator(G, G, 1e4, 1e4, device="cuda",
-                                            integrator=integrator)
+                                            integrator=integrator,
+                                            dtype=dtype,
+                                            traj_dtype=traj_dtype)
     else:
         prop = HermanKlukPropagator(G, G, device="cuda",
-                                    integrator=integrator)
+                                    integrator=integrator, dtype=dtype,
+                                    traj_dtype=traj_dtype)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     prop.initial_conditions(q0, 0 * q0, G, potential, ntraj=ntraj,
@@ -147,8 +158,12 @@ def main(argv=None):
     parser.add_argument("--error-bars", action="store_true")
     parser.add_argument("--integrator", choices=("rk4", "exact"),
                         default="rk4")
+    parser.add_argument("--precision", choices=("mixed", "comp32", "f32"),
+                        default=None)
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
+    if args.precision in ("comp32", "f32") and args.integrator == "exact":
+        parser.error("the exact integrators run under 'f64' and 'mixed'")
     if args.integrator == "exact" and args.example == "coumarin":
         parser.error("the exact integrators cover the 'as' and 'methylium' "
                      "examples")
@@ -174,6 +189,7 @@ def main(argv=None):
 
     props = {name: _propagator(name, G, q0, potential, args.ntraj, args.seed)
              for name in ("HK", "WM")}
+    potentials = {name: potential for name in props}
     # (label, propagator, second moments of the error bars)
     runs = [(name, name, False) for name in props]
     if args.error_bars:
@@ -185,32 +201,50 @@ def main(argv=None):
                                                  args.ntraj, args.seed,
                                                  "exact")
             runs.append((f"{name} exact", f"{name} exact", False))
-    for prop in props.values():
-        prop._run(potential, dt, 20)                  # warm-up
+            potentials[f"{name} exact"] = potential
+    if args.precision:
+        dtypes = cli._precision_dtypes(args.precision)
+        mode_potential = cli._reduced_potential(potential, dtypes[0])
+        for name in ("HK", "WM"):
+            label = f"{name} {args.precision}"
+            props[label] = _propagator(name, G, q0, mode_potential,
+                                       args.ntraj, args.seed,
+                                       dtypes=dtypes)
+            potentials[label] = mode_potential
+            runs.append((label, label, False))
+    for name, prop in props.items():
+        prop._run(potentials[name], dt, 20)           # warm-up
     windows = {label: [] for label, _, _ in runs}
     for label, name, m2 in runs + runs[::-1]:
-        windows[label].append(_window_ms(props[name], potential, dt,
+        windows[label].append(_window_ms(props[name], potentials[name], dt,
                                          args.window, m2))
     result = {"device": smi, "example": args.example,
               "ntraj": args.ntraj, "dim": int(q0.shape[0]),
               "window_steps": args.window, "traced_steps": args.steps}
 
     def counts():
-        return {"K1": det.LAUNCHES, "K2": gj.LAUNCHES["det_solve"],
-                "K3": gj.LAUNCHES["det_inv"], "K4": det_block.LAUNCHES,
-                "K5": wm_diag.LAUNCHES}
+        by_dtype = {"K1": det.LAUNCHES_BY_DTYPE,
+                    "K2": gj.LAUNCHES_BY_DTYPE["det_solve"],
+                    "K3": gj.LAUNCHES_BY_DTYPE["det_inv"],
+                    "K4": det_block.LAUNCHES_BY_DTYPE,
+                    "K5": wm_diag.LAUNCHES_BY_DTYPE}
+        return {f"{k} {dtype}": n for k, counts in by_dtype.items()
+                for dtype, n in counts.items()}
 
     for label, name, m2 in runs:
         before = counts()
-        trace = _trace(props[name], potential, dt, args.steps, m2)
+        trace = _trace(props[name], potentials[name], dt, args.steps, m2)
         after = counts()
         ms = windows[label]
+        state = props[name].state
         trace.update(
             ms_per_step_windows=ms,
             busy_share_untraced=trace["device_ms_per_step"] / min(ms),
             traj_steps_per_s=args.ntraj / (min(ms) / 1e3),
+            dtypes={k: str(getattr(state, k).dtype).removeprefix("torch.")
+                    for k in ("q", "Z", "S")},
             launches_per_step={k: (after[k] - before[k]) / args.steps
-                               for k in after})
+                               for k in after if after[k] > before[k]})
         result[label] = trace
     if args.integrator == "exact" and props["HK exact"]._morse is not None:
         sub = props["HK exact"]._morse.pack.sub_idx

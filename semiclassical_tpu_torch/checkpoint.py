@@ -7,9 +7,13 @@ segments: the trajectory state (q, p, Z, S), the branch-cut sign trackers,
 every field of the batch constants, the current time and the batch size,
 and the partial C(t) / k~ic(t) accumulated so far. Keys are the
 propagator's own layout (`state/Z`, `tracker/detA/signs`,
-`bc/base/logw_norm`, ...); complex tensors are stored as they are. The
-file is written to `<name>.tmp.npz` and renamed over `<name>`, so a kill
-during a write leaves the previous checkpoint intact.
+`bc/base/logw_norm`, ...); every tensor is stored at its own dtype, so a
+checkpoint of a reduced-precision run (float32 / complex64 tensors, the
+comp32 residuals `state/qc`, `state/pc` and the center's `params/q0c`,
+`params/p0c`) resumes bit for bit, and one resumed under another
+precision mode raises naming the first key that differs. The file is
+written to `<name>.tmp.npz` and renamed over `<name>`, so a kill during a
+write leaves the previous checkpoint intact.
 
 The port's checkpoints are its own format: it neither reads the JAX
 package's checkpoints nor writes theirs.
@@ -49,6 +53,25 @@ def _carried(propagator):
             ("bc", propagator.bc))
 
 
+def _hk_params(propagator):
+    """The HK parameter pack (nested under `hk` in the WM pack)."""
+    return getattr(propagator.params, "hk", propagator.params)
+
+
+def _center_residuals(propagator):
+    """{key: tensor} of the comp32 center residuals (empty otherwise)."""
+    params = _hk_params(propagator)
+    return {f"params/{name}": getattr(params, name)
+            for name in ("q0c", "p0c") if getattr(params, name) is not None}
+
+
+def _mode_mismatch(key, detail):
+    return ValueError(
+        f"checkpoint key '{key}' {detail}: it was written under another "
+        "precision mode. Resume with the original --precision, or delete "
+        "the checkpoint to restart the repetition.")
+
+
 def save_propagator_state(filename, propagator, partial=None):
     """Snapshot a propagator's state, trackers, batch constants and time
     to `filename` (.npz). `partial` is an optional dict of what the run
@@ -58,6 +81,8 @@ def save_propagator_state(filename, propagator, partial=None):
         for key, v in _flatten(prefix, obj).items():
             payload[key] = (v.detach().cpu().numpy()
                             if isinstance(v, torch.Tensor) else np.asarray(v))
+    for key, v in _center_residuals(propagator).items():
+        payload[key] = v.detach().cpu().numpy()
     payload["meta/t"] = np.asarray(propagator.t)
     payload["meta/ntraj"] = np.asarray(propagator.ntraj)
     for k, v in (partial or {}).items():
@@ -78,8 +103,9 @@ def peek_checkpoint(filename):
 
 def _restore(data, prefix, obj, device):
     """`obj` with every tensor and float field replaced by the
-    checkpoint's, each tensor on `device` at the field's dtype; a missing
-    key or another shape raises ValueError naming the key."""
+    checkpoint's, each tensor on `device`; a missing key, another shape or
+    another dtype raises ValueError naming the key, as does a tensor the
+    checkpoint holds for a field that is None here (a comp32 residual)."""
     fields = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
@@ -87,6 +113,8 @@ def _restore(data, prefix, obj, device):
         if dataclasses.is_dataclass(v):
             fields[f.name] = _restore(data, key, v, device)
             continue
+        if v is None and key in data:
+            raise _mode_mismatch(key, "has no counterpart in this run")
         if not isinstance(v, (torch.Tensor, float)):
             continue
         if key not in data:
@@ -106,7 +134,11 @@ def _restore(data, prefix, obj, device):
                 "monodromy representation or batch size. Resume with the "
                 "original configuration, or delete the checkpoint to "
                 "restart the repetition.")
-        fields[f.name] = torch.as_tensor(arr, dtype=v.dtype, device=device)
+        stored = torch.from_numpy(np.ascontiguousarray(arr))
+        if stored.dtype != v.dtype:
+            raise _mode_mismatch(key, f"holds {stored.dtype} where this run "
+                                      f"has {v.dtype}")
+        fields[f.name] = stored.to(device)
     return dataclasses.replace(obj, **fields)
 
 
@@ -119,6 +151,15 @@ def load_propagator_state(filename, propagator):
     with np.load(filename) as data:
         data = {key: data[key] for key in data.files}
     device = propagator.device
+    residuals = _center_residuals(propagator)
+    for key in ("params/q0c", "params/p0c"):
+        if (key in data) != (key in residuals):
+            raise _mode_mismatch(key, "is missing" if key in residuals
+                                 else "has no counterpart in this run")
+        if key in data and not np.array_equal(
+                data[key], residuals[key].cpu().numpy()):
+            raise ValueError(f"checkpoint key '{key}' holds another "
+                             "wavepacket center: it belongs to another task")
     restored = {prefix: _restore(data, prefix, obj, device)
                 for prefix, obj in _carried(propagator)}
     propagator.state = restored["state"]

@@ -14,15 +14,19 @@ same `.npz` accumulation semantics:
 
 `dynamics` runs on the device named by `--device` (default `cuda`); it
 raises when that device is not available and never moves to another one.
-Task keywords outside the ported slice (the reduced-precision modes, the
-AS model's reduced-cost Hessian) raise `ConfigurationError` naming them,
-rather than being ignored. The checkpoints of `checkpoint` are the port's
-own format (`semiclassical_tpu_torch.checkpoint`).
+`--precision` selects the numerical mode of the JAX package ("f64", the
+default on every device, "mixed", "comp32" or "f32"; see `PRECISIONS`).
+Task keywords outside the ported slice (the AS model's reduced-cost
+Hessian, the exact integrators under "comp32" and "f32") raise
+`ConfigurationError` naming them, rather than being ignored. The
+checkpoints of `checkpoint` are the port's own format
+(`semiclassical_tpu_torch.checkpoint`).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os.path
@@ -41,6 +45,10 @@ __all__ = ["main", "run_semiclassical_dynamics", "calculate_rates",
 # potential types of the ported slice
 PORTED_POTENTIALS = ("harmonic", "anharmonic AS", "gdml")
 INTEGRATORS = ("rk4", "exact")
+# --precision: (dtype of the packs, the monodromy and the complex algebra,
+# dtype of q, p and S) by name, the JAX package's modes
+PRECISIONS = {"f64": ("float64", "float64"), "mixed": ("float32", "float64"),
+              "comp32": ("float32", "comp32"), "f32": ("float32", "float32")}
 
 
 def main(argv=None):
@@ -62,8 +70,11 @@ def main(argv=None):
              "the plain versions of the kernels)")
     parser_dynamics.add_argument(
         "--precision", type=str, default="f64",
-        help="numerical mode; only f64 (float64/complex128 end to end) is "
-             "ported")
+        help="numerical mode: f64 (float64/complex128 end to end, the "
+             "default), mixed (float32/complex64 monodromy and complex "
+             "algebra, float64 trajectories), comp32 (mixed with float32 "
+             "trajectories and Neumaier residuals) or f32 (float32 "
+             "throughout)")
 
     parser_rates = subparsers.add_parser(
         "rates",
@@ -107,7 +118,7 @@ def main(argv=None):
     if args.command == "dynamics":
         tasks = _load_tasks(args.json_input, "dynamics")
         for task in tasks:
-            check_slice(task)
+            check_slice(task, args.precision)
         for task in tasks:
             run_semiclassical_dynamics(task, device=args.device,
                                        precision=args.precision)
@@ -141,14 +152,19 @@ def _load_tasks(json_input, kind):
     return [task for task in config["semi"] if task["task"] == kind]
 
 
-def check_slice(task):
+def check_slice(task, precision="f64"):
     """Raise ConfigurationError, naming the keyword, for a dynamics task
     that asks for anything outside the ported slice (HK, or WM with
     `cell_width`; the molecular harmonic PES and the anharmonic AS model
     with the 4-stage Hessian, the sGDML PES with `hess_dtype`,
-    `hessian_eval`, `taylor_every` and `eg_mode`), and validate up front
-    the integrator name and the statistics keywords `sampling`,
-    `micro_batch`, `calc_norm_every` and `norm_samples`."""
+    `hessian_eval`, `taylor_every` and `eg_mode`; the precision modes of
+    `PRECISIONS`, the exact integrators under "f64" and "mixed"), and
+    validate up front the integrator name and the statistics keywords
+    `sampling`, `micro_batch`, `calc_norm_every` and `norm_samples`."""
+    if precision not in PRECISIONS:
+        raise ConfigurationError(
+            f"precision '{precision}' is unknown (expected one of "
+            + ", ".join(f"'{m}'" for m in PRECISIONS) + ")")
     propagator = task.get("propagator", "HK")
     if propagator not in ("HK", "WM"):
         raise ConfigurationError(
@@ -181,6 +197,10 @@ def check_slice(task):
         raise ConfigurationError(
             f"integrator '{integrator}' is unknown (expected 'rk4' or "
             "'exact')")
+    if integrator == "exact" and precision in ("comp32", "f32"):
+        raise ConfigurationError(
+            f"integrator 'exact' with precision '{precision}' is not ported "
+            "yet (the exact maps run under 'f64' and 'mixed')")
     for key in ("micro_batch", "calc_norm_every", "norm_samples"):
         value = task.get(key, 0)
         if isinstance(value, bool) or not isinstance(value, int) or value < 0:
@@ -278,8 +298,37 @@ def _repetition_seed(seed, repetition):
     return int(np.random.SeedSequence([seed, repetition]).generate_state(1)[0])
 
 
+def _precision_dtypes(precision):
+    """(dtype, traj_dtype) of a `--precision` name for the propagators."""
+    import torch
+
+    dtype, traj = PRECISIONS[precision]
+    return getattr(torch, dtype), (traj if traj == "comp32"
+                                   else getattr(torch, traj))
+
+
+def _reduced_potential(potential, dtype):
+    """The potential in the precision mode's form: a separable model's
+    parameters at `dtype` (its PES evaluates at float32 in the reduced
+    modes), the molecular harmonic PES with float32 contractions when
+    `dtype` is float32; an sGDML PES keeps its own `hess_dtype`."""
+    import torch
+
+    from semiclassical_tpu_torch.potentials import (MolecularHarmonicPotential,
+                                                    MorsePotential,
+                                                    NonHarmonicPotential)
+
+    if isinstance(potential, (MorsePotential, NonHarmonicPotential)):
+        return potential.to_dtype(dtype)
+    if (isinstance(potential, MolecularHarmonicPotential)
+            and dtype == torch.float32):
+        return dataclasses.replace(potential, contract_dtype=torch.float32)
+    return potential
+
+
 def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
-    """Run one `dynamics` task; returns the PhaseTimer of the run."""
+    """Run one `dynamics` task at the `precision` mode (see `PRECISIONS`);
+    returns the PhaseTimer of the run."""
     import torch
 
     from semiclassical_tpu_torch import units
@@ -291,10 +340,7 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
     from semiclassical_tpu_torch.propagation import (
         HermanKlukPropagator, WaltonManolopoulosPropagator)
 
-    check_slice(task)
-    if precision != "f64":
-        raise ConfigurationError(
-            f"precision '{precision}' is not ported yet (ported: 'f64')")
+    check_slice(task, precision)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -303,6 +349,18 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
 
     (potential, q0, p0, Gamma_0, en_zpt, adiabatic_gap,
      atomic_numbers) = _build_potential(task, device)
+    if (task["potential"]["type"] == "gdml"
+            and precision in ("comp32", "f32")):
+        # the JAX package's warning, word for word
+        logger.warning(
+            f"--precision {precision} with a gdml potential is "
+            "unvalidated: sGDML regression sums are cancellation-bound "
+            "and were measured to need f64 energies/gradients — use "
+            "'mixed' (default) and the potential's hess_dtype keyword "
+            "for the validated reduced-precision mode")
+    logger.info(f"  numerical precision                       : {precision}")
+    dtype, traj_dtype = _precision_dtypes(precision)
+    potential = _reduced_potential(potential, dtype)
     Gamma_i = Gamma_0
     Gamma_t = Gamma_0
 
@@ -412,11 +470,13 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
         if propagator_name == "WM":
             propagator = WaltonManolopoulosPropagator(
                 Gamma_i, Gamma_t, cell_width, cell_width, device=device,
-                integrator=integrator)
+                integrator=integrator, dtype=dtype, traj_dtype=traj_dtype)
         else:
             propagator = HermanKlukPropagator(Gamma_i, Gamma_t,
                                               device=device,
-                                              integrator=integrator)
+                                              integrator=integrator,
+                                              dtype=dtype,
+                                              traj_dtype=traj_dtype)
         propagator.micro_batch = micro
         with ptimer.phase("sample"):
             propagator.initial_conditions(q0, p0, Gamma_0, potential,

@@ -11,7 +11,9 @@ autocorrelation), the pair-overlap matrix of the O(n^2) norm
 (`WavefunctionParams`, `wavefunction`, `wavefunction_log`). The spectral
 work on the constant width matrices happens once on the host
 (`OverlapParams.create`); the device functions are batched with the
-trajectory axis leading.
+trajectory axis leading. A pack's real `dtype` (float64, or float32 in the
+reduced-precision modes) is the precision of its exponents: the
+displacements are taken at the inputs' precision, then cast to it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from semiclassical_tpu_torch import linalg
 from semiclassical_tpu_torch.units import hbar
 
 __all__ = ["OverlapParams", "WavefunctionParams", "overlap_exponent_vector",
+           "overlap_exponent_displaced",
            "overlap_vector", "overlap_exponent_matrix", "overlap_matrix",
            "wavefunction", "wavefunction_log"]
 
@@ -43,8 +46,12 @@ class OverlapParams:
     # are then elementwise products and a mode sum. None otherwise.
     diag_w: torch.Tensor | None = None
 
+    @property
+    def dtype(self):
+        return self.Gi_iGij_Gj.dtype
+
     @staticmethod
-    def create(Gi, Gj, device):
+    def create(Gi, Gj, device, dtype=torch.float64):
         Gi = np.asarray(Gi, dtype=np.float64)
         Gj = np.asarray(Gj, dtype=np.float64)
         if Gi.shape != Gj.shape:
@@ -75,13 +82,13 @@ class OverlapParams:
         diag_w = (np.stack([np.diag(m) for m in (m1, m2, m3)])
                   if offdiag == 0.0 else None)
         return OverlapParams.from_arrays(m1, m2, m3, complex(fac), ranki,
-                                         device, diag_w=diag_w)
+                                         device, diag_w=diag_w, dtype=dtype)
 
     @staticmethod
     def from_arrays(Gi_iGij_Gj, iGij, Gj_iGij, fac, rank, device,
-                    diag_w=None):
+                    diag_w=None, dtype=torch.float64):
         t = lambda x: torch.tensor(np.asarray(x, dtype=np.float64),
-                                   device=device)
+                                   device=device, dtype=dtype)
         return OverlapParams(Gi_iGij_Gj=t(Gi_iGij_Gj), iGij=t(iGij),
                              Gj_iGij=t(Gj_iGij), fac=complex(fac),
                              rank=int(rank),
@@ -95,9 +102,19 @@ def _quad(x, A, y):
 
 def overlap_exponent_vector(ov: OverlapParams, qi, pi, qj, pj):
     """(re, im) exponent parts of <qi(n),pi(n),Gi|qj,pj,Gj> for a batch of
-    bra states qi, pi (n, d) and one ket qj, pj (d,)."""
-    dq = qj[None, :] - qi
-    dp = pj[None, :] - pi
+    bra states qi, pi (n, d) and one ket qj, pj (d,), at the pack's
+    dtype."""
+    return overlap_exponent_displaced(ov, qj[None, :] - qi, pj[None, :] - pi,
+                                      pj)
+
+
+def overlap_exponent_displaced(ov: OverlapParams, dq, dp, pj):
+    """(re, im) exponent parts from the displacements dq = qj - qi, dp =
+    pj - pi (n, d) and the ket momentum pj (d,), cast to the pack's dtype:
+    for callers that form the displacements themselves (the comp32 mode
+    folds its residuals into them)."""
+    t = ov.dtype
+    dq, dp, pj = dq.to(t), dp.to(t), pj.to(t)
     if ov.diag_w is not None:
         w1, w2, w3 = ov.diag_w
         re_part = (-0.5 * torch.sum(dq * w1 * dq, dim=-1)
@@ -119,12 +136,15 @@ def overlap_vector(ov: OverlapParams, qi, pi, qj, pj):
 
 def overlap_exponent_matrix(ov: OverlapParams, qi, pi, qj, pj):
     """(re, im) exponent parts of the pair-overlap matrix <qi(i)|qj(j)>,
-    (ni, nj) each — for callers that fold log-scale factors (the
-    log-coefficients of the norm) into the exponent before exponentiating.
+    (ni, nj) each, at the pack's dtype — for callers that fold log-scale
+    factors (the log-coefficients of the norm) into the exponent before
+    exponentiating.
 
     The quadratic forms are expanded, so the pair structure reduces to
     per-vector diagonals plus (ni, d) @ (d, nj) matmuls: O(ni nj d) matmul
     work in O(ni nj) memory, with no (ni, nj, d) displacement tensor."""
+    t = ov.dtype
+    qi, pi, qj, pj = qi.to(t), pi.to(t), qj.to(t), pj.to(t)
     A = ov.Gi_iGij_Gj
     B = ov.iGij / hbar**2
     C = ov.Gj_iGij
@@ -165,26 +185,30 @@ class WavefunctionParams:
     rank: int
 
     @staticmethod
-    def create(G, device):
+    def create(G, device, dtype=torch.float64):
         G = np.asarray(G, dtype=np.float64)
         e, _ = linalg.sym_eigh(G)
         nz = np.abs(e) > linalg.ZERO
         rank = int(np.count_nonzero(nz))
         fac = (np.prod(e[nz]) / np.pi**rank) ** 0.25
-        return WavefunctionParams.from_arrays(G, fac, rank, device)
+        return WavefunctionParams.from_arrays(G, fac, rank, device, dtype)
 
     @staticmethod
-    def from_arrays(G, fac, rank, device):
+    def from_arrays(G, fac, rank, device, dtype=torch.float64):
         return WavefunctionParams(
-            G=torch.tensor(np.asarray(G, dtype=np.float64), device=device),
+            G=torch.tensor(np.asarray(G, dtype=np.float64), device=device,
+                           dtype=dtype),
             fac=float(fac), rank=int(rank))
 
 
 def _grid_exponent(wf: WavefunctionParams, q, p, x):
-    """(re, im) of the Gaussians' exponents <x|q_i, p_i>, (n, nx) each."""
+    """(re, im) of the Gaussians' exponents <x|q_i, p_i>, (n, nx) each, at
+    the wider of the pack's and the inputs' precision."""
     dx = x[None, :, :] - q[:, None, :]                      # (n, nx, d)
-    re = -0.5 * torch.einsum("nxa,ab,nxb->nx", dx, wf.G, dx)
-    im = torch.einsum("na,nxa->nx", p, dx) / hbar
+    t = torch.promote_types(dx.dtype, wf.G.dtype)
+    dx = dx.to(t)
+    re = -0.5 * torch.einsum("nxa,ab,nxb->nx", dx, wf.G.to(t), dx)
+    im = torch.einsum("na,nxa->nx", p.to(t), dx) / hbar
     return re, im
 
 
@@ -204,9 +228,11 @@ def wavefunction_log(wf: WavefunctionParams, q, p, log_v, x):
     zmax (nx,) real): phi = psi_shifted * exp(zmax), recombined by the
     caller on the host."""
     log_re, log_im = log_v
+    rd = wf.G.dtype
     re, im = _grid_exponent(wf, q, p, x)
-    Zre = log_re[:, None] + re + float(np.log(abs(wf.fac)))
-    Zim = log_im[:, None] + im
+    Zre = log_re.to(rd)[:, None] + re + float(np.log(abs(wf.fac)))
+    Zim = log_im.to(rd)[:, None] + im
     zmax = torch.max(Zre, dim=0).values                     # (nx,)
-    psi = torch.sum(torch.polar(torch.exp(Zre - zmax[None, :]), Zim), dim=0)
+    psi = torch.sum(linalg.complex_exp(Zre - zmax[None, :], Zim,
+                                       linalg.complex_dtype(rd)), dim=0)
     return psi, zmax

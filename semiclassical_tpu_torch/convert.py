@@ -4,8 +4,10 @@
 Each function takes the fields of one `semiclassical_tpu` object as plain
 numpy arrays (a dict, `np.asarray` of each field; nested packs as nested
 dicts) and returns the port's counterpart on `device`, so that both
-packages can start from identical state. The caller does the unpacking on
-the JAX side; this module imports no jax.
+packages can start from identical state. Tensors keep the dtypes of the
+arrays given, so the reduced-precision packs, potentials and comp32 states
+cross over as they are. The caller does the unpacking on the JAX side;
+this module imports no jax.
 """
 
 from __future__ import annotations
@@ -33,17 +35,23 @@ __all__ = ["molecular_harmonic_potential", "gdml_params",
 
 
 def _t(x, device):
-    return torch.tensor(np.asarray(x), device=device)
+    return None if x is None else torch.tensor(np.asarray(x), device=device)
+
+
+def _torch_dtype(x):
+    """The torch dtype of a numpy array's dtype."""
+    return torch.from_numpy(np.zeros(0, dtype=np.asarray(x).dtype)).dtype
 
 
 def molecular_harmonic_potential(f, device):
-    """From the fields of `MolecularHarmonicPotential` (f64 contractions)."""
-    if f.get("contract_dtype", ""):
-        raise ValueError("reduced-precision contractions are not ported")
+    """From the fields of `MolecularHarmonicPotential`, its
+    `contract_dtype` name included ("" for the trajectory's)."""
+    contract = f.get("contract_dtype", "")
     return MolecularHarmonicPotential.from_arrays(
         pos0=f["pos0"], energy0=float(f["energy0"]), grad0=f["grad0"],
         hess0=f["hess0"], nac0=f["nac0"], mass=f["mass"],
-        origin=float(f["origin"]), device=device)
+        origin=float(f["origin"]), device=device,
+        contract_dtype=getattr(torch, contract) if contract else None)
 
 
 def gdml_params(f, device):
@@ -80,12 +88,14 @@ def local_quadratic(f, device):
 
 
 def morse_potential(f, device):
-    """From the fields of `MorsePotential` (the 4-stage Hessian mode)."""
+    """From the fields of `MorsePotential` (the 4-stage Hessian mode), at
+    the dtype of its arrays."""
     if f.get("hessian_eval", "stage") != "stage" or f.get("taylor_every",
                                                            1) != 1:
         raise ValueError("reduced-cost Hessian evaluation is not ported")
     return MorsePotential.from_arrays(f["omega"], f["a"], f["D"], f["nac"],
-                                      f["harmonic"], device)
+                                      f["harmonic"], device,
+                                      _torch_dtype(f["omega"]))
 
 
 def nonharmonic_potential(f, device):
@@ -105,21 +115,22 @@ def sampling_params(f, device):
 def _overlap_params(f, device):
     return OverlapParams.from_arrays(
         f["Gi_iGij_Gj"], f["iGij"], f["Gj_iGij"], complex(f["fac"]),
-        int(f["rank"]), device, diag_w=f.get("diag_w"))
+        int(f["rank"]), device, diag_w=f.get("diag_w"),
+        dtype=_torch_dtype(f["Gi_iGij_Gj"]))
 
 
 def _wavefunction_params(f, device):
     return WavefunctionParams.from_arrays(f["G"], float(f["fac"]),
-                                          int(f["rank"]), device)
+                                          int(f["rank"]), device,
+                                          _torch_dtype(f["G"]))
 
 
 def hk_params(f, device):
-    """From the fields of `HKParams` (the f64 mode: no comp32 residuals);
-    the re/im planes of the factors are joined into complex factors, the
+    """From the fields of `HKParams` at its dtypes (the factors' and the
+    geometry constants'; the comp32 residuals q0c, p0c when present); the
+    re/im planes of the factors are joined into complex factors, the
     separable-path scales diag_ka .. diag_ke are stacked, and the norm's
     csott and the wavefunction's wf are carried when present."""
-    if f.get("q0c") is not None:
-        raise ValueError("comp32 parameter packs are not ported")
     plane = lambda name: (np.asarray(f[name + "_re"])
                           + 1j * np.asarray(f[name + "_im"]))
     scales = [f.get(f"diag_k{x}") for x in "abce"]
@@ -135,7 +146,9 @@ def hk_params(f, device):
         csott=(None if f.get("csott") is None
                else _overlap_params(f["csott"], device)),
         wf=None if f.get("wf") is None else _wavefunction_params(f["wf"],
-                                                                  device))
+                                                                  device),
+        dtype=_torch_dtype(f["Lt_s_re"]), traj_dtype=_torch_dtype(f["q0"]),
+        q0c=f.get("q0c"), p0c=f.get("p0c"))
 
 
 def batch_constants(f, device):
@@ -153,9 +166,9 @@ _WM_ARRAYS = ("Gt", "A_const", "BqU", "G0U", "UtG0U", "Cqq", "G0iGi0", "Dbal",
 
 
 def wm_params(f, device):
-    """From the fields of `WMParams` (the f64 pack; the HK pack is nested
-    under "hk", whose U, iGi0 and G0 the port keeps in the WM pack, and the
-    separable path's WMDiagConsts under "diag")."""
+    """From the fields of `WMParams` at its dtype (the HK pack is nested
+    under "hk", whose U, iGi0 and G0 the port keeps in the WM pack at the
+    WM dtype, and the separable path's WMDiagConsts under "diag")."""
     hk = f["hk"]
     return WMParams.from_arrays(
         hk_params(hk, device), device, U=hk["U"], iGi0=hk["iGi0"],
@@ -163,7 +176,8 @@ def wm_params(f, device):
         alpha=f["alpha"], beta=f["beta"], auto_pref=f["auto_pref"],
         m_scale=f["m_scale"], m_log_det=f["m_log_det"],
         log_coef_pref=f["log_coef_pref"], dim=f["dim"],
-        rank=f["rank"], scan_diag=f["scan_diag"], diag=f.get("diag"))
+        rank=f["rank"], scan_diag=f["scan_diag"], diag=f.get("diag"),
+        dtype=_torch_dtype(f["Gt"]))
 
 
 def wm_batch_constants(f, device):
@@ -176,11 +190,9 @@ def wm_batch_constants(f, device):
 
 
 def traj_state(f, device):
-    """From the fields of an f64 `TrajState`: the four dense monodromy
-    blocks are stacked into Z (n, 2d, 2d), the (n, d) diagonal ones into
-    the planes Z (4, n, d)."""
-    if f.get("qc") is not None:
-        raise ValueError("comp32 trajectory states are not ported")
+    """From the fields of a `TrajState` at its dtypes (the comp32 residuals
+    qc, pc when present): the four dense monodromy blocks are stacked into
+    Z (n, 2d, 2d), the (n, d) diagonal ones into the planes Z (4, n, d)."""
     blocks = [np.asarray(f[k]) for k in ("Mqq", "Mqp", "Mpq", "Mpp")]
     if blocks[0].ndim == 2:
         Z = np.stack(blocks)
@@ -188,4 +200,5 @@ def traj_state(f, device):
         Z = np.concatenate([np.concatenate(blocks[:2], axis=2),
                             np.concatenate(blocks[2:], axis=2)], axis=1)
     return TrajState(q=_t(f["q"], device), p=_t(f["p"], device),
-                     Z=_t(Z, device), S=_t(f["S"], device))
+                     Z=_t(Z, device), S=_t(f["S"], device),
+                     qc=_t(f.get("qc"), device), pc=_t(f.get("pc"), device))

@@ -52,6 +52,10 @@ __all__ = [
     "pseudo_det",
     "pseudo_logdet",
     "nonzero_subspace",
+    "complex_dtype",
+    "real_dtype",
+    "complex_exp",
+    "phase_exp",
     "logspace_mode_product",
     "batched_det",
     "batched_det_inv",
@@ -128,11 +132,42 @@ def nonzero_subspace(A: np.ndarray, positive_only: bool = True) -> np.ndarray:
     return np.ascontiguousarray(V[:, nz])
 
 
+def complex_dtype(dtype):
+    """The complex dtype of a real one's precision (complex dtypes pass)."""
+    return {torch.float32: torch.complex64,
+            torch.float64: torch.complex128}.get(dtype, dtype)
+
+
+def real_dtype(dtype):
+    """The real dtype of a complex one's precision (real dtypes pass)."""
+    return {torch.complex64: torch.float32,
+            torch.complex128: torch.float64}.get(dtype, dtype)
+
+
+def complex_exp(re, im, cdtype):
+    """exp(re + i im) as `cdtype`: the magnitude exp(re) is taken at re's
+    precision (a float64 exponent keeps its range) and rounded once, the
+    phase at `cdtype`'s."""
+    rd = real_dtype(cdtype)
+    return torch.polar(torch.exp(re).to(rd), im.to(rd))
+
+
+def phase_exp(s, cdtype):
+    """exp(i s) at the precision of `cdtype`, with s reduced mod 2 pi
+    before any down-cast (the action grows to ~1e4 over a run, where a bare
+    float64 -> float32 cast would cost ~1e-3 rad)."""
+    rd = real_dtype(cdtype)
+    if s.dtype != rd:
+        two_pi = 2.0 * np.pi
+        s = (s - two_pi * torch.round(s / two_pi)).to(rd)
+    return torch.polar(torch.ones_like(s), s)
+
+
 def logspace_mode_product(z_re, z_im, dim=1):
     """prod of (z_re + i z_im) over the mode axis `dim`, in log space:
     magnitudes as a sum of logs, phases as a sum of angles — range-safe at
-    any mode count. The determinant of every diagonal-path matrix (the HK
-    prefactor, WM's detA and detM)."""
+    any mode count, at the planes' precision. The determinant of every
+    diagonal-path matrix (the HK prefactor, WM's detA and detM)."""
     log_mag = 0.5 * torch.sum(torch.log(z_re**2 + z_im**2), dim=dim)
     ang = torch.sum(torch.atan2(z_im, z_re), dim=dim)
     return torch.polar(torch.exp(log_mag), ang)

@@ -40,8 +40,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["batched_det", "batched_det_lu_plain", "check_det_args",
-           "det_variant", "launch", "LAUNCHES", "LAYOUT_CODES", "MAX_R",
-           "ROWS_MAX_R"]
+           "det_variant", "dtype_name", "launch", "LAUNCHES",
+           "LAUNCHES_BY_DTYPE", "LAYOUT_CODES", "MAX_R", "ROWS_MAX_R"]
 
 MAX_R = 64
 # the rows kernel takes r <= ROWS_MAX_R (a size per compiled instantiation)
@@ -49,8 +49,10 @@ ROWS_MAX_R = 16
 # the `layout` argument of K1's entry points
 LAYOUT_CODES = {"warp": 0, "rows": 1}
 
-# kernel launches made by `batched_det` (plain Python int; one per launch)
+# kernel launches made by `batched_det` (plain Python int; one per launch),
+# and the same launches by the matrices' dtype name
 LAUNCHES = 0
+LAUNCHES_BY_DTYPE = {"complex128": 0, "complex64": 0}
 
 
 def batched_det_lu_plain(A: torch.Tensor) -> torch.Tensor:
@@ -85,6 +87,12 @@ def batched_det_lu_plain(A: torch.Tensor) -> torch.Tensor:
         a[:, k + 1:, k + 1:, 0] = new_re
         a[:, k + 1:, k + 1:, 1] = new_im
     return torch.complex(det_re, det_im)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """"complex128", "complex64", "float64", ...: the key of the
+    `LAUNCHES_BY_DTYPE` counts."""
+    return str(dtype).removeprefix("torch.")
 
 
 def check_det_args(A: torch.Tensor):
@@ -148,4 +156,5 @@ def batched_det(A: torch.Tensor) -> torch.Tensor:
     out = launch(A, "det_lu", LAYOUT_CODES[det_variant(A.shape[1])])
     if A.shape[0]:
         LAUNCHES += 1
+        LAUNCHES_BY_DTYPE[dtype_name(A.dtype)] += 1
     return out

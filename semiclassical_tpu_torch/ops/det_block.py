@@ -32,12 +32,16 @@ from __future__ import annotations
 import torch
 
 from semiclassical_tpu_torch.ops.det import (MAX_R, batched_det_lu_plain,
-                                             check_det_args, launch)
+                                             check_det_args, dtype_name,
+                                             launch)
 
-__all__ = ["batched_det_block", "batched_det_lu_plain", "LAUNCHES", "MAX_R"]
+__all__ = ["batched_det_block", "batched_det_lu_plain", "LAUNCHES",
+           "LAUNCHES_BY_DTYPE", "MAX_R"]
 
 # kernel launches made by `batched_det_block` (plain Python int)
 LAUNCHES = 0
+# the same launches by the matrices' dtype name
+LAUNCHES_BY_DTYPE = {"complex128": 0, "complex64": 0}
 
 
 def batched_det_block(A: torch.Tensor) -> torch.Tensor:
@@ -56,4 +60,5 @@ def batched_det_block(A: torch.Tensor) -> torch.Tensor:
     out = launch(A, "det_lu_block")
     if A.shape[0]:
         LAUNCHES += 1
+        LAUNCHES_BY_DTYPE[dtype_name(A.dtype)] += 1
     return out

@@ -63,10 +63,13 @@ from typing import NamedTuple
 
 import torch
 
+from semiclassical_tpu_torch.ops.det import dtype_name
+
 __all__ = ["batched_det_solve_gj", "batched_det_inv_gj",
            "batched_det_solve_gj_plain", "batched_det_inv_gj_plain",
            "check_solve_args", "check_inv_args", "solve_variant",
-           "inv_variant", "SolveVariant", "InvVariant", "LAUNCHES", "MAX_M",
+           "inv_variant", "SolveVariant", "InvVariant", "LAUNCHES",
+           "LAUNCHES_BY_DTYPE", "MAX_M",
            "MAX_WIDTH", "WARP_MAX_M", "WARP_MAX_WIDTH", "ROWS_MAX_M"]
 
 MAX_M = 64        # rows (and A columns) a kernel takes
@@ -80,6 +83,9 @@ ROWS_MAX_M = 16
 
 # kernel launches made by the wrappers, per kernel (one per launch)
 LAUNCHES = {"det_solve": 0, "det_inv": 0}
+# the same launches by the matrices' dtype name
+LAUNCHES_BY_DTYPE = {kind: {"complex128": 0, "complex64": 0}
+                     for kind in LAUNCHES}
 
 
 class SolveVariant(NamedTuple):
@@ -292,6 +298,7 @@ def _launch_solve(A, B):
         *solve_variant(m, B.shape[2])[1:])
     _raise_on(err, "det_solve", A)
     LAUNCHES["det_solve"] += 1
+    LAUNCHES_BY_DTYPE["det_solve"][dtype_name(A.dtype)] += 1
     return det, sol
 
 
@@ -308,6 +315,7 @@ def _launch_inv(A):
         inv.data_ptr(), det.data_ptr(), n, m, *inv_variant(m)[1:])
     _raise_on(err, "det_inv", A)
     LAUNCHES["det_inv"] += 1
+    LAUNCHES_BY_DTYPE["det_inv"][dtype_name(A.dtype)] += 1
     return det, inv
 
 

@@ -37,11 +37,13 @@ from __future__ import annotations
 
 import torch
 
+from semiclassical_tpu_torch.ops.det import dtype_name
 from semiclassical_tpu_torch.units import hbar
 
 __all__ = ["wm_diag_derived", "wm_diag_derived_plain", "wm_diag_core_plain",
            "build_const_pack", "scal_col", "check_args", "CONSTS",
-           "GRAM_PAIRS", "N_SCAL", "MAX_D", "LAUNCHES"]
+           "GRAM_PAIRS", "N_SCAL", "MAX_D", "LAUNCHES",
+           "LAUNCHES_BY_DTYPE"]
 
 # rows of the per-mode constant pack (csrc/wm_diag.cu reads them in this
 # order)
@@ -57,8 +59,10 @@ _EXTRA = ("g_DD", "g_Dn", "p0_dQ", "p0_n")
 N_SCAL = 2 * len(GRAM_PAIRS) + len(_EXTRA)  # 30
 MAX_D = 256
 
-# kernel launches made by the wrapper (one per launch)
+# kernel launches made by the wrapper (one per launch), and the same
+# launches by the planes' dtype name
 LAUNCHES = 0
+LAUNCHES_BY_DTYPE = {"float64": 0, "float32": 0}
 
 
 def scal_col(name: str) -> int:
@@ -190,6 +194,7 @@ def _launch(planes, pack):
         raise RuntimeError(f"wm_diag kernel launch failed: CUDA error {err} "
                            f"(n = {n}, d = {d}, {pack.dtype})")
     LAUNCHES += 1
+    LAUNCHES_BY_DTYPE[dtype_name(pack.dtype)] += 1
     return scal, det_planes
 
 

@@ -6,11 +6,14 @@ Both are sums of one-dimensional terms, so the Hessian is diagonal at every
 geometry: `local_expansion` returns a `DiagHessian`, which selects the
 diagonal monodromy representation and its per-mode RK4 map. All methods
 take batches with the trajectory axis leading, q of shape (n, d), and run
-at float64.
+at the parameters' dtype: `local_expansion` casts q to it, so float32
+parameters (the reduced-precision modes) evaluate the PES at float32 under
+float64 trajectories.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from dataclasses import dataclass
 
@@ -24,8 +27,17 @@ logger = logging.getLogger(__name__)
 __all__ = ["NonHarmonicPotential", "MorsePotential"]
 
 
-def _t(x, device):
-    return torch.tensor(np.asarray(x, dtype=np.float64), device=device)
+def _t(x, device, dtype=torch.float64):
+    return torch.tensor(np.asarray(x, dtype=np.float64), device=device,
+                        dtype=dtype)
+
+
+def _cast(potential, dtype):
+    """A copy of `potential` with every tensor field at `dtype`."""
+    return dataclasses.replace(potential, **{
+        f.name: getattr(potential, f.name).to(dtype)
+        for f in dataclasses.fields(potential)
+        if isinstance(getattr(potential, f.name), torch.Tensor)})
 
 
 @dataclass(frozen=True)
@@ -42,9 +54,14 @@ class NonHarmonicPotential:
     b: torch.Tensor    # (d,)
 
     @staticmethod
-    def create(eps=0.975, b=12.0 ** (-0.5), dim=1, device="cuda"):
-        return NonHarmonicPotential(eps=_t(np.full(dim, eps), device),
-                                    b=_t(np.full(dim, b), device))
+    def create(eps=0.975, b=12.0 ** (-0.5), dim=1, device="cuda",
+               dtype=torch.float64):
+        return NonHarmonicPotential(eps=_t(np.full(dim, eps), device, dtype),
+                                    b=_t(np.full(dim, b), device, dtype))
+
+    def to_dtype(self, dtype):
+        """The potential with its parameters at `dtype`."""
+        return _cast(self, dtype)
 
     def dimensions(self) -> int:
         return self.eps.shape[0]
@@ -53,7 +70,9 @@ class NonHarmonicPotential:
         return torch.ones_like(self.eps)
 
     def local_expansion(self, q):
-        """(V (n,), grad (n, d), DiagHessian (n, d)) at positions q (n, d)."""
+        """(V (n,), grad (n, d), DiagHessian (n, d)) at positions q (n, d),
+        at the parameters' dtype."""
+        q = q.to(self.eps.dtype)
         eps, b = self.eps[None, :], self.b[None, :]
         ex = torch.exp(-b * q)
         v = torch.sum(eps / (2 * b**2) * (1.0 - ex) ** 2
@@ -92,7 +111,7 @@ class MorsePotential:
     harmonic: bool       # all chi == 0
 
     @staticmethod
-    def create(omega, chi, nac, device="cuda"):
+    def create(omega, chi, nac, device="cuda", dtype=torch.float64):
         omega = np.asarray(omega, dtype=np.float64)
         chi = np.array(chi, dtype=np.float64, copy=True)
         nac = np.asarray(nac, dtype=np.float64)
@@ -103,13 +122,18 @@ class MorsePotential:
             chi[chi == 0.0] += 1.0e-4
         a = np.sqrt(2 * omega * chi)
         D = np.where(chi > 0, 0.25 * omega / np.where(chi > 0, chi, 1.0), 0.0)
-        return MorsePotential.from_arrays(omega, a, D, nac, harmonic, device)
+        return MorsePotential.from_arrays(omega, a, D, nac, harmonic, device,
+                                          dtype)
 
     @staticmethod
-    def from_arrays(omega, a, D, nac, harmonic, device):
-        return MorsePotential(omega=_t(omega, device), a=_t(a, device),
-                              D=_t(D, device), nac=_t(nac, device),
+    def from_arrays(omega, a, D, nac, harmonic, device, dtype=torch.float64):
+        t = lambda x: _t(x, device, dtype)
+        return MorsePotential(omega=t(omega), a=t(a), D=t(D), nac=t(nac),
                               harmonic=bool(harmonic))
+
+    def to_dtype(self, dtype):
+        """The potential with its parameters at `dtype`."""
+        return _cast(self, dtype)
 
     def dimensions(self) -> int:
         return self.omega.shape[0]
@@ -118,7 +142,9 @@ class MorsePotential:
         return torch.ones_like(self.omega)
 
     def local_expansion(self, q):
-        """(V (n,), grad (n, d), DiagHessian (n, d)) at positions q (n, d)."""
+        """(V (n,), grad (n, d), DiagHessian (n, d)) at positions q (n, d),
+        at the parameters' dtype."""
+        q = q.to(self.omega.dtype)
         if self.harmonic:
             om2 = (self.omega**2)[None, :]
             v = torch.sum(0.5 * om2 * q**2, dim=1)

@@ -40,7 +40,10 @@ class MolecularHarmonicPotential:
         V(r') = V0 + grad0^T (r' - r0) + 1/2 (r' - r0)^T hess0 (r' - r0)
 
     All fields are float64 tensors on one device; `origin` is the energy
-    origin set by `minimize` (a Python float).
+    origin set by `minimize` (a Python float). `contract_dtype` (None or
+    torch.float32) runs the PES contractions at that type while the
+    displacement q - r0 keeps the trajectory precision and the energy
+    offset stays float64: the reduced-precision modes' form of this PES.
     """
 
     pos0: torch.Tensor     # (d,)
@@ -50,6 +53,7 @@ class MolecularHarmonicPotential:
     nac0: torch.Tensor     # (d,)
     mass: torch.Tensor     # (d,)
     origin: float = 0.0
+    contract_dtype: torch.dtype | None = None
 
     @staticmethod
     def from_fchk(freq_fchk, nac_fchk, device):
@@ -62,12 +66,14 @@ class MolecularHarmonicPotential:
             hess0=hess0, nac0=nac0, mass=mass, origin=0.0, device=device)
 
     @staticmethod
-    def from_arrays(pos0, energy0, grad0, hess0, nac0, mass, origin, device):
+    def from_arrays(pos0, energy0, grad0, hess0, nac0, mass, origin, device,
+                    contract_dtype=None):
         t = lambda x: torch.tensor(np.asarray(x, dtype=np.float64),
                                    device=device)
         return MolecularHarmonicPotential(
             pos0=t(pos0), energy0=float(energy0), grad0=t(grad0),
-            hess0=t(hess0), nac0=t(nac0), mass=t(mass), origin=float(origin))
+            hess0=t(hess0), nac0=t(nac0), mass=t(mass), origin=float(origin),
+            contract_dtype=contract_dtype)
 
     @property
     def device(self):
@@ -81,13 +87,28 @@ class MolecularHarmonicPotential:
         return self.origin
 
     def local_expansion(self, q):
-        """(V, grad V, Hessian operator) at the positions q (n, d)."""
-        dr = q - self.pos0[None, :]                          # (n, d)
-        hdr = dr @ self.hess0.T                              # (n, d)
-        expans = dr @ self.grad0 + 0.5 * torch.sum(dr * hdr, dim=1)
-        v = (self.energy0 - self.origin) + expans
-        grad = self.grad0[None, :] + hdr
-        return v, grad, ConstHessian(mat=self.hess0)
+        """(V, grad V, Hessian operator) at the positions q (n, d): the
+        displacement at q's dtype, the contractions at `contract_dtype`
+        (default q's), grad V at q's dtype and V at float64."""
+        dr = q - self.pos0.to(q.dtype)[None, :]              # (n, d)
+        t = self.contract_dtype or dr.dtype
+        drt = dr.to(t)
+        hess, grad0 = self._at(t)
+        hdr = drt @ hess.T                                   # (n, d)
+        expans = drt @ grad0 + 0.5 * torch.sum(drt * hdr, dim=1)
+        v = (self.energy0 - self.origin) + expans.to(q.dtype).to(
+            torch.float64)
+        # hdr (at t, no wider than q's dtype) is widened inside the add
+        grad = self._at(q.dtype)[1][None, :] + hdr
+        return v, grad, ConstHessian(mat=hess)
+
+    def _at(self, dtype):
+        """(hess0, grad0) at `dtype`, cast once per potential object (kept
+        in the instance's own dict: the dataclass is frozen)."""
+        casts = self.__dict__.setdefault("_casts", {})
+        if dtype not in casts:
+            casts[dtype] = (self.hess0.to(dtype), self.grad0.to(dtype))
+        return casts[dtype]
 
     def derivative_coupling_1st(self, q):
         return self.nac0[None, :].expand(q.shape)

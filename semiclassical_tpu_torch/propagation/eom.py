@@ -49,6 +49,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from semiclassical_tpu_torch.potentials.base import (ConstHessian,
@@ -95,19 +96,53 @@ def state_derivative(state: TrajState, potential):
     return dstate, torch.mean(tkin + vpot)
 
 
-def const_step_map(hess: ConstHessian, masses: torch.Tensor, dt: float):
+def _comp_accumulate(x, c, inc):
+    """One Neumaier-compensated accumulation step of the comp32 mode:
+    (x', c') with x' + c' = x + c + inc to about twice the precision of
+    x, c and inc, with arithmetic at their (float32) type only.
+
+    `c` is the running residual (true value = x + c). The residual folds
+    into the increment, then a branch-free exact two-sum (Knuth) splits
+    x + y into the rounded sum and its exact error. Eager PyTorch rounds
+    each operation as written, so the cancellation is not reassociated
+    away."""
+    y = inc + c
+    t = x + y
+    yv = t - x            # the part of y that made it into t
+    xv = t - yv           # the part of x that made it into t
+    r = (x - xv) + (y - yv)
+    return t, r
+
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _at(x, dtype):
+    """The Python float `x` rounded to the real torch `dtype`, as a numpy
+    scalar of that type: arithmetic on it rounds at that type, as the JAX
+    package's step constants do (a float64 step keeps the Python
+    float's values)."""
+    return _NP_DTYPE[dtype](x)
+
+
+def const_step_map(hess: ConstHessian, masses: torch.Tensor, dt: float,
+                   dtype=None):
     """The (2d, 2d) RK4 step map T of the monodromy for a constant Hessian,
-    by Horner's rule on L = [[0, diag(1/m)], [-H, 0]]."""
-    H = hess.mat
+    by Horner's rule on L = [[0, diag(1/m)], [-H, 0]], at `dtype` (the
+    monodromy's; default the Hessian's): the Hessian, 1/m and the step
+    are rounded to it first, and the products run at it."""
+    dtype = hess.mat.dtype if dtype is None else dtype
+    H = hess.mat.to(dtype)
     d = H.shape[0]
-    L = torch.zeros(2 * d, 2 * d, dtype=H.dtype, device=H.device)
-    L[:d, d:] = torch.diag(1.0 / masses)
+    dts = _at(dt, dtype)
+    L = torch.zeros(2 * d, 2 * d, dtype=dtype, device=H.device)
+    L[:d, d:] = torch.diag((1.0 / masses).to(dtype))
     L[d:, :d] = -H
-    eye2 = torch.eye(2 * d, dtype=H.dtype, device=H.device)
-    T = eye2 + (dt / 4.0) * L
-    T = eye2 + (dt / 3.0) * (L @ T)
-    T = eye2 + (dt / 2.0) * (L @ T)
-    return eye2 + dt * (L @ T)
+    eye2 = torch.eye(2 * d, dtype=dtype, device=H.device)
+    T = eye2 + float(dts / 4) * L
+    T = eye2 + float(dts / 3) * (L @ T)
+    T = eye2 + float(dts / 2) * (L @ T)
+    return eye2 + float(dts) * (L @ T)
 
 
 def _hessian_dtype(H):
@@ -125,10 +160,19 @@ def rk4_step(state: TrajState, potential, dt: float, step_map=None):
     not given. The potential's `hessian_eval` (default "stage") selects
     the reduced-cost modes described in the module docstring; a potential
     with a `Tmono` (a `LocalQuadratic` window) steps the monodromy with it.
+
+    Precision: the stage arithmetic runs at the trajectory dtype (q's),
+    with dt and 1/m rounded to it once, and the PES outputs cast to it; the
+    monodromy runs at Z's dtype, with dt, 1/m and the stage Hessians
+    rounded to it. A compensated (comp32) state folds the q and p
+    increments in through `_comp_accumulate`; S keeps its own dtype.
     """
     inv_m = 1.0 / potential.masses()                      # (d,)
     q, p, S = state.q, state.p, state.S
-    half = 0.5 * dt
+    tdt = _at(dt, q.dtype)
+    half = float(_NP_DTYPE[q.dtype](0.5) * tdt)
+    full = float(tdt)
+    inv_m_t = inv_m.to(q.dtype)
     hessian_eval = getattr(potential, "hessian_eval", "stage")
     if hessian_eval not in HESSIAN_EVAL_MODES:
         raise ValueError(f"unknown hessian_eval {hessian_eval!r} "
@@ -145,7 +189,7 @@ def rk4_step(state: TrajState, potential, dt: float, step_map=None):
         # one order-2 evaluation at the free-flight midpoint; the stage
         # forces come from the quadratic expansion there, its corrections
         # (small step-scale quantities) at the Hessian's precision
-        q_mid = q + half * (p * inv_m[None, :])
+        q_mid = q + half * (p * inv_m_t[None, :])
         v_mid, g_mid, H_mid = potential.local_expansion(q_mid)
         cdt = _hessian_dtype(H_mid)
         g_mid_c = g_mid.to(cdt)
@@ -158,8 +202,10 @@ def rk4_step(state: TrajState, potential, dt: float, step_map=None):
             return v, g_mid + hd.to(g_mid.dtype)
 
     def pack(ps, vpot, grad):
-        tkin = 0.5 * torch.sum(ps**2 * inv_m[None, :], dim=1)
-        return (ps * inv_m[None, :], -grad, tkin - vpot), tkin + vpot
+        tkin = 0.5 * torch.sum(ps**2 * inv_m_t[None, :], dim=1)
+        vpot = vpot.to(tkin.dtype)
+        return ((ps * inv_m_t[None, :], -grad.to(p.dtype),
+                 (tkin - vpot).to(S.dtype)), tkin + vpot)
 
     def stage(qs, ps):
         vpot, grad, hess = potential.local_expansion(qs)
@@ -176,44 +222,59 @@ def rk4_step(state: TrajState, potential, dt: float, step_map=None):
         else:
             k2, _, _ = stage_nohess(q + half * k1[0], p + half * k1[1])
         k3, _, _ = stage_nohess(q + half * k2[0], p + half * k2[1])
-        k4, _, _ = stage_nohess(q + dt * k3[0], p + dt * k3[1])
+        k4, _, _ = stage_nohess(q + full * k3[0], p + full * k3[1])
         H1 = H2 = H3 = H4 = H_mid
     else:
         k1, e1, H1 = stage(q, p)
         k2, _, H2 = stage(q + half * k1[0], p + half * k1[1])
         k3, _, H3 = stage(q + half * k2[0], p + half * k2[1])
-        k4, _, H4 = stage(q + dt * k3[0], p + dt * k3[1])
-    sixth = dt / 6.0
-    new_q = q + sixth * (k1[0] + 2.0 * (k2[0] + k3[0]) + k4[0])
-    new_p = p + sixth * (k1[1] + 2.0 * (k2[1] + k3[1]) + k4[1])
+        k4, _, H4 = stage(q + full * k3[0], p + full * k3[1])
+    sixth = float(tdt / _NP_DTYPE[q.dtype](6.0))
+    inc_q = sixth * (k1[0] + 2.0 * (k2[0] + k3[0]) + k4[0])
+    inc_p = sixth * (k1[1] + 2.0 * (k2[1] + k3[1]) + k4[1])
+    if state.compensated:
+        new_q, new_qc = _comp_accumulate(q, state.qc, inc_q)
+        new_p, new_pc = _comp_accumulate(p, state.pc, inc_p)
+    else:
+        new_q, new_p = q + inc_q, p + inc_p
+        new_qc = new_pc = None
     new_S = S + sixth * (k1[2] + 2.0 * (k2[2] + k3[2]) + k4[2])
     hs = (H1, H2, H3, H4)
 
+    mdt = state.Z.dtype
     if state.diag_monodromy:
         if not all(isinstance(H, DiagHessian) for H in hs):
             raise TypeError(
                 "diagonal-monodromy state requires a separable potential "
                 "(DiagHessian local expansions)")
-        new_Z = _diag_step(state.Z, inv_m, tuple(H.diag for H in hs), dt)
+        new_Z = _diag_step(state.Z, inv_m.to(mdt),
+                           tuple(H.diag.to(mdt) for H in hs), dt)
     elif all(isinstance(H, ConstHessian) for H in hs):
         if step_map is None:
-            step_map = const_step_map(H1, potential.masses(), dt)
+            step_map = const_step_map(H1, potential.masses(), dt, mdt)
         new_Z = torch.matmul(step_map, state.Z)
     elif all(isinstance(H, DenseHessian) for H in hs):
         Tw = getattr(potential, "Tmono", None)
         if frozen and Tw is not None:
             # taylor_every window: the degree-4 map of the window Hessian
-            new_Z = torch.matmul(Tw.to(state.Z.dtype), state.Z)
+            new_Z = torch.matmul(Tw.to(mdt), state.Z)
         elif frozen:
-            new_Z = _frozen_step(state, inv_m, H1, dt)
+            new_Z = _frozen_step(state, inv_m.to(mdt), H1, dt)
         else:
-            new_Z = _chain_step(state, inv_m, hs, dt)
+            new_Z = _chain_step(state, inv_m.to(mdt), hs, dt)
     else:
         raise TypeError(
             f"rk4_step steps the dense monodromy under ConstHessian or "
             f"DenseHessian expansions; got "
             f"{', '.join(sorted({type(H).__name__ for H in hs}))}")
-    return (TrajState(q=new_q, p=new_p, Z=new_Z, S=new_S), torch.mean(e1))
+    return (TrajState(q=new_q, p=new_p, Z=new_Z, S=new_S, qc=new_qc,
+                      pc=new_pc), torch.mean(e1))
+
+
+def _horner_steps(dt, dtype):
+    """The Horner coefficients dt/4, dt/3, dt/2, dt at `dtype`."""
+    dts = _at(dt, dtype)
+    return tuple(float(dts / _NP_DTYPE[dtype](k)) for k in (4, 3, 2, 1))
 
 
 def _frozen_step(state, inv_m, H, dt):
@@ -225,12 +286,20 @@ def _frozen_step(state, inv_m, H, dt):
     im = inv_m[None, :, None]
     Mq, Mp = state.Z[:, :d, :], state.Z[:, d:, :]
     Yq, Yp = Mq, Mp
-    for c in (dt / 4.0, dt / 3.0, dt / 2.0, dt):
+    for c in _horner_steps(dt, state.Z.dtype):
         LYq = Yp * im
         LYp = -H.matmul(Yq)
         Yq = Mq + c * LYq
         Yp = Mp + c * LYp
     return torch.cat([Yq, Yp], dim=1)
+
+
+def _rk4_weights(dt, dtype):
+    """(dt/6, dt/3, dt/2, dt) at `dtype`."""
+    dts = _at(dt, dtype)
+    f = _NP_DTYPE[dtype]
+    return (float(dts / f(6.0)), float(dts / f(3.0)), float(dts / f(2.0)),
+            float(dts))
 
 
 def _chain_step(state, inv_m, hs, dt):
@@ -239,7 +308,7 @@ def _chain_step(state, inv_m, hs, dt):
     [Mpq | Mpp]) (the two pairs are independent columns of one system)."""
     d = state.dim
     im = inv_m[None, :, None]
-    h6, h3, h2 = dt / 6.0, dt / 3.0, dt / 2.0
+    h6, h3, h2, dt = _rk4_weights(dt, state.Z.dtype)
     Ma, Mb = state.Z[:, :d, :], state.Z[:, d:, :]
     ka = Mb * im
     kb = -hs[0].matmul(Ma)
@@ -269,9 +338,9 @@ def _diag_step(Z, inv_m, hs, dt):
     stage Hessian diagonals `hs` (four (n, d) tensors): the per-mode 2x2
     row map of the stage recurrence, run on the seeds (1, 0) and (0, 1) at
     once (a leading axis of 2), then applied to the (q-row, p-row) pairs
-    (Mqq, Mpq) and (Mqp, Mpp)."""
+    (Mqq, Mpq) and (Mqp, Mpp). Everything runs at Z's dtype."""
     u = inv_m[None, None, :]
-    h6, h3, h2 = dt / 6.0, dt / 3.0, dt / 2.0
+    h6, h3, h2, dt = _rk4_weights(dt, Z.dtype)
     a = torch.tensor([1.0, 0.0], dtype=Z.dtype, device=Z.device).view(2, 1, 1)
     b = torch.tensor([0.0, 1.0], dtype=Z.dtype, device=Z.device).view(2, 1, 1)
     ka = u * b
@@ -365,7 +434,7 @@ def _window_mono_map(Hw, inv_m, dt, mdt):
     eyep = eye[d:].expand(n, d, 2 * d)
     Hm = Hw.to(mdt)
     Yq, Yp = eyeq, eyep
-    for c in (dt / 4.0, dt / 3.0, dt / 2.0, dt):
+    for c in _horner_steps(dt, mdt):
         LYq = Yp * im
         LYp = -torch.matmul(Hm, Yq)
         Yq = eyeq + c * LYq
@@ -388,7 +457,10 @@ def make_taylor_window(potential, dt, every):
 
     def expand(state):
         q, p = state.q, state.p
-        qp = q + (0.5 * every * dt) * (p * inv_m[None, :])
+        if state.compensated:
+            q, p = q + state.qc, p + state.pc
+        half_window = float(_NP_DTYPE[q.dtype](0.5 * every) * _at(dt, q.dtype))
+        qp = q + half_window * (p * inv_m.to(q.dtype)[None, :])
         v0, g0, H = potential.local_expansion(qp)
         if isinstance(H, DiagHessian):
             Hw, Tw = H.diag, None

@@ -20,9 +20,12 @@ block identity gives in closed form: DeltaS = 1/2 zeta^T W zeta.
 T, w and W are built once on the host in float64 (`scipy.linalg.expm`);
 the step is the increment z' = z + (T - I) z + w (one (n, 2d) @ (2d, 2d)
 product), the action 1/2 z.Wzz z + wz.z + 1/2 w11, and the monodromy one
-product T @ Z on the stacked blocks Z (n, 2d, 2d). Everything runs at
-float64: there is no time-discretization error at any dt and no drift of
-the energy.
+product T @ Z on the stacked blocks Z (n, 2d, 2d). The increment, the
+action's quadratic form and the monodromy product run at the monodromy's
+dtype (float32 under the "mixed" mode, as in the JAX package: the entries
+of T - I are O(omega dt), so the rounding costs eps |omega dt z| a step),
+the action's linear and constant anchors at float64. At float64 there is
+no time-discretization error at any dt and no drift of the energy.
 """
 
 from __future__ import annotations
@@ -40,13 +43,14 @@ __all__ = ["HarmonicMap", "build_harmonic_map", "harmonic_step",
 
 @dataclass(frozen=True)
 class HarmonicMap:
-    """The constants of the exact step of a quadratic PES (float64)."""
+    """The constants of the exact step of a quadratic PES: dT, w, T and
+    Wzz at the monodromy's dtype, wz, w11 and pos0 at float64."""
 
     dT: torch.Tensor     # (2d, 2d) expm(L dt) - I
     w: torch.Tensor      # (2d,) affine drift
     T: torch.Tensor      # (2d, 2d) expm(L dt), the monodromy step
     Wzz: torch.Tensor    # (2d, 2d) action quadratic form
-    wz: torch.Tensor     # (2d,) action linear form
+    wz: torch.Tensor     # (2d,) action linear form (float64)
     w11: float           # action constant
     pos0: torch.Tensor   # (d,) expansion center
 
@@ -60,7 +64,8 @@ def supports_exact_harmonic(potential) -> bool:
 
 def build_harmonic_map(potential, dt, state: TrajState) -> HarmonicMap:
     """The exact-step constants on the host in float64, moved to the
-    potential's device. `state` must be in the dense representation."""
+    potential's device (the monodromy-side ones at `state`'s monodromy
+    dtype). `state` must be in the dense representation."""
     import scipy.linalg as sla
 
     if not supports_exact_harmonic(potential):
@@ -105,10 +110,13 @@ def build_harmonic_map(potential, dt, state: TrajState) -> HarmonicMap:
     W = F2.T @ sla.expm(dt * C)[:n, n:]
     W = 0.5 * (W + W.T)
 
-    t = lambda x: torch.tensor(np.ascontiguousarray(x), dtype=torch.float64,
-                               device=potential.hess0.device)
+    mdt = state.Z.dtype
+    t = lambda x, dtype=mdt: torch.tensor(np.ascontiguousarray(x),
+                                          dtype=dtype,
+                                          device=potential.hess0.device)
     return HarmonicMap(dT=t(T - np.eye(2 * d)), w=t(w), T=t(T),
-                       Wzz=t(W[:2 * d, :2 * d]), wz=t(W[:2 * d, 2 * d]),
+                       Wzz=t(W[:2 * d, :2 * d]),
+                       wz=t(W[:2 * d, 2 * d], torch.float64),
                        w11=float(W[2 * d, 2 * d]),
                        pos0=potential.pos0.to(torch.float64))
 
@@ -118,17 +126,19 @@ def harmonic_step(hmap: HarmonicMap, state: TrajState, potential):
     the contract of `eom.rk4_step`."""
     q, p = state.q, state.p
     d = state.dim
-    z = torch.cat([q - hmap.pos0[None, :], p], dim=1)            # (n, 2d)
+    z = torch.cat([q - hmap.pos0.to(q.dtype)[None, :], p], dim=1)  # (n, 2d)
 
     # the energy guard reads <T + V> at the step start
-    inv_m = 1.0 / potential.masses()
+    inv_m = (1.0 / potential.masses()).to(q.dtype)
     tkin = 0.5 * torch.sum(p * p * inv_m[None, :], dim=1)
     vpot = potential.local_expansion(q)[0]
-    mean_energy = torch.mean(tkin + vpot)
+    mean_energy = torch.mean(tkin + vpot.to(tkin.dtype))
 
-    inc = torch.addmm(hmap.w[None, :], z, hmap.dT.T)              # (n, 2d)
-    ds = (0.5 * torch.sum(z * (z @ hmap.Wzz.T), dim=1) + z @ hmap.wz
-          + 0.5 * hmap.w11)
+    zc = z.to(hmap.dT.dtype)
+    inc = torch.addmm(hmap.w[None, :], zc, hmap.dT.T).to(q.dtype)  # (n, 2d)
+    ds = (0.5 * torch.sum(zc * (zc @ hmap.Wzz.T), dim=1).to(torch.float64)
+          + z.to(torch.float64) @ hmap.wz + 0.5 * hmap.w11)
     new_state = TrajState(q=q + inc[:, :d], p=p + inc[:, d:],
-                          Z=torch.matmul(hmap.T, state.Z), S=state.S + ds)
+                          Z=torch.matmul(hmap.T, state.Z),
+                          S=state.S + ds.to(state.S.dtype))
     return new_state, mean_energy

@@ -89,6 +89,7 @@ class MorseMapPack:
     m0: torch.Tensor | None = None   # (4, n, d) setup-time monodromy, or None
                                      # at the identity
     sub_idx: torch.Tensor | None = None  # (n_bad,) rows of the side-channel
+    mono_dtype: torch.dtype = torch.float64  # the state's monodromy dtype
 
 
 @dataclass(frozen=True)
@@ -203,8 +204,10 @@ def build_morse_map(state: TrajState, potential, dt):
     if not np.allclose(potential.masses().cpu().numpy(), 1.0):
         raise ValueError("the exact Morse map assumes unit masses")
 
-    consts, th0, e_row, eps = _setup(state.q, state.p, state.S, potential.a,
-                                     potential.D, float(dt))
+    f64 = torch.float64
+    a, D = potential.a.to(f64), potential.D.to(f64)
+    consts, th0, e_row, eps = _setup(state.q.to(f64), state.p.to(f64),
+                                     state.S.to(f64), a, D, float(dt))
     n = state.q.shape[0]
     # ~all(<=) rather than any(>): NaN rows are routed too, where RK4
     # carries the NaN into the energies and the energy guard raises, as
@@ -227,20 +230,21 @@ def build_morse_map(state: TrajState, potential, dt):
     Z = state.Z
     identity = bool(torch.all((Z[0] == 1.0) & (Z[3] == 1.0) & (Z[1] == 0.0)
                               & (Z[2] == 0.0)))
-    inv_a = 1.0 / potential.a
+    inv_a = 1.0 / a
     pack = MorseMapPack(
         **consts, inv_a=inv_a, c12a=0.5 * inv_a,
-        pc1=2.0 * potential.D / (potential.a * torch.sqrt(2.0 * potential.D)),
+        pc1=2.0 * D / (a * torch.sqrt(2.0 * D)),
         e_bound_sum=torch.sum(torch.where(bad_row, 0.0, e_row)),
-        m0=None if identity else Z, sub_idx=sub_idx)
+        m0=None if identity else Z, sub_idx=sub_idx, mono_dtype=Z.dtype)
     return pack, MorseMapCarry(th=th0, thc=torch.zeros_like(th0), t_rel=0.0,
                                sub=sub)
 
 
 def morse_map_state(pack: MorseMapPack, carry: MorseMapCarry) -> TrajState:
     """The state at the carry's phase and time: q, p, the monodromy planes
-    (composed with M0 where the setup state was not at the identity) and S,
-    with the side-channel rows scattered in."""
+    (composed with M0 where the setup state was not at the identity, then
+    cast to the state's monodromy dtype) and S, with the side-channel rows
+    scattered in."""
     th, thc = carry.th, carry.thc
     sn0, cs0 = torch.sin(th), torch.cos(th)
     # first-order residual correction: sin/cos at th + thc
@@ -269,7 +273,7 @@ def morse_map_state(pack: MorseMapPack, carry: MorseMapCarry) -> TrajState:
     g = 2.0 * torch.atan2(pack.beta * sn, 1.0 - pack.beta * cs)
     P = pack.pc1[None, :] * g + pack.pc2 * sn * r
     S = pack.S_base + pack.A * carry.t_rel + torch.sum(P, dim=1)
-    Z = torch.stack([mqq, mqp, mpq, mpp])
+    Z = torch.stack([mqq, mqp, mpq, mpp]).to(pack.mono_dtype)
     if carry.sub is not None:
         idx, sub = pack.sub_idx, carry.sub
         q.index_copy_(0, idx, sub.q)

@@ -40,7 +40,15 @@ The port of `semiclassical_tpu.propagation.hk` on two paths:
   `coefficients`, `norm`, `wavefunction`, ...) works on the current state;
   the O(n^2) norm is a loop over block pairs on the device with one host
   read (`blocked_pair_sum`, `subsampled_pair_sum`), its block size chosen
-  from a memory budget (`pair_block`).
+  from a memory budget (`pair_block`);
+* the precision modes of the JAX package: `dtype` is the precision of the
+  parameter packs, the monodromy and every complex quantity (float32 /
+  complex64 in the reduced modes, so K1-K4 run at complex64), and
+  `traj_dtype` that of q, p and S (float64 under "mixed", float32 under
+  "f32", or "comp32": float32 q and p with float32 Neumaier residuals and
+  a float64 S). The displacements of the observables are taken at the
+  trajectory precision (the comp32 residuals folded in) before their
+  quadratic forms run at `dtype`.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ import torch
 from semiclassical_tpu_torch import linalg
 from semiclassical_tpu_torch.coherent import (OverlapParams,
                                               WavefunctionParams,
+                                              overlap_exponent_displaced,
                                               overlap_exponent_matrix,
                                               overlap_exponent_vector,
                                               overlap_matrix, overlap_vector,
@@ -148,17 +157,35 @@ class HKParams:
     # the norm and the grid wavefunction
     csott: OverlapParams | None = None      # <.,Gt | .,Gt>
     wf: WavefunctionParams | None = None    # Gamma_t
+    # comp32: the float32 residuals of q0 and p0 (true center q0 + q0c)
+    q0c: torch.Tensor | None = None
+    p0c: torch.Tensor | None = None
 
     @property
     def factors_diag(self):
         return self.diag_K is not None
 
+    @property
+    def dtype(self):
+        """The real dtype of the packs and the monodromy algebra."""
+        return self.left.dtype
+
+    @property
+    def cdtype(self):
+        """The complex dtype of the prefactor and the observables."""
+        return linalg.complex_dtype(self.left.dtype)
+
     @staticmethod
     def from_factors(Lt_s, Lt_i, Ri_s, Ri_i, q0, p0, G0, iGi0, R,
-                     csoi0, csot0, device, diag=None, csott=None, wf=None):
-        """Pack the complex factors (host numpy) for the device. The
-        separable-path fields diag_k, R_diag and shift_diag are derived
-        here unless given (as the dict `diag`)."""
+                     csoi0, csot0, device, diag=None, csott=None, wf=None,
+                     dtype=torch.float64, traj_dtype=None, q0c=None,
+                     p0c=None):
+        """Pack the complex factors (host numpy) for the device: the
+        factors and the NAC constants (R, shift and their diagonals) at
+        `dtype`, the center q0, p0 at `traj_dtype` (default `dtype`), the
+        comp32 residuals q0c, p0c at float32. The separable-path fields
+        diag_k, R_diag and shift_diag are derived here unless given (as
+        the dict `diag`)."""
         Lt_s, Lt_i = np.asarray(Lt_s), np.asarray(Lt_i)      # (r, d)
         Ri_s, Ri_i = np.asarray(Ri_s), np.asarray(Ri_i)      # (d, r)
         r, d = Lt_s.shape
@@ -167,8 +194,10 @@ class HKParams:
         lint[1::2, d:] = Lt_i
         rst = 0.5 * np.concatenate([Ri_i, -1j * hbar * Ri_s,
                                     (1j / hbar) * Ri_i, Ri_s], axis=0)
-        t = lambda x: None if x is None else torch.tensor(
-            np.asarray(x, dtype=np.float64), device=device)
+        traj_dtype = dtype if traj_dtype is None else traj_dtype
+        t = lambda x, dt=dtype: None if x is None else torch.tensor(
+            np.asarray(x, dtype=np.float64), device=device, dtype=dt)
+        g = lambda x: t(x, traj_dtype)
         G0 = np.asarray(G0, dtype=np.float64)
         iGi0 = np.asarray(iGi0, dtype=np.float64)
         shift = (G0 @ iGi0).T
@@ -180,10 +209,12 @@ class HKParams:
         return HKParams(
             left=t(np.concatenate([lint.real, lint.imag], axis=0)),
             right=t(np.concatenate([rst.real, rst.imag], axis=1)),
-            q0=t(q0), p0=t(p0), R=t(R), shift=t(shift),
+            q0=g(q0), p0=g(p0), R=t(R), shift=t(shift),
             csoi0=csoi0, csot0=csot0, dim=int(d), rank=int(r),
-            diag_K=t(diag_K), **{k: t(v) for k, v in diag.items()},
-            csott=csott, wf=wf)
+            diag_K=t(diag_K), diag_k=t(diag["diag_k"]),
+            R_diag=t(diag["R_diag"]), shift_diag=t(diag["shift_diag"]),
+            csott=csott, wf=wf, q0c=t(q0c, torch.float32),
+            p0c=t(p0c, torch.float32))
 
 
 def _is_diag(M):
@@ -210,9 +241,24 @@ def _diag_factors(Lt_s, Lt_i, Ri_s, Ri_i):
     return K, np.stack([k[np.arange(d), perm] for k, perm in zip(K, perms)])
 
 
-def build_hk_params(Gamma_i, Gamma_t, Gamma_0, q0, p0, U, iGi0, device):
+def _residual32(x):
+    """The float32 residual of a float64 array: x - float32(x)."""
+    x = np.asarray(x, dtype=np.float64)
+    return x - x.astype(np.float32).astype(np.float64)
+
+
+def build_hk_params(Gamma_i, Gamma_t, Gamma_0, q0, p0, U, iGi0, device,
+                    dtype=torch.float64, traj_dtype=None):
     """HKParams from the width matrices, the wavepacket center and the
-    sampling subspace U (d, r) / pseudo-inverse iGi0 (host numpy)."""
+    sampling subspace U (d, r) / pseudo-inverse iGi0 (host numpy).
+
+    `dtype` is the precision of the factors, the overlap exponents and
+    every complex output; `traj_dtype` (default `dtype`) that of the
+    center q0, p0, which enters differences with the trajectory state, or
+    "comp32": a float32 center with its float32 residuals q0c, p0c."""
+    compensated = traj_dtype == "comp32"
+    if compensated:
+        traj_dtype = torch.float32
     Gamma_i = np.asarray(Gamma_i, dtype=np.float64)
     Gamma_t = np.asarray(Gamma_t, dtype=np.float64)
     Gamma_0 = np.asarray(Gamma_0, dtype=np.float64)
@@ -223,11 +269,14 @@ def build_hk_params(Gamma_i, Gamma_t, Gamma_0, q0, p0, U, iGi0, device):
         Lt_s=Uc.T @ sqGt, Lt_i=Uc.T @ isqGt, Ri_s=sqGi @ Uc,
         Ri_i=isqGi @ Uc, q0=q0, p0=p0, G0=Gamma_0, iGi0=iGi0,
         R=Gamma_0 @ iGi0 @ Gamma_i,
-        csoi0=OverlapParams.create(Gamma_i, Gamma_0, device),
-        csot0=OverlapParams.create(Gamma_t, Gamma_0, device),
+        csoi0=OverlapParams.create(Gamma_i, Gamma_0, device, dtype),
+        csot0=OverlapParams.create(Gamma_t, Gamma_0, device, dtype),
         device=device,
-        csott=OverlapParams.create(Gamma_t, Gamma_t, device),
-        wf=WavefunctionParams.create(Gamma_t, device))
+        csott=OverlapParams.create(Gamma_t, Gamma_t, device, dtype),
+        wf=WavefunctionParams.create(Gamma_t, device, dtype),
+        dtype=dtype, traj_dtype=traj_dtype,
+        q0c=_residual32(q0) if compensated else None,
+        p0c=_residual32(p0) if compensated else None)
 
 
 @dataclass(frozen=True)
@@ -277,7 +326,7 @@ def hk_prefactor_mat(params: HKParams, state: TrajState):
     expanded to its dense blocks first."""
     n = state.q.shape[0]
     r, d = params.rank, params.dim
-    W = torch.matmul(params.left, state.dense_Z())          # (n, 4r, 2d)
+    W = torch.matmul(params.left, state.dense_Z().to(params.dtype))
     X = torch.matmul(W.view(n, 2, r, 4 * d), params.right)  # (n, 2, r, 2r)
     return torch.complex(X[:, 0, :, :r] - X[:, 1, :, r:],
                          X[:, 0, :, r:] + X[:, 1, :, :r])
@@ -291,7 +340,7 @@ def hk_prefactor_det(params: HKParams, state: TrajState):
     and its determinant a log-space product over modes; otherwise the
     batched determinant (the CUDA kernel K1 on the card)."""
     if params.factors_diag and state.diag_monodromy:
-        mqq, mqp, mpq, mpp = state.Z
+        mqq, mqp, mpq, mpp = state.Z.to(params.dtype)
         if params.diag_k is not None:
             ka, kb, kc, ke = params.diag_k
             diag_re = 0.5 * (mqq * ka + mpp * kc)
@@ -309,53 +358,73 @@ def _quad(x, A, y):
     return torch.sum((x @ A) * y, dim=-1)
 
 
-def _nac_factor(params: HKParams, potential, x, pvec, sign):
+def _nac_factor(params: HKParams, potential, x, pvec, sign, xc=None):
     """The NAC factor entering k~ic:
 
     nac = n2 + (q0 - x)^T R n1 + sign * i/hbar pvec . n1
     with n1 = -hbar^2 tau1/m, n2 = -hbar^2/2 sum_k tau2_k/m_k.
     sign = +1 at the initial point (q), -1 at the current point (Q).
+    The difference q0 - x runs at trajectory precision (`xc` is the comp32
+    residual of x, if any), the contractions at the pack's dtype.
     """
+    t = params.dtype
     inv_m = 1.0 / potential.masses()
     tau1 = potential.derivative_coupling_1st(x)
     tau2 = potential.derivative_coupling_2nd(x)
-    n1 = -(hbar**2) * tau1 * inv_m[None, :]                 # (n, d)
-    n2 = -(hbar**2) * 0.5 * torch.sum(tau2 * inv_m[None, :], dim=1)
-    dq = params.q0[None, :] - x
+    n1 = (-(hbar**2) * tau1 * inv_m[None, :]).to(t)         # (n, d)
+    n2 = (-(hbar**2) * 0.5 * torch.sum(tau2 * inv_m[None, :], dim=1)).to(t)
+    dq = params.q0[None, :] - x.to(params.q0.dtype)
+    if xc is not None and params.q0c is not None:
+        dq = dq + (params.q0c - xc)
+    dq = dq.to(t)
     if params.R_diag is not None:
         core = n2 + torch.sum(dq * params.R_diag * n1, dim=1)
     else:
         core = n2 + _quad(dq, params.R, n1)
-    return torch.complex(core, (sign / hbar) * torch.sum(pvec * n1, dim=1))
+    return torch.complex(core,
+                         (sign / hbar) * torch.sum(pvec.to(t) * n1, dim=1))
 
 
-def _shifted_momentum(params: HKParams, p):
-    """p0 + Gamma_0 [Gi+G0]^{-1} (p - p0)."""
-    dp = p - params.p0[None, :]
+def _shifted_momentum(params: HKParams, p, pc=None):
+    """p0 + Gamma_0 [Gi+G0]^{-1} (p - p0): the difference at trajectory
+    precision (`pc` is the comp32 residual of p, if any), the contraction
+    at the pack's dtype."""
+    t = params.dtype
+    dp = p.to(params.p0.dtype) - params.p0[None, :]
+    if pc is not None and params.p0c is not None:
+        dp = dp + (pc - params.p0c)
+    dp = dp.to(t)
+    p0 = params.p0.to(t)[None, :]
     if params.shift_diag is not None:
-        return params.p0[None, :] + dp * params.shift_diag
-    return params.p0[None, :] + dp @ params.shift
+        return p0 + dp * params.shift_diag
+    return p0 + dp @ params.shift
 
 
 def hk_batch_constants(params: HKParams, qi, pi, log_prob,
                        potential) -> BatchConstants:
-    """Precompute everything that depends only on the initial conditions.
-    Reads one scalar (the weight scale) back to the host."""
+    """Precompute everything that depends only on the initial conditions
+    (qi, pi at the sampling precision: float64 under comp32). Reads one
+    scalar (the weight scale) back to the host."""
     n = qi.shape[0]
     logw = -(float(np.log(n)) + log_prob
              + params.dim * float(np.log(2.0 * np.pi * hbar)))
     log_scale = torch.mean(logw)
-    logw_norm = logw - log_scale
-    vi = overlap_vector(params.csoi0, qi, pi, params.q0, params.p0)
+    logw_norm = (logw - log_scale).to(qi.dtype)
+    # comp32 keeps the center split as float32 + residual; these one-time
+    # constants take the full-precision center
+    q0, p0 = params.q0.to(qi.dtype), params.p0.to(pi.dtype)
+    if params.q0c is not None:
+        q0, p0 = q0 + params.q0c.to(qi.dtype), p0 + params.p0c.to(pi.dtype)
+    vi = overlap_vector(params.csoi0, qi, pi, q0, p0)
     # exponent parts of the *weighted* initial overlap: for trajectories far
     # in the tail, vi underflows while weight * vi is O(1/n) — the product
     # must live as a single fused exponent
-    re_i, im_i = overlap_exponent_vector(params.csoi0, qi, pi,
-                                         params.q0, params.p0)
+    re_i, im_i = overlap_exponent_vector(params.csoi0, qi, pi, q0, p0)
     nacq = _nac_factor(params, potential, qi, _shifted_momentum(params, pi),
                        +1.0)
     return BatchConstants(qi=qi, pi=pi, log_prob=log_prob,
-                          weight=torch.exp(logw_norm), logw_norm=logw_norm,
+                          weight=torch.exp(logw_norm).to(params.dtype),
+                          logw_norm=logw_norm,
                           log_weight_scale=float(log_scale), vi=vi,
                           obs_re=re_i + logw_norm, obs_im=im_i, nacq=nacq)
 
@@ -365,13 +434,21 @@ def hk_autocorr_qp(params: HKParams, bc: BatchConstants, state: TrajState,
     """Per-trajectory *weighted* contribution to the autocorrelation
     function. The weight, both overlap exponents and the action phase are
     combined into one exponent before exponentiating, so tail trajectories
-    whose raw overlap underflows still contribute exactly."""
-    re_t, im_t = overlap_exponent_vector(params.csot0, state.q, state.p,
-                                         params.q0, params.p0)
+    whose raw overlap underflows still contribute exactly. Under comp32 the
+    residuals of the state and the center fold into the displacements."""
+    if state.compensated:
+        dq = (params.q0[None, :] - state.q) + (params.q0c - state.qc)
+        dp = (params.p0[None, :] - state.p) + (params.p0c - state.pc)
+        re_t, im_t = overlap_exponent_displaced(params.csot0, dq, dp,
+                                                params.p0)
+    else:
+        re_t, im_t = overlap_exponent_vector(params.csot0, state.q, state.p,
+                                             params.q0, params.p0)
     total_re = re_t + bc.obs_re
-    total_im = (bc.obs_im - im_t) + state.S / hbar
+    total_im = (bc.obs_im - im_t) + state.S.to(re_t.dtype) / hbar
     fac = params.csot0.fac.conjugate() * params.csoi0.fac
-    return fac * c_signed * torch.polar(torch.exp(total_re), total_im)
+    return fac * c_signed * linalg.complex_exp(total_re, total_im,
+                                               c_signed.dtype)
 
 
 def hk_observables_qp(params: HKParams, bc: BatchConstants,
@@ -380,7 +457,8 @@ def hk_observables_qp(params: HKParams, bc: BatchConstants,
     each, whose batch sums are C_auto(t) and k~ic(t)."""
     cauto_qp = hk_autocorr_qp(params, bc, state, c_signed)
     nacQ = _nac_factor(params, potential, state.q,
-                       _shifted_momentum(params, state.p), -1.0)
+                       _shifted_momentum(params, state.p, state.pc), -1.0,
+                       xc=state.qc)
     return cauto_qp, (1.0 / hbar**2) * nacQ * bc.nacq * cauto_qp
 
 
@@ -400,11 +478,13 @@ def second_moment(x_qp, mode=True):
     `mode` True treats every trajectory as a sample; "pairs" (antithetic
     sampling) first folds each interleaved +-pair into one sample — its
     members are anticorrelated by construction, so the i.i.d. formula over
-    single trajectories would misstate the error. At float64 the plain sum
-    is safe: |x_i| ~ 1e-23 at 60 modes, its square far above the range
-    floor (the JAX package's factored (max, sum) form guards float32)."""
+    single trajectories would misstate the error. The terms are squared at
+    float64: |x_i| ~ 1e-23 at 60 modes, whose square underflows float32
+    but sits far above float64's range floor (the JAX package factors the
+    magnitude out of a float32 sum instead)."""
     if mode == "pairs":
         x_qp = x_qp.view(-1, 2).sum(dim=1)
+    x_qp = x_qp.to(torch.complex128)
     return torch.sum(x_qp.real**2 + x_qp.imag**2)
 
 
@@ -419,7 +499,7 @@ def hk_coefficients(params: HKParams, bc: BatchConstants, state: TrajState,
                     c_signed):
     """Expansion coefficients v_i of the HK wavefunction in the
     coherent-state basis, without the weight scale."""
-    return (c_signed * torch.polar(torch.ones_like(state.S), state.S / hbar)
+    return (c_signed * linalg.phase_exp(state.S / hbar, c_signed.dtype)
             * bc.vi * bc.weight)
 
 
@@ -429,11 +509,12 @@ def hk_log_coefficients(params: HKParams, bc: BatchConstants,
     (log |v_i|, arg v_i): the range-safe form of `hk_coefficients` (the
     normalised weights alone span exp(+-O(100)) at many modes, while the
     combined exponent stays O(-log n) for every contributing trajectory)."""
+    f64 = torch.float64
     fac = params.csoi0.fac
-    log_re = (torch.log(torch.abs(c_signed)) + bc.obs_re
+    log_re = (torch.log(torch.abs(c_signed)).to(f64) + bc.obs_re.to(f64)
               + float(np.log(abs(fac))) + bc.log_weight_scale)
-    log_im = (torch.angle(c_signed) + state.S / hbar + bc.obs_im
-              + float(np.angle(fac)))
+    log_im = (torch.angle(c_signed).to(f64) + state.S.to(f64) / hbar
+              + bc.obs_im.to(f64) + float(np.angle(fac)))
     return log_re, log_im
 
 
@@ -565,12 +646,15 @@ def _hk_norm_block_term(ov, qi, pi, vi, qj, pj, vj):
 def _hk_norm_log_block_term(ov, qi, pi, lri, lii, qj, pj, lrj, lij):
     """conj(v_i) <g_i|g_j> v_j of one block pair, each entry assembled as
     ONE exponent (log-coefficients + pair-overlap exponent + log fac):
-    finite wherever the true pair term is."""
+    finite wherever the true pair term is; at the pack's dtype."""
     re, im = overlap_exponent_matrix(ov, qi, pi, qj, pj)
-    total_re = (lri[:, None] + lrj[None, :] + re
+    rd = re.dtype
+    total_re = (lri.to(rd)[:, None] + lrj.to(rd)[None, :] + re
                 + float(np.log(abs(ov.fac))))
-    total_im = -lii[:, None] + lij[None, :] + im + float(np.angle(ov.fac))
-    return torch.sum(torch.polar(torch.exp(total_re), total_im))
+    total_im = (-lii.to(rd)[:, None] + lij.to(rd)[None, :] + im
+                + float(np.angle(ov.fac)))
+    return torch.sum(linalg.complex_exp(total_re, total_im,
+                                        linalg.complex_dtype(rd)))
 
 
 def pairwise_norm(ov: OverlapParams, q, p, v, block=None):
@@ -613,7 +697,9 @@ def _batch_rows(obj, a, b):
     scalars kept. The slices are views."""
     if isinstance(obj, TrajState):
         Z = obj.Z[:, a:b] if obj.diag_monodromy else obj.Z[a:b]
-        return TrajState(q=obj.q[a:b], p=obj.p[a:b], Z=Z, S=obj.S[a:b])
+        rows = lambda x: None if x is None else x[a:b]
+        return TrajState(q=obj.q[a:b], p=obj.p[a:b], Z=Z, S=obj.S[a:b],
+                         qc=rows(obj.qc), pc=rows(obj.pc))
     fields = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
@@ -630,10 +716,11 @@ def _cat_batches(parts):
     first = parts[0]
     if isinstance(first, TrajState):
         dim = 1 if first.diag_monodromy else 0
-        return TrajState(q=torch.cat([x.q for x in parts]),
-                         p=torch.cat([x.p for x in parts]),
+        cat = lambda name: (None if getattr(first, name) is None else
+                            torch.cat([getattr(x, name) for x in parts]))
+        return TrajState(q=cat("q"), p=cat("p"),
                          Z=torch.cat([x.Z for x in parts], dim=dim),
-                         S=torch.cat([x.S for x in parts]))
+                         S=cat("S"), qc=cat("qc"), pc=cat("pc"))
     fields = {}
     for f in dataclasses.fields(first):
         v = getattr(first, f.name)
@@ -694,12 +781,39 @@ class HermanKlukPropagator:
     time-discretization error at any dt: the affine map of a
     constant-Hessian molecular PES, or the closed-form map of a
     non-harmonic separable Morse PES with its RK4 side-channel).
+
+    `dtype` (torch.float64 or torch.float32) is the precision of the
+    parameter packs, the monodromy and all complex algebra (complex128 or
+    complex64); `traj_dtype` that of q, p and S (default `dtype`), or
+    "comp32": float32 q and p with float32 Neumaier residuals, float64 S
+    and float64 sampling, which requires `dtype` float32. The JAX
+    package's modes: "f64" (float64, float64), "mixed" (float32, float64),
+    "comp32" (float32, "comp32"), "f32" (float32, float32).
     """
 
-    def __init__(self, Gamma_i, Gamma_t, device, integrator="rk4"):
+    def __init__(self, Gamma_i, Gamma_t, device, integrator="rk4",
+                 dtype=torch.float64, traj_dtype=None):
         if integrator not in ("rk4", "exact"):
             raise ValueError(f"unknown integrator {integrator!r} "
                              "(expected 'rk4' or 'exact')")
+        traj_dtype = dtype if traj_dtype is None else traj_dtype
+        reals = (torch.float32, torch.float64)
+        if dtype not in reals or traj_dtype not in (*reals, "comp32"):
+            raise ValueError(
+                f"dtype must be torch.float32 or torch.float64 and "
+                f"traj_dtype one of them or 'comp32', got {dtype} and "
+                f"{traj_dtype}")
+        if traj_dtype == "comp32" and dtype != torch.float32:
+            raise ValueError("comp32 trajectories require dtype=float32")
+        if integrator == "exact" and traj_dtype != torch.float64:
+            # the JAX package runs its maps on float32 trajectories with
+            # float64 constants split hi/lo; the port does not (yet)
+            raise ValueError(
+                f"integrator 'exact' with traj_dtype {traj_dtype} is not "
+                "ported (the exact maps take float64 trajectories: the "
+                "'f64' and 'mixed' modes)")
+        self.dtype = dtype
+        self.traj_dtype = traj_dtype
         self.integrator = integrator
         self._invalidate_map()
         Gamma_i = np.asarray(Gamma_i, dtype=np.float64)
@@ -716,6 +830,16 @@ class HermanKlukPropagator:
         # sub-batch size of the time loop (0: the whole batch at once)
         self.micro_batch = 0
         self.sampling_method = "pseudo"
+
+    @property
+    def compensated(self):
+        """True in the comp32 mode."""
+        return self.traj_dtype == "comp32"
+
+    @property
+    def cdtype(self):
+        """The complex dtype of the observables."""
+        return linalg.complex_dtype(self.dtype)
 
     def initial_conditions(self, q0, p0, Gamma_0, potential, ntraj=5000,
                            generator=None, normals=None,
@@ -736,6 +860,11 @@ class HermanKlukPropagator:
         sampling_method : "pseudo" | "antithetic" | "sobol", the draw of
             the standard normals (`sampling.standard_normals`); with
             "antithetic" the error bars count each +-pair as one sample
+
+        The draws are made at float64 in every mode and the points cast to
+        the trajectory dtype (float64 under comp32, whose state splits
+        them), so a float32 run starts from the float64 run's points
+        rounded; the log-densities stay float64.
         """
         q0 = np.asarray(q0, dtype=np.float64)
         p0 = np.asarray(p0, dtype=np.float64)
@@ -757,6 +886,8 @@ class HermanKlukPropagator:
         qi, pi, log_prob = sample_initial_conditions(sampling, ntraj,
                                                      normals=normals)
         log_sampling_statistics(sampling, qi, pi)
+        if not self.compensated:
+            qi, pi = qi.to(self.traj_dtype), pi.to(self.traj_dtype)
         hess = potential.local_expansion(qi[:1])[2]
         if not isinstance(hess, (ConstHessian, DenseHessian, DiagHessian)):
             raise NotImplementedError(
@@ -765,7 +896,9 @@ class HermanKlukPropagator:
                 f"DiagHessian ones; this potential gives "
                 f"{type(hess).__name__}")
         self.state = TrajState.initial(
-            qi, pi, diag_monodromy=isinstance(hess, DiagHessian))
+            qi, pi, mono_dtype=self.dtype,
+            diag_monodromy=isinstance(hess, DiagHessian),
+            compensated=self.compensated)
         self.bc = self._make_batch_constants(qi, pi, log_prob, potential)
         self.tracker = self._make_trackers(self.state)
         self.ntraj = ntraj
@@ -777,7 +910,8 @@ class HermanKlukPropagator:
     def _make_params(self, Gamma_0, q0, p0, sampling):
         """The constant parameter pack."""
         return build_hk_params(self.Gamma_i, self.Gamma_t, Gamma_0, q0, p0,
-                               sampling.U, sampling.iGi0, self.device)
+                               sampling.U, sampling.iGi0, self.device,
+                               self.dtype, self.traj_dtype)
 
     def _make_batch_constants(self, qi, pi, log_prob, potential):
         """The per-batch constants of the sampled initial conditions."""
@@ -843,7 +977,8 @@ class HermanKlukPropagator:
         if not self.state.diag_monodromy:
             hess = potential.local_expansion(self.state.q[:1])[2]
             if isinstance(hess, ConstHessian):
-                step_map = const_step_map(hess, potential.masses(), dt)
+                step_map = const_step_map(hess, potential.masses(), dt,
+                                          self.state.Z.dtype)
 
         def advance(state, carry):
             return (*rk4_step(state, potential, dt, step_map), carry)
@@ -915,9 +1050,10 @@ class HermanKlukPropagator:
         rows = [(s * n // k, (s + 1) * n // k) for s in range(k)]
         bcs = ([self.bc] if k == 1
                else [_batch_rows(self.bc, a, b) for a, b in rows])
-        cauto = torch.empty(k, nt, dtype=torch.complex128, device=self.device)
-        kic = torch.empty(k, nt, dtype=torch.complex128, device=self.device)
-        energies = torch.empty(k, nt, dtype=torch.float64, device=self.device)
+        cauto = torch.empty(k, nt, dtype=self.cdtype, device=self.device)
+        kic = torch.empty(k, nt, dtype=self.cdtype, device=self.device)
+        energies = torch.empty(k, nt, dtype=self.state.q.dtype,
+                               device=self.device)
         m2 = (torch.empty(2, k, nt, dtype=torch.float64, device=self.device)
               if m2_mode else None)
         state, tracker = self.state, self.tracker
@@ -992,8 +1128,8 @@ class HermanKlukPropagator:
         t_start = self.t
         cauto, kic, energies, m2 = self._run(potential, dt, nt, chunk,
                                              progress, m2_mode)
-        cauto = cauto.cpu().numpy()
-        kic = kic.cpu().numpy()
+        cauto = cauto.cpu().numpy().astype(np.complex128)
+        kic = kic.cpu().numpy().astype(np.complex128)
         self.last_energies = energies.cpu().numpy()
         if check_energy:
             check_energy_conservation(self.last_energies)
@@ -1072,7 +1208,8 @@ class HermanKlukPropagator:
         psi, zmax = wavefunction_log(self.params.wf, self.state.q,
                                      self.state.p, self._log_coefficients(),
                                      x)
-        return psi.cpu().numpy() * np.exp(zmax.cpu().numpy())
+        return (psi.cpu().numpy().astype(np.complex128)
+                * np.exp(zmax.cpu().numpy().astype(np.float64)))
 
     def initial_positions_and_momenta(self):
         return self.bc.qi, self.bc.pi

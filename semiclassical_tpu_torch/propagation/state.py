@@ -11,6 +11,11 @@ monodromy that starts at the identity stays exactly diagonal, and the
 *diagonal representation* keeps only the diagonals: Z of shape (4, n, d)
 holding the planes [Mqq, Mqp, Mpq, Mpp], each a contiguous (n, d) block
 that the per-mode RK4 map and the WM kernel read in place.
+
+In the compensated-float32 mode ("comp32") q and p are float32 with float32
+Neumaier residuals qc and pc (the true value is q + qc), S stays float64,
+and every increment folds in through an exact two-sum
+(`eom._comp_accumulate`).
 """
 
 from __future__ import annotations
@@ -31,16 +36,24 @@ class TrajState:
         or (4, n, d)  their diagonals [Mqq, Mqp, Mpq, Mpp] in the diagonal
                       representation
     S : (n,)          classical action integral of (T - V)
+    qc, pc : (n, d)   the comp32 residuals of q and p (true value q + qc),
+                      None in the plain modes
     """
 
     q: torch.Tensor
     p: torch.Tensor
     Z: torch.Tensor
     S: torch.Tensor
+    qc: torch.Tensor | None = None
+    pc: torch.Tensor | None = None
 
     @property
     def dim(self):
         return self.q.shape[1]
+
+    @property
+    def compensated(self):
+        return self.qc is not None
 
     @property
     def diag_monodromy(self):
@@ -83,18 +96,37 @@ class TrajState:
         return Z.transpose(2, 3).reshape(n, 2 * d, 2 * d)
 
     @staticmethod
-    def initial(q, p, diag_monodromy=False):
-        """Monodromy = identity, action = 0; `diag_monodromy` selects the
-        diagonal representation (valid only for separable potentials)."""
+    def initial(q, p, dtype=None, mono_dtype=None, diag_monodromy=False,
+                compensated=False):
+        """Monodromy = identity, action = 0.
+
+        `dtype` sets the precision of q, p and S, `mono_dtype` that of Z
+        (default: the trajectories'); `diag_monodromy` selects the diagonal
+        representation (valid only for separable potentials).
+        `compensated` selects comp32: q and p are split into float32 values
+        and float32 residuals of the float64 q and p given (`dtype` is
+        ignored), and S is float64."""
+        if compensated:
+            q64, p64 = q.to(torch.float64), p.to(torch.float64)
+            q, p = q64.to(torch.float32), p64.to(torch.float32)
+            qc = (q64 - q.to(torch.float64)).to(torch.float32)
+            pc = (p64 - p.to(torch.float64)).to(torch.float32)
+            s_dtype = torch.float64
+        else:
+            if dtype is not None:
+                q, p = q.to(dtype), p.to(dtype)
+            qc = pc = None
+            s_dtype = q.dtype
+        mono_dtype = q.dtype if mono_dtype is None else mono_dtype
         n, d = q.shape
         if diag_monodromy:
-            Z = torch.zeros(4, n, d, dtype=q.dtype, device=q.device)
+            Z = torch.zeros(4, n, d, dtype=mono_dtype, device=q.device)
             Z[0::3] = 1.0
         else:
-            Z = torch.eye(2 * d, dtype=q.dtype, device=q.device).expand(
+            Z = torch.eye(2 * d, dtype=mono_dtype, device=q.device).expand(
                 n, 2 * d, 2 * d).contiguous()
-        S = torch.zeros(n, dtype=q.dtype, device=q.device)
-        return TrajState(q=q, p=p, Z=Z, S=S)
+        S = torch.zeros(n, dtype=s_dtype, device=q.device)
+        return TrajState(q=q, p=p, Z=Z, S=S, qc=qc, pc=pc)
 
 
 @dataclass(frozen=True)

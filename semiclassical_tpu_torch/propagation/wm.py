@@ -41,9 +41,11 @@ path (all widths diagonal at full rank, `scan_diag`):
   O(n^2) norm (`wm_norm`) read the full tensors of `wm_derived`; each
   (bi, bj) block pair of the norm inverts its (bi bj, r, r) pair matrices
   with `linalg.batched_det_inv`: K3 on the card;
-* the exact integrators come with the HK propagator's time loop.
-
-Not ported: the comp32 residuals.
+* the exact integrators come with the HK propagator's time loop;
+* the precision modes as for HK: the packs and the whole A/M algebra at
+  the propagator's `dtype` (complex64 in the reduced modes, so K2, K3 and
+  K5 run at complex64 / float32), the displacements at the trajectory
+  precision with the comp32 residuals folded in, then cast to `dtype`.
 """
 
 from __future__ import annotations
@@ -76,10 +78,6 @@ __all__ = ["WMParams", "WMDiagConsts", "WMBatchConstants", "WMDerived",
            "wm_autocorr_qp", "wm_observables", "wm_diag_inputs",
            "wm_coefficients", "wm_log_coefficients", "wm_wavefunction",
            "wm_norm", "wm_pair_bytes"]
-
-
-def _c(x):
-    return x.to(torch.complex128)
 
 
 @dataclass(frozen=True)
@@ -189,22 +187,37 @@ class WMParams:
     def coef_pref(self):
         return float(np.exp(self.log_coef_pref))
 
+    @property
+    def dtype(self):
+        """The real dtype of the pack and the A/M algebra."""
+        return self.Gt.dtype
+
+    @property
+    def cdtype(self):
+        return linalg.complex_dtype(self.Gt.dtype)
+
     @staticmethod
     def from_arrays(hk, device, *, alpha, beta, auto_pref, m_scale,
                     m_log_det, log_coef_pref, dim, rank, scan_diag,
-                    diag=None, **arrays):
-        """Pack host arrays (real -> float64, complex -> complex128) for
-        the device; `arrays` holds every tensor field, `diag` the
+                    diag=None, dtype=torch.float64, **arrays):
+        """Pack host arrays (real -> `dtype`, complex -> its complex type)
+        for the device; `arrays` holds every tensor field, `diag` the
         WMDiagConsts fields (scan_diag only)."""
+        cdtype = linalg.complex_dtype(dtype)
+
         def t(x):
             x = np.asarray(x)
-            dtype = np.complex128 if np.iscomplexobj(x) else np.float64
-            return torch.tensor(x.astype(dtype), device=device)
+            if np.iscomplexobj(x):
+                return torch.tensor(x.astype(np.complex128), device=device,
+                                    dtype=cdtype)
+            return torch.tensor(x.astype(np.float64), device=device,
+                                dtype=dtype)
 
         dg = pack = None
         if diag is not None:
             dg = WMDiagConsts(**{k: t(v) for k, v in diag.items()})
-            pack = _wm_diag_ops.build_const_pack(dg, hk.p0, float(m_scale))
+            pack = _wm_diag_ops.build_const_pack(dg, hk.p0.to(dtype),
+                                                 float(m_scale))
         return WMParams(hk=hk, **{k: t(v) for k, v in arrays.items()},
                         alpha=float(alpha), beta=float(beta),
                         auto_pref=float(auto_pref), m_scale=float(m_scale),
@@ -215,9 +228,9 @@ class WMParams:
 
 
 def _build_wm_params(hk, Gamma_i, Gamma_t, Gamma_0, U, iGi0, alpha, beta,
-                     device):
+                     device, dtype=torch.float64):
     """WMParams from the HK pack, the width matrices and the sampling
-    subspace U (d, r) / pseudo-inverse iGi0 (host numpy)."""
+    subspace U (d, r) / pseudo-inverse iGi0 (host numpy), at `dtype`."""
     Gamma_i = np.asarray(Gamma_i, dtype=np.float64)
     Gamma_t = np.asarray(Gamma_t, dtype=np.float64)
     Gamma_0 = np.asarray(Gamma_0, dtype=np.float64)
@@ -289,7 +302,7 @@ def _build_wm_params(hk, Gamma_i, Gamma_t, Gamma_0, U, iGi0, alpha, beta,
         log_coef_pref=0.25 * (ld0 + ldt + ldi) - 0.5 * ldi0,
         dim=d, rank=r, scan_diag=scan_diag,
         diag=(_diag_consts(Gamma_i, Gamma_t, Gamma_0, alpha, beta)
-              if scan_diag else None))
+              if scan_diag else None), dtype=dtype)
 
 
 @dataclass(frozen=True)
@@ -344,10 +357,37 @@ class WMScanDerived:
 # batch constants and displacements
 # ---------------------------------------------------------------------------
 
+def _center_minus(x0, x0c, xi):
+    """x0 - xi at the sampling precision (xi's: float64 under comp32, whose
+    center is split as x0 + x0c and recombined at xi's dtype first)."""
+    x0f = x0.to(xi.dtype)
+    if x0c is not None:
+        x0f = x0f + x0c.to(xi.dtype)
+    return x0f[None, :] - xi
+
+
+def _dQ_evolved(hk: HKParams, state: TrajState):
+    """q0 - q(t) at trajectory-difference precision: under comp32 the
+    residuals of the center and of the state fold in."""
+    dQ = hk.q0[None, :] - state.q.to(hk.q0.dtype)
+    if state.compensated and hk.q0c is not None:
+        dQ = dQ + (hk.q0c - state.qc)
+    return dQ
+
+
+def _dp_evolved(hk: HKParams, state: TrajState):
+    """p(t) - p0, with the comp32 residuals folded in."""
+    dp = state.p.to(hk.p0.dtype) - hk.p0[None, :]
+    if state.compensated and hk.p0c is not None:
+        dp = dp + (state.pc - hk.p0c)
+    return dp
+
+
 def _displacements(params: WMParams, bc: WMBatchConstants, state: TrajState):
-    """dq = q0 - q(0) and dQ = q0 - q(t), (n, d) each."""
-    q0 = params.hk.q0[None, :]
-    return q0 - bc.base.qi, q0 - state.q
+    """dq = q0 - q(0) and dQ = q0 - q(t), (n, d) each, at trajectory
+    precision (the comp32 residuals folded in)."""
+    hk = params.hk
+    return _center_minus(hk.q0, hk.q0c, bc.base.qi), _dQ_evolved(hk, state)
 
 
 def _nac_terms(potential, x):
@@ -364,14 +404,17 @@ def _nac_terms(potential, x):
 def wm_batch_constants(params: WMParams, qi, pi, log_prob,
                        potential) -> WMBatchConstants:
     """The HK batch constants plus eps, PIq, the initial-point NAC terms
-    and z0."""
+    and z0: the difference p0 - pi at the sampling precision, the (d, d)
+    contractions at the pack's dtype."""
     base = hk_batch_constants(params.hk, qi, pi, log_prob, potential)
-    dp0 = params.hk.p0[None, :] - pi
+    t = params.dtype
+    dp0 = _center_minus(params.hk.p0, params.hk.p0c, pi).to(t)
     eps = -(0.5 / hbar**2) * torch.einsum("na,ab,nb->n", dp0, params.iGi0,
                                           dp0)
-    PIq = params.hk.p0[None, :] - dp0 @ params.G0iGi0.T
+    PIq = params.hk.p0.to(t)[None, :] - dp0 @ params.G0iGi0.T
     n1q, n2q = _nac_terms(potential, qi)
-    z0 = torch.einsum("ia,ni->na", params.BqUb, _c(dp0 @ params.iGi0))
+    z0 = torch.einsum("ia,ni->na", params.BqUb,
+                      (dp0 @ params.iGi0).to(params.cdtype))
     return WMBatchConstants(base=base, eps=eps, PIq=PIq, n1q=n1q, n2q=n2q,
                             z0=z0)
 
@@ -388,15 +431,20 @@ def _mono_proj(M, U):
 
 def wm_derived(params: WMParams, bc: WMBatchConstants,
                state: TrajState) -> WMDerived:
-    """All per-trajectory WM tensors for the current state (eqns. 50-84)."""
+    """All per-trajectory WM tensors for the current state (eqns. 50-84),
+    at the pack's dtype."""
+    cd = params.cdtype
+    c = lambda x: x.to(cd)
     U = params.U                                            # (d, r)
-    Uc = _c(U)
+    Uc = c(U)
     p0 = params.hk.p0
+    Z = state.Z.to(params.dtype)
+    st = dataclasses.replace(state, Z=Z)
 
     # project monodromy blocks once: (n, d, r)
-    MqzU = torch.cat([_mono_proj(state.Mqq, U), _mono_proj(state.Mqp, U)],
+    MqzU = torch.cat([_mono_proj(st.Mqq, U), _mono_proj(st.Mqp, U)],
                      dim=2)                                 # (n, d, 2r)
-    MpqU, MppU = _mono_proj(state.Mpq, U), _mono_proj(state.Mpp, U)
+    MpqU, MppU = _mono_proj(st.Mpq, U), _mono_proj(st.Mpp, U)
     MpzU = torch.cat([MpqU, MppU], dim=2)                   # (n, d, 2r)
     MqqU, MqpU = MqzU.split(U.shape[1], dim=2)
 
@@ -409,56 +457,56 @@ def wm_derived(params: WMParams, bc: WMBatchConstants,
     # A' (eqn. 50 projected)
     GtMqzU = torch.einsum("ij,njb->nib", params.Gt, MqzU)   # (n, d, 2r)
     A = (params.A_const[None] - hessL
-         + _c(torch.einsum("nia,nib->nab", MqzU, GtMqzU))
+         + c(torch.einsum("nia,nib->nab", MqzU, GtMqzU))
          + 1j * (torch.einsum("nia,nib->nab", MpzU, MqzU) * (2.0 / hbar)))
 
     # det(A / 2 sqrt(alpha beta)) is O(1) (its alpha, beta -> oo limit is
     # (2 sqrt(alpha beta))^{2r}); balanced before the elimination (det
     # Dbal = 1), inv(A) = D inv(Abal) D / s
     s_ab = 2.0 * math.sqrt(params.alpha * params.beta)
-    D = _c(params.Dbal)
+    D = c(params.Dbal)
     Abal = torch.einsum("ab,nbc,cd->nad", D, A / s_ab, D)
     detA, iAb = linalg.batched_det_inv(Abal)
     iA = torch.einsum("ab,nbc,cd->nad", D, iAb, D) / s_ab   # (n, 2r, 2r)
 
     # BQ U2 = Gt Mqz U2 + i/hbar Mpz U2 (eqn. 53 projected)
-    BQU = _c(GtMqzU) + 1j * (MpzU / hbar)                   # (n, d, 2r)
+    BQU = c(GtMqzU) + 1j * (MpzU / hbar)                    # (n, d, 2r)
     # eqn. 57: Gt(t) = Gt - BQ iA BQ^T;  eqn. 59: Gti = BQ iA Bq^T
     iA_BQ = torch.einsum("nab,njb->naj", iA, BQU)           # (n, 2r, d)
-    Gt_t = _c(params.Gt)[None] - torch.einsum("nia,naj->nij", BQU, iA_BQ)
+    Gt_t = c(params.Gt)[None] - torch.einsum("nia,naj->nij", BQU, iA_BQ)
     iA_Bq = torch.einsum("nab,jb->naj", iA, params.BqU)     # (n, 2r, d)
     Gti = torch.einsum("nia,naj->nij", BQU, iA_Bq)          # (n, d, d)
 
     # eqns. 68-73 (with pi_i = p, pi_t = P since b0 = 0)
-    Gti_iGi0 = torch.einsum("nij,jk->nik", Gti, _c(params.iGi0))
+    Gti_iGi0 = torch.einsum("nij,jk->nik", Gti, c(params.iGi0))
     CQQ = Gt_t - torch.einsum("nik,nlk->nil", Gti_iGi0, Gti)          # (70)
-    CqQ = torch.einsum("ik,nlk->nil", _c(params.G0iGi0), Gti)         # (71)
-    dp0 = _c(p0[None, :] - bc.base.pi)
-    PIQ = _c(state.p) + torch.einsum("nik,nk->ni", Gti_iGi0, dp0)     # (73)
+    CqQ = torch.einsum("ik,nlk->nil", c(params.G0iGi0), Gti)          # (71)
+    dp0 = c(_center_minus(p0, params.hk.p0c, bc.base.pi))
+    PIQ = c(state.p) + torch.einsum("nik,nk->ni", Gti_iGi0, dp0)      # (73)
 
     # eqn. 78: M = G0 + CQQ, projected to the non-zero subspace, scaled
-    Mp = _c(params.UtG0U)[None] + torch.einsum("ia,nij,jb->nab", Uc, CQQ,
-                                                Uc)
+    Mp = c(params.UtG0U)[None] + torch.einsum("ia,nij,jb->nab", Uc, CQQ,
+                                               Uc)
     detM, iM_s = linalg.batched_det_inv(Mp / params.m_scale)
     iM = iM_s / params.m_scale                              # (n, r, r)
 
     # eqns. 79-84 with iM folded through U
     CqQU = CqQ @ Uc                                         # (n, d, r)
-    G0U = _c(params.G0U)                                    # (d, r)
+    G0U = c(params.G0U)                                     # (d, r)
     iM_CqQ = torch.einsum("nab,njb->naj", iM, CqQU)         # (n, r, d)
-    Rqq = _c(params.Cqq)[None] - torch.einsum("nia,naj->nij", CqQU,
-                                              iM_CqQ)                  # (79)
+    Rqq = c(params.Cqq)[None] - torch.einsum("nia,naj->nij", CqQU,
+                                             iM_CqQ)                   # (79)
     iM_G0 = torch.einsum("nab,jb->naj", iM, G0U)            # (n, r, d)
-    RQQ = _c(params.G0)[None] - torch.einsum("ia,naj->nij", G0U,
-                                             iM_G0)                    # (80)
+    RQQ = c(params.G0)[None] - torch.einsum("ia,naj->nij", G0U,
+                                            iM_G0)                     # (80)
     RqQ = torch.einsum("nia,naj->nij", CqQU, iM_G0)                    # (81)
 
-    dPIQ_U = (PIQ - _c(p0)[None, :]) @ Uc                   # (n, r)
+    dPIQ_U = (PIQ - c(p0)[None, :]) @ Uc                    # (n, r)
     iM_dPIQ = torch.einsum("nab,nb->na", iM, dPIQ_U)        # (n, r)
-    Pq = _c(bc.PIq) - torch.einsum("nia,na->ni", CqQU, iM_dPIQ)        # (82)
-    PQ = _c(p0)[None, :] + torch.einsum("ia,na->ni", G0U, iM_dPIQ)     # (83)
-    gamma = bc.eps - (0.5 / hbar**2) * torch.einsum("na,na->n", dPIQ_U,
-                                                    iM_dPIQ)           # (84)
+    Pq = c(bc.PIq) - torch.einsum("nia,na->ni", CqQU, iM_dPIQ)         # (82)
+    PQ = c(p0)[None, :] + torch.einsum("ia,na->ni", G0U, iM_dPIQ)      # (83)
+    gamma = c(bc.eps) - (0.5 / hbar**2) * torch.einsum("na,na->n", dPIQ_U,
+                                                       iM_dPIQ)        # (84)
     return WMDerived(detA=detA, detM=detM, CQQ=CQQ, CqQ=CqQ, PIQ=PIQ,
                      Rqq=Rqq, RQQ=RQQ, RqQ=RqQ, Pq=Pq, PQ=PQ, gamma=gamma)
 
@@ -479,7 +527,7 @@ def _wm_diag_core(params: WMParams, state: TrajState):
     detM, y1, y2, iM) with every batched tensor (n, d); the plain chain of
     `ops.wm_diag`, which also builds the trackers on the card."""
     det_i, Mps, y1, y2, iM = _wm_diag_ops.wm_diag_core_plain(
-        *state.Z, params.diag_pack)
+        *state.Z.to(params.dtype), params.diag_pack)
     detA = linalg.logspace_mode_product(det_i.real, det_i.imag)
     detM = linalg.logspace_mode_product(Mps.real, Mps.imag)
     return detA, detM, y1, y2, iM
@@ -489,12 +537,17 @@ def wm_diag_inputs(params: WMParams, bc: WMBatchConstants, state: TrajState,
                    potential):
     """The ten (n, d) input planes of K5 for the current state — Mqq, Mqp,
     Mpq, Mpp, dQ = q0 - q(t), dp = p(t) - p0, dq = q0 - q(0), n1q, n1Q,
-    v0c = [Gi+G0]^{-1} (p0 - pi) — and n2Q (n,)."""
-    p0 = params.hk.p0[None, :]
+    v0c = [Gi+G0]^{-1} (p0 - pi) — at the pack's dtype (the differences
+    taken at trajectory precision first), and n2Q (n,)."""
+    t = params.dtype
+    hk = params.hk
     dq, dQ = _displacements(params, bc, state)
     n1Q, n2Q = _nac_terms(potential, state.q)
-    v0c = params.diag.ig0i[None, :] * (p0 - bc.base.pi)
-    return (*state.Z, dQ, state.p - p0, dq, bc.n1q, n1Q, v0c), n2Q
+    dp0 = _center_minus(hk.p0, hk.p0c, bc.base.pi).to(t)
+    v0c = params.diag.ig0i[None, :] * dp0
+    planes = (*state.Z.to(t), dQ.to(t), _dp_evolved(hk, state).to(t),
+              dq.to(t), bc.n1q.to(t), n1Q.to(t), v0c)
+    return tuple(x.contiguous() for x in planes), n2Q
 
 
 def _wm_scan_derived_diag(params: WMParams, bc: WMBatchConstants,
@@ -505,6 +558,8 @@ def _wm_scan_derived_diag(params: WMParams, bc: WMBatchConstants,
     time-dependent chain is one call of `ops.wm_diag.wm_diag_derived` —
     the fused kernel K5 on the card — over the (n, d) planes; the
     log-space mode products and the constant bilinear pieces follow."""
+    cd = params.cdtype
+    c = lambda x: x.to(cd)
     dg = params.diag
     inputs, n2Q = wm_diag_inputs(params, bc, state, potential)
     _, _, _, _, dQ, _, dq, n1q, _, _ = inputs
@@ -513,23 +568,24 @@ def _wm_scan_derived_diag(params: WMParams, bc: WMBatchConstants,
     detM = linalg.logspace_mode_product(planes[2], planes[3])
     gram = {pair: torch.complex(scal[:, 2 * i], scal[:, 2 * i + 1])
             for i, pair in enumerate(_wm_diag_ops.GRAM_PAIRS)}
-    g_DD, g_Dn, p0_dQ, p0_n = (_c(scal[:, _wm_diag_ops.scal_col(name)])
+    g_DD, g_Dn, p0_dQ, p0_n = (c(scal[:, _wm_diag_ops.scal_col(name)])
                                for name in ("g_DD", "g_Dn", "p0_dQ", "p0_n"))
 
     # constant-matrix bilinear pieces, diagonal weights
     cqq = dg.cqq[None, :]
-    c_dd = _c(torch.sum(dq * cqq * dq, dim=1))
-    c_dn = _c(torch.sum(dq * cqq * n1q, dim=1))
-    piq_dq = _c(torch.sum(bc.PIq * dq, dim=1))
-    piq_n = _c(torch.sum(bc.PIq * n1q, dim=1))
+    PIq = bc.PIq.to(params.dtype)
+    c_dd = c(torch.sum(dq * cqq * dq, dim=1))
+    c_dn = c(torch.sum(dq * cqq * n1q, dim=1))
+    piq_dq = c(torch.sum(PIq * dq, dim=1))
+    piq_n = c(torch.sum(PIq * n1q, dim=1))
     nacqQ = gram[1, 3]
-    nacQ = (_c(n2Q) + (g_Dn - gram[2, 3]) - gram[0, 3]
+    nacQ = (c(n2Q) + (g_Dn - gram[2, 3]) - gram[0, 3]
             - 1j * ((p0_n + gram[3, 4]) / hbar))
-    nacq = (_c(bc.n2q) + (c_dn - gram[0, 1]) - gram[1, 2]
+    nacq = (c(bc.n2q) + (c_dn - gram[0, 1]) - gram[1, 2]
             + 1j * ((piq_n - gram[1, 4]) / hbar))
     return WMScanDerived(
         detA=detA, detM=detM,
-        gamma=bc.eps - (0.5 / hbar**2) * gram[4, 4],
+        gamma=bc.eps.to(params.dtype) - (0.5 / hbar**2) * gram[4, 4],
         rqq=c_dd - gram[0, 0], rQQ=g_DD - gram[2, 2], rqQ=gram[0, 2],
         Pq_dq=piq_dq - gram[0, 4], PQ_dQ=p0_dQ + gram[2, 4],
         kfac=nacqQ + nacQ * nacq)
@@ -539,31 +595,36 @@ def wm_scan_derived(params: WMParams, bc: WMBatchConstants, state: TrajState,
                     potential) -> WMScanDerived:
     """The scalar forms of eqns. 79-100 for the current state, through the
     projected, balanced A- and M-solves (no (n, d, d) tensors); on the
-    separable path through the per-mode 2x2 chain."""
+    separable path through the per-mode 2x2 chain. The algebra runs at the
+    pack's dtype, the displacements at trajectory precision before their
+    cast to it."""
     if params.scan_diag and state.diag_monodromy:
         return _wm_scan_derived_diag(params, bc, state, potential)
+    cd, t = params.cdtype, params.dtype
+    c = lambda x: x.to(cd)
     r = params.rank
     U = params.U
+    st = dataclasses.replace(state, Z=state.Z.to(t))
 
     # balanced projections: U1/U2 carry D and 1/sqrt(s)
-    X2 = _mono_proj(state.Mqp, params.U2)                   # (n, d, r)
-    XL = torch.cat([_mono_proj(state.Mqq, params.U1), X2], dim=2)
-    ZL = torch.cat([_mono_proj(state.Mpq, params.U1),
-                    _mono_proj(state.Mpp, params.U2)], dim=2)  # (n, d, 2r)
+    X2 = _mono_proj(st.Mqp, params.U2)                      # (n, d, r)
+    XL = torch.cat([_mono_proj(st.Mqq, params.U1), X2], dim=2)
+    ZL = torch.cat([_mono_proj(st.Mpq, params.U1),
+                    _mono_proj(st.Mpp, params.U2)], dim=2)  # (n, d, 2r)
     W = torch.einsum("ij,njb->nib", params.Gt, XL)          # (n, d, 2r)
 
     # Gram blocks of the TRANSPOSED balanced A-matrix:
     #   G  = [X1|X2]^T Gt [X1|X2],  B = [X1|X2]^T [Z1|Z2],  TR = [Z1|Z2]^T X2
     # its imaginary part is [[T11^T, 2 T21^T - T12], [T12^T, 2 T22^T - T22]]:
     # the left half is B's, the right half 2 B[:, :, r:] - TR
-    G = _c(torch.einsum("nia,nib->nab", XL, W))             # (n, 2r, 2r)
+    G = c(torch.einsum("nia,nib->nab", XL, W))              # (n, 2r, 2r)
     B = torch.einsum("nia,nib->nab", XL, ZL)                # (n, 2r, 2r)
     TR = torch.einsum("nia,nib->nab", ZL, X2)               # (n, 2r, r)
     imag = torch.cat([B[:, :, :r], 2.0 * B[:, :, r:] - TR], dim=2)
     At = params.A_const_b.T[None] + G + 1j * (imag / hbar)  # (n, 2r, 2r)
 
     # P = BQUb^T U with BQUb = W + i ZL/hbar
-    P = (_c(torch.einsum("nia,ij->naj", W, U))
+    P = (c(torch.einsum("nia,ij->naj", W, U))
          + 1j * (torch.einsum("nia,ij->naj", ZL, U) / hbar))  # (n, 2r, r)
 
     # Y = At^{-1} P by block elimination of the 2x2-blocked At
@@ -573,60 +634,65 @@ def wm_scan_derived(params: WMParams, bc: WMBatchConstants, state: TrajState,
 
     # M' = M0 - Y^T (P + C2b Y)  (eqns. 68, 78)
     C2Y = torch.einsum("ab,nbk->nak", params.C2b, Y)
-    Mp = _c(params.M0)[None] - torch.einsum("nak,nal->nkl", Y, P + C2Y)
+    Mp = c(params.M0)[None] - torch.einsum("nak,nal->nkl", Y, P + C2Y)
 
-    # projected observable vectors
+    # projected observable vectors (differences at trajectory precision)
     hk = params.hk
-    dq, dQ = _displacements(params, bc, state)
-    n1q = bc.n1q
+    dq, dQ = (x.to(t) for x in _displacements(params, bc, state))
+    n1q = bc.n1q.to(t)
     n1Q, n2Q = _nac_terms(potential, state.q)
+    n1Q = n1Q.to(t)
+    p0 = hk.p0.to(t)
 
     def A_vec(x):
         # CqQU^T x = Y^T (Fq^T x)
-        z = torch.einsum("ia,ni->na", params.Fq, _c(x))     # (n, 2r)
+        z = torch.einsum("ia,ni->na", params.Fq, c(x))      # (n, 2r)
         return torch.einsum("nak,na->nk", Y, z)             # (n, r)
 
-    dPIQ_U = (_c((state.p - hk.p0[None, :]) @ U)
+    dPIQ_U = (c(_dp_evolved(hk, state).to(t) @ U)
               + torch.einsum("nak,na->nk", Y, bc.z0))       # (n, r)
-    stack = torch.stack([A_vec(dq), A_vec(n1q), _c(dQ @ params.G0U),
-                         _c(n1Q @ params.G0U), dPIQ_U], dim=2)  # (n, r, 5)
+    stack = torch.stack([A_vec(dq), A_vec(n1q), c(dQ @ params.G0U),
+                         c(n1Q @ params.G0U), dPIQ_U], dim=2)  # (n, r, 5)
     # one det + solve applies iM to the whole 5-vector stack
     detM, Z5 = linalg.batched_det_solve(Mp / params.m_scale, stack)
     gram = torch.einsum("nak,nal->nkl", stack, Z5 / params.m_scale)
 
     # constant-matrix bilinear pieces
-    quad = lambda x, M, y: _c(torch.einsum("ni,ij,nj->n", x, M, y))
-    dot = lambda x, y: _c(torch.sum(x * y, dim=-1))
+    quad = lambda x, M, y: c(torch.einsum("ni,ij,nj->n", x, M, y))
+    dot = lambda x, y: c(torch.sum(x * y, dim=-1))
+    PIq = bc.PIq.to(t)
     c_dd = quad(dq, params.Cqq, dq)
     c_dn = quad(dq, params.Cqq, n1q)
     g_DD = quad(dQ, params.G0, dQ)
     g_Dn = quad(dQ, params.G0, n1Q)
-    piq_dq = dot(bc.PIq, dq)
-    piq_n = dot(bc.PIq, n1q)
-    p0_dQ = dot(hk.p0[None, :], dQ)
-    p0_n = dot(hk.p0[None, :], n1Q)
+    piq_dq = dot(PIq, dq)
+    piq_n = dot(PIq, n1q)
+    p0_dQ = dot(p0[None, :], dQ)
+    p0_n = dot(p0[None, :], n1Q)
 
     # IC-correlation NAC factors (eqns. 89-100, cf. wm_observables)
     nacqQ = gram[:, 1, 3]                                   # n1q^T RqQ n1Q
-    nacQ = (_c(n2Q)
+    nacQ = (c(n2Q)
             + (g_Dn - gram[:, 2, 3])                        # dQ^T RQQ n1Q
             - gram[:, 0, 3]                                 # dq^T RqQ n1Q
             - 1j * ((p0_n + gram[:, 3, 4]) / hbar))         # PQ . n1Q
-    nacq = (_c(bc.n2q)
+    nacq = (c(bc.n2q)
             + (c_dn - gram[:, 0, 1])                        # dq^T Rqq n1q
             - gram[:, 1, 2]                                 # n1q^T RqQ dQ
             + 1j * ((piq_n - gram[:, 1, 4]) / hbar))        # Pq . n1q
     return WMScanDerived(
         detA=detA, detM=detM,
-        gamma=bc.eps - (0.5 / hbar**2) * gram[:, 4, 4],
+        gamma=bc.eps.to(t) - (0.5 / hbar**2) * gram[:, 4, 4],
         rqq=c_dd - gram[:, 0, 0], rQQ=g_DD - gram[:, 2, 2],
         rqQ=gram[:, 0, 2], Pq_dq=piq_dq - gram[:, 0, 4],
         PQ_dQ=p0_dQ + gram[:, 2, 4], kfac=nacqQ + nacQ * nacq)
 
 
 def _prefactor(params, state, c_signed, detA, detM, signs_A, signs_M):
-    """auto_pref C e^{iS/hbar} / sqrt(detA) / sqrt(detM), sign-tracked."""
-    return (params.auto_pref * c_signed * torch.exp(1j * (state.S / hbar))
+    """auto_pref C e^{iS/hbar} / sqrt(detA) / sqrt(detM), sign-tracked, at
+    C's complex dtype (the phase of S reduced before any down-cast)."""
+    return (params.auto_pref * c_signed
+            * linalg.phase_exp(state.S / hbar, c_signed.dtype)
             * signs_A / torch.sqrt(detA) * signs_M / torch.sqrt(detM))
 
 
@@ -635,7 +701,7 @@ def wm_scan_observables_qp(params: WMParams, bc: WMBatchConstants,
                            signs_A, signs_M):
     """The per-trajectory contributions (cauto_qp, kic_qp) of eqns. 85,
     89-100 from the scalar forms, complex (n,) each."""
-    expo = (sd.gamma + bc.base.logw_norm
+    expo = (sd.gamma + bc.base.logw_norm.to(params.dtype)
             - 0.5 * sd.rqq - 0.5 * sd.rQQ + sd.rqQ
             + 1j * ((sd.PQ_dQ - sd.Pq_dq) / hbar))
     cauto_qp = _prefactor(params, state, c_signed, sd.detA, sd.detM,
@@ -666,8 +732,9 @@ def wm_autocorr_qp(params: WMParams, bc: WMBatchConstants, state: TrajState,
                    derived: WMDerived, c_signed, signs_A, signs_M):
     """Per-trajectory autocorrelation contribution (eqn. 85). The
     normalised MC log-weight is folded into the exponent."""
-    dq, dQ = map(_c, _displacements(params, bc, state))
-    expo = (derived.gamma + bc.base.logw_norm
+    cd = params.cdtype
+    dq, dQ = (x.to(cd) for x in _displacements(params, bc, state))
+    expo = (derived.gamma + bc.base.logw_norm.to(cd)
             - 0.5 * _bilinear(dq, derived.Rqq, dq)
             - 0.5 * _bilinear(dQ, derived.RQQ, dQ)
             + _bilinear(dq, derived.RqQ, dQ)
@@ -682,17 +749,18 @@ def wm_observables(params: WMParams, bc: WMBatchConstants, state: TrajState,
                    potential):
     """(C_auto(t), k~ic(t)) batch sums from the full tensors (eqns. 85,
     89-100)."""
+    cd = params.cdtype
     cauto_qp = wm_autocorr_qp(params, bc, state, derived, c_signed, signs_A,
                               signs_M)
     n1Q, n2Q = _nac_terms(potential, state.q)
-    n1q, n1Q = _c(bc.n1q), _c(n1Q)
-    dq, dQ = map(_c, _displacements(params, bc, state))
+    n1q, n1Q = bc.n1q.to(cd), n1Q.to(cd)
+    dq, dQ = (x.to(cd) for x in _displacements(params, bc, state))
     nacqQ = _bilinear(n1q, derived.RqQ, n1Q)
-    nacQ = (_c(n2Q) + _bilinear(dQ, derived.RQQ, n1Q)
+    nacQ = (n2Q.to(cd) + _bilinear(dQ, derived.RQQ, n1Q)
             - _bilinear(dq, derived.RqQ, n1Q)
             - 1j * (torch.sum(derived.PQ * n1Q, dim=1) / hbar))
     # the cross term pairs (q0 - Q) with the second index of RqQ
-    nacq = (_c(bc.n2q) + _bilinear(dq, derived.Rqq, n1q)
+    nacq = (bc.n2q.to(cd) + _bilinear(dq, derived.Rqq, n1q)
             - _bilinear(n1q, derived.RqQ, dQ)
             + 1j * (torch.sum(derived.Pq * n1q, dim=1) / hbar))
     kic_qp = (1.0 / hbar**2) * (nacqQ + nacQ * nacq) * cauto_qp
@@ -708,13 +776,14 @@ def wm_coefficients(params: WMParams, bc: WMBatchConstants, state: TrajState,
     """Gaussian expansion coefficients (eqn. 75), without the weight scale.
     The pi / 2 pi factors are absorbed in the pseudo-determinants; the
     1/(2 pi)^d of eqn. 75 is the (2 pi hbar)^d of the Monte-Carlo weight."""
-    dq = _c(params.hk.q0[None, :] - bc.base.qi)
-    phase = torch.polar(torch.ones_like(state.S), state.S / hbar)
+    cd = params.cdtype
+    dq = _center_minus(params.hk.q0, params.hk.q0c, bc.base.qi).to(cd)
+    phase = linalg.phase_exp(state.S / hbar, cd)
     v = (params.coef_pref * c_signed * phase * signs_A
-         / torch.sqrt(derived.detA) * torch.exp(_c(bc.eps)))
+         / torch.sqrt(derived.detA) * torch.exp(bc.eps.to(cd)))
     v = v * torch.exp(-0.5 * torch.einsum("ni,ij,nj->n", dq,
-                                          _c(params.Cqq), dq)
-                      - 1j * (torch.sum(_c(bc.PIq) * dq, dim=1) / hbar))
+                                          params.Cqq.to(cd), dq)
+                      - 1j * (torch.sum(bc.PIq.to(cd) * dq, dim=1) / hbar))
     return v * bc.base.weight
 
 
@@ -724,16 +793,20 @@ def wm_log_coefficients(params: WMParams, bc: WMBatchConstants,
     """log v_i of the coefficients (eqn. 75) as two float64 tensors
     (log |v_i|, arg v_i, the phase unwrapped additively): the range-safe
     form, weight and weight scale included, so exp(log v) is the fully
-    weighted coefficient."""
-    dq = params.hk.q0[None, :] - bc.base.qi
+    weighted coefficient. The quadratic forms run at the pack's dtype, the
+    sum at float64."""
+    f64, t = torch.float64, params.dtype
+    dq = _center_minus(params.hk.q0, params.hk.q0c, bc.base.qi).to(t)
     quad = 0.5 * torch.einsum("ni,ij,nj->n", dq, params.Cqq, dq)
-    phase_pi = torch.sum(bc.PIq * dq, dim=1) / hbar
-    log_re = (params.log_coef_pref + torch.log(torch.abs(c_signed))
-              - 0.5 * torch.log(torch.abs(derived.detA)) + bc.eps
-              + bc.base.logw_norm + bc.base.log_weight_scale - quad)
-    log_im = (torch.angle(c_signed) + state.S / hbar
-              - 0.5 * torch.angle(derived.detA)
-              + 0.5 * math.pi * (1.0 - signs_A) - phase_pi)
+    phase_pi = torch.sum(bc.PIq.to(t) * dq, dim=1) / hbar
+    log_re = (params.log_coef_pref + torch.log(torch.abs(c_signed)).to(f64)
+              - 0.5 * torch.log(torch.abs(derived.detA)).to(f64)
+              + bc.eps.to(f64) + bc.base.logw_norm.to(f64)
+              + bc.base.log_weight_scale - quad.to(f64))
+    log_im = (torch.angle(c_signed).to(f64) + state.S.to(f64) / hbar
+              - 0.5 * torch.angle(derived.detA).to(f64)
+              + 0.5 * math.pi * (1.0 - signs_A.to(f64))
+              - phase_pi.to(f64))
     return log_re, log_im
 
 
@@ -744,15 +817,16 @@ def wm_wavefunction(params: WMParams, bc: WMBatchConstants,
     sum is exponent-shifted. Returns (psi_shifted (nx,), zmax (nx,)):
     psi = psi_shifted * exp(zmax), recombined by the caller on the host."""
     log_re, log_im = log_v
-    dxQ = _c(x[None, :, :] - state.q[:, None, :])             # (n, nx, d)
-    dq = _c(params.hk.q0[None, :] - bc.base.qi)
+    cd, rd = params.cdtype, params.dtype
+    dxQ = x.to(cd)[None, :, :] - state.q.to(cd)[:, None, :]  # (n, nx, d)
+    dq = _center_minus(params.hk.q0, params.hk.q0c, bc.base.qi).to(cd)
     expo = (-0.5 * torch.einsum("nxi,nij,nxj->nx", dxQ, derived.CQQ, dxQ)
             + torch.einsum("ni,nij,nxj->nx", dq, derived.CqQ, dxQ)
             + 1j * (torch.einsum("ni,nxi->nx", derived.PIQ, dxQ) / hbar))
-    Zre = log_re[:, None] + expo.real
-    Zim = log_im[:, None] + expo.imag
+    Zre = log_re.to(rd)[:, None] + expo.real
+    Zim = log_im.to(rd)[:, None] + expo.imag
     zmax = torch.max(Zre, dim=0).values
-    return torch.sum(torch.polar(torch.exp(Zre - zmax[None, :]), Zim),
+    return torch.sum(linalg.complex_exp(Zre - zmax[None, :], Zim, cd),
                      dim=0), zmax
 
 
@@ -773,7 +847,7 @@ def _wm_norm_block_term(pack, Qi, di, Ci, UCi, CUi, dUi, lri, lii,
     in the projected space (U is real, so U^T D_ij U = conj(CU_i) + CU_j),
     scaled by m_scale and inverted with `det_inv` (K3 on the card)."""
     m_scale, m_log_det, det_inv = pack
-    dQ = _c(Qj[None, :, :] - Qi[:, None, :])                  # (bi, bj, d)
+    dQ = (Qj[None, :, :] - Qi[:, None, :]).to(CUi.dtype)       # (bi, bj, d)
     detD, iD_s = det_inv((CUi.conj()[:, None] + CUj[None, :]) / m_scale)
     iD = iD_s / m_scale                                       # (bi, bj, r, r)
     bU = (torch.einsum("nab,mnb->mna", UCj, dQ)
@@ -785,22 +859,25 @@ def _wm_norm_block_term(pack, Qi, di, Ci, UCi, CUi, dUi, lri, lii,
                 - 0.5 * (torch.log(torch.abs(detD)) + m_log_det))
     total_im = (-lii[:, None] + lij[None, :] + pair_expo.imag
                 - 0.5 * torch.angle(detD))
-    return torch.sum(torch.polar(torch.exp(total_re), total_im))
+    return torch.sum(linalg.complex_exp(total_re, total_im, CUi.dtype))
 
 
 def wm_norm_arrays(params: WMParams, bc: WMBatchConstants, state: TrajState,
                    derived: WMDerived, log_v, det_inv=None):
     """(pack, arrays) of the WM pair sum (see `_wm_norm_block_term`);
     `det_inv` defaults to `linalg.batched_det_inv` (K3 on the card; a
-    check can hand it the plain version instead)."""
-    U = _c(params.U)
-    dq0i = _c(params.hk.q0[None, :] - bc.base.qi)
+    check can hand it the plain version instead). Everything per
+    trajectory is at the pack's dtype, the log-coefficients included."""
+    cd, rd = params.cdtype, params.dtype
+    U = params.U.to(cd)
+    dq0i = _center_minus(params.hk.q0, params.hk.q0c, bc.base.qi).to(cd)
     dvec = (torch.einsum("nji,nj->ni", derived.CqQ, dq0i)
             + 1j * (derived.PIQ / hbar))                      # (n, d)
     UC = torch.einsum("ia,nij->naj", U, derived.CQQ)          # (n, r, d)
     pack = (params.m_scale, params.m_log_det,
             det_inv or linalg.batched_det_inv)
-    return pack, (state.q, dvec, derived.CQQ, UC, UC @ U, dvec @ U, *log_v)
+    return pack, (state.q.to(rd), dvec, derived.CQQ, UC, UC @ U, dvec @ U,
+                  *(x.to(rd) for x in log_v))
 
 
 def wm_norm(params: WMParams, bc: WMBatchConstants, state: TrajState,
@@ -851,11 +928,13 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
         accurate but need more trajectories.
     device : torch device of the propagation
     integrator : "rk4" or "exact", as for HermanKlukPropagator
+    dtype, traj_dtype : the precision mode, as for HermanKlukPropagator
     """
 
     def __init__(self, Gamma_i, Gamma_t, alpha, beta, device,
-                 integrator="rk4"):
-        super().__init__(Gamma_i, Gamma_t, device, integrator=integrator)
+                 integrator="rk4", dtype=torch.float64, traj_dtype=None):
+        super().__init__(Gamma_i, Gamma_t, device, integrator=integrator,
+                         dtype=dtype, traj_dtype=traj_dtype)
         self.alpha = float(alpha)
         self.beta = float(beta)
 
@@ -863,7 +942,7 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
         return _build_wm_params(
             super()._make_params(Gamma_0, q0, p0, sampling), self.Gamma_i,
             self.Gamma_t, Gamma_0, sampling.U, sampling.iGi0, self.alpha,
-            self.beta, self.device)
+            self.beta, self.device, self.dtype)
 
     def _make_batch_constants(self, qi, pi, log_prob, potential):
         return wm_batch_constants(self.params, qi, pi, log_prob, potential)
@@ -955,7 +1034,8 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
                             device=self.device)
         psi, zmax = wm_wavefunction(self.params, self.bc, self.state,
                                     derived, log_v, x)
-        return psi.cpu().numpy() * np.exp(zmax.cpu().numpy())
+        return (psi.cpu().numpy().astype(np.complex128)
+                * np.exp(zmax.cpu().numpy().astype(np.float64)))
 
     def norm(self, sample_pairs=None, key=0, block=None):
         """|psi| (O(n^2) with K3 on every block pair's (bi bj, r, r) pair

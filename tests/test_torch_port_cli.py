@@ -3,8 +3,8 @@
 on the CPU: methylium at 64 trajectories x 20 steps end to end with HK and
 with WM, the npz contract against the JAX CLI's file for the same task,
 and the refusals — keywords outside the ported slice, an unknown
-integrator, an odd antithetic micro-batch under error bars, precisions
-other than f64, and a CUDA run without CUDA.
+integrator, an odd antithetic micro-batch under error bars, an unknown
+precision mode, and a CUDA run without CUDA.
 """
 
 import json
@@ -161,10 +161,14 @@ def test_wm_micro_batch_raises(config, tmp_path):
         config["semi"][0]["results"]["correlations"]).exists()
 
 
-def test_precision_other_than_f64_raises(config, tmp_path):
+def test_unknown_precision_raises(config, tmp_path):
+    """A precision mode other than f64, mixed, comp32 and f32 is refused
+    up front, naming it, before the npz is written."""
     path = _write(config, tmp_path / "semi.json")
-    with pytest.raises(ConfigurationError, match="precision 'mixed'"):
-        cli.main(["dynamics", path, "--device", "cpu", "--precision", "mixed"])
+    with pytest.raises(ConfigurationError, match="precision 'bf16'"):
+        cli.main(["dynamics", path, "--device", "cpu", "--precision", "bf16"])
+    assert not pathlib.Path(
+        config["semi"][0]["results"]["correlations"]).exists()
 
 
 def test_cuda_without_cuda_raises(config, tmp_path, monkeypatch):
