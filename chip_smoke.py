@@ -77,7 +77,9 @@ K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
              (98304, 60), (8192, 60) and (1000, 5) in float64 and (98304,
              60) in float32, every output row within 1e-12 (float64) / 1e-5
              (float32) of its own largest entry; times at (98304, 60)
-             float64;
+             float64 and float32; its C entry point called directly (the
+             outputs allocated once) in turns with the wrapper, beside the
+             byte bound and the share of it, in both types;
 5. HK methylium — examples/methylium_AH at its own size (50,000
              trajectories x 2000 steps, batches of 10,000) through the
              port's `cli.main(["dynamics", ...])` and
@@ -135,7 +137,7 @@ K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
 8b. sampling — the HK AS example at 32,768 x 200 steps with error bars and
              `sampling` "antithetic", then "sobol": |C(0) - 1| < 1e-3,
              finite stderr, the two sampling-statistics lines logged;
-8c. micro_batch — the WM AS example at 98,304 x 200 steps with
+8c. micro_batch — the WM AS example at 98,304 x 100 steps with
              `micro_batch` 8192 against the whole batch at the same seed:
              C(t) and k~ic(t) within 1e-12 of their largest modulus; both
              walls and K5's launches printed;
@@ -178,8 +180,9 @@ P. the precision modes (`--precision`), each at its f64 phase's seed and
              S, the launches by dtype and the device's busy share over 10
              traced steps of the first batch; TF32 is checked off first:
    HK / WM methylium mixed — after 6, the first batch of the example in
-             memory (10,000 x 2000 steps; cut from the five batches of the
-             CLI run to keep the script near 800 s) at f64 and at mixed
+             memory (10,000 x 500 steps; cut from the five batches of 2000
+             steps of the CLI run to keep the script near 900 s) at f64
+             and at mixed
              from the same draws: C(t) within 1e-4 and k~ic(t) within 1e-3
              of the f64 batch's largest modulus, K1 at complex64 on every
              step (and K2 three times per WM step), no complex128 launch
@@ -194,6 +197,31 @@ P. the precision modes (`--precision`), each at its f64 phase's seed and
    HK / WM coumarin mixed — after 11: within 1e-4 / 1e-3 of the f64 runs,
              K4 at complex64 on every step (WM: K2 three times per step,
              K3 twice per batch), no complex128 launch;
+   HK / WM methylium exact comp32 — after 6c: the first batch in memory
+             with `integrator` "exact" at f64 and at comp32 (as the mixed
+             phases): within 6e-4 / 1.5e-3, K1 at complex64 on every step,
+             under WM K2 three times per step and K3 twice for the batch,
+             no complex128 launch;
+   HK / WM AS exact comp32 — after 8a: semi.json / semi_wm.json as
+             shipped with `integrator` "exact" at comp32: the AS gates,
+             within 6e-4 / 1.5e-3 of the HK / WM AS exact runs, the
+             RK4-routed rows, K5 at float32 on every WM step and none at
+             float64, the dtypes float32 q and qc, float32 Z, float64 S;
+   HK AS exact f32 — 98,304 x 200 steps with `integrator` "exact" at f32
+             and at f64: within 5e-2 / 1e-1, float32 q, Z and S;
+R. the AS model's reduced-cost Hessian, at f64:
+   HK / WM AS taylor — semi.json / semi_wm.json as shipped with
+             `hessian_eval` "taylor" and `taylor_every` 8: the AS gates,
+             the hessian_eval log line, max_t |C_taylor - C_stage| against
+             the HK / WM AS runs within 10x the JAX package's own gap at
+             the same draws (TAYLOR_STAGE_GAP_JAX, held by
+             tests/test_torch_port_taylor_gap.py), K5 at float64 on every
+             WM step, ms per step beside the stage run's;
+   HK AS step — the first batch, 98,304 x 200 steps in memory with
+             `hessian_eval` "step" and "stage": q, p and S within 1e-12 of
+             the stage run's largest values (the JAX package's contract is
+             bit for bit), the C(t) gap printed;
+             each of these phases prints the precision line as P does;
 12. the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -233,6 +261,14 @@ WM_HK_GATE_AS = 4.1e-4
 EXACT_RK4_GAP_JAX = {"HK methylium": 3.057e-13, "HK AS": 1.464e-11,
                      "WM AS": 1.458e-11}
 EXACT_GAP_FACTOR = 10.0
+# max_t |C_taylor(t) - C_stage(t)| of the JAX package at float64 on the CPU,
+# same draws, the 60-mode AS model's hessian_eval "taylor" with taylor_every
+# 8 against the 4-stage Hessian, 256 trajectories x 2000 steps of 0.005 fs in
+# segments of 500 (recomputed and held to these values by
+# tests/test_torch_port_taylor_gap.py); the port's gap on the card is gated
+# at TAYLOR_GAP_FACTOR times them
+TAYLOR_STAGE_GAP_JAX = {"HK AS": 3.423e-4, "WM AS": 3.409e-4}
+TAYLOR_GAP_FACTOR = 10.0
 # the coarse-grid run's (16x time_step_fs) closed-form rows against the
 # full run's at the same time, relative to each field's largest value
 COARSE_GATE = 1e-9
@@ -254,6 +290,15 @@ PRECISION_GATES = {"mixed": (1e-4, 1e-3), "comp32": (6e-4, 1.5e-3),
                    "f32": (5e-2, 1e-1)}
 # the WM norm in mixed precision against f64 (JAX test_precision.py)
 NORM_MIXED_GATE = 2e-3
+# the state's dtypes in the modes with float32 trajectories
+EXPECT_DTYPES = {
+    "comp32": {"q": "float32", "qc": "float32", "Z": "float32",
+               "S": "float64"},
+    "f32": {"q": "float32", "qc": None, "Z": "float32", "S": "float32"},
+    "f64": {"q": "float64", "qc": None, "Z": "float64", "S": "float64"}}
+# the "step" run's q, p and S against the "stage" run's, relative to each
+# field's largest value: the JAX package's contract is bit for bit
+STEP_GATE = 1e-12
 # flops per (trajectory, mode) of K5, counted from csrc/wm_diag.cu
 K5_FLOPS = 290
 
@@ -1021,27 +1066,28 @@ def write_as_model(tmp):
     return str(model)
 
 
-def as_config(file, model, **dynamics_keys):
-    """examples/as_model/`file` with its model file at `model` and
-    `dynamics_keys` set on the dynamics task."""
+def as_config(file, model, potential_keys=None, **dynamics_keys):
+    """examples/as_model/`file` with its model file at `model`,
+    `potential_keys` set on its potential and `dynamics_keys` on the
+    dynamics task."""
     with open(AS_EXAMPLE / file) as f:
         config = json.load(f)
     for task in config["semi"]:
         if task["task"] == "dynamics":
-            task["potential"]["model_file"] = model
+            task["potential"].update(potential_keys or {}, model_file=model)
             task.update(dynamics_keys)
     return config
 
 
 def as_run(cli, ops, smi, model, label, file, precision="f64",
-           **dynamics_keys):
-    """examples/as_model/`file` as shipped (with `dynamics_keys` set on its
-    dynamics task), at its own size, through the port's CLI on cuda at
-    `precision`; the error-bar and spectrum gates where the file asks for
-    them."""
+           potential_keys=None, **dynamics_keys):
+    """examples/as_model/`file` as shipped (with `potential_keys` set on its
+    potential and `dynamics_keys` on its dynamics task), at its own size,
+    through the port's CLI on cuda at `precision`; the error-bar and
+    spectrum gates where the file asks for them."""
     import numpy as np
 
-    config = as_config(file, model, **dynamics_keys)
+    config = as_config(file, model, potential_keys, **dynamics_keys)
     with tempfile.TemporaryDirectory() as tmp:
         data, launches, task, wall, lines = run_path(cli, ops, config, {},
                                                      tmp, precision)
@@ -1131,7 +1177,7 @@ def sampling_phase(cli, ops, smi, model):
 
 
 def micro_phase(cli, ops, smi, model):
-    """The WM AS example at 98,304 x 200 steps with micro_batch 8192
+    """The WM AS example at 98,304 x 100 steps with micro_batch 8192
     against the whole batch at the same seed."""
     import numpy as np
 
@@ -1139,13 +1185,13 @@ def micro_phase(cli, ops, smi, model):
     for micro in (0, 8192):
         with tempfile.TemporaryDirectory() as tmp:
             data, launches, _, wall, _ = run_path(
-                cli, ops, as_config("semi_wm.json", model, num_steps=200,
+                cli, ops, as_config("semi_wm.json", model, num_steps=100,
                                     micro_batch=micro), {}, tmp)
         runs[micro] = (data, launches, wall)
     errs = [float(np.abs(runs[8192][0][k] - runs[0][0][k]).max()
                   / np.abs(runs[0][0][k]).max())
             for k in ("autocorrelation", "ic_correlation")]
-    print(f"micro_batch: WM AS 98304 x 200 steps, dynamics command "
+    print(f"micro_batch: WM AS 98304 x 100 steps, dynamics command "
           f"{runs[0][2]:.3f} s whole ({runs[0][1]['K5']} K5 launches), "
           f"{runs[8192][2]:.3f} s in sub-batches of 8192 "
           f"({runs[8192][1]['K5']} K5 launches) [{smi}]; max |C - C_whole| /"
@@ -1411,15 +1457,16 @@ def first_batch(cli, task, cls, *args, precision="f64",
                 with_potential=False):
     """The first repetition's batch of `task` at t = 0, drawn as the CLI
     draws it at seed SEED, at `precision` (the potential in the mode's
-    form, as the CLI builds it); with `with_potential`, (the propagator,
-    that potential)."""
+    form, as the CLI builds it) with the task's integrator; with
+    `with_potential`, (the propagator, that potential)."""
     import torch
 
     potential, q0, p0, G, _, _, _ = cli._build_potential(task, "cuda")
     dtype, traj_dtype = cli._precision_dtypes(precision)
     potential = cli._reduced_potential(potential, dtype)
     prop = cls(G, G, *args, device="cuda", dtype=dtype,
-               traj_dtype=traj_dtype)
+               traj_dtype=traj_dtype,
+               integrator=task.get("integrator", "rk4"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cli._repetition_seed(SEED, 0))
     prop.initial_conditions(q0, p0, G, potential,
@@ -1606,10 +1653,48 @@ def k5_phase(cli, wm_diag, model):
     print(timing_line("K5", "(98304, 60) float32", t32,
                       *bound((14 * n * d + wm_diag.N_SCAL * n + 17 * d) * 4,
                              K5_FLOPS * n * d, True), "none"), flush=True)
+    k5_direct_rows(wm_diag, {"float64": (planes, pack),
+                             "float32": (planes32,
+                                         pack.to(torch.float32).contiguous())})
     del planes, planes32
     torch.cuda.empty_cache()
     return dict(timed, max_abs_err=main_abs_err, bound_ms=b[0],
                 bound_by=b[1])
+
+
+def k5_direct_rows(wm_diag, inputs):
+    """K5's C entry point called directly at (98304, 60), its outputs
+    allocated once, in turns with the wrapper (direct, wrapper, wrapper,
+    direct), beside the byte bound and the share of it the entry point
+    reaches; one line per type of `inputs` ({dtype name: (planes,
+    pack)})."""
+    import numpy as np
+    import torch
+
+    for dname, (planes, pack) in inputs.items():
+        n, d = planes[0].shape
+        scal = torch.empty((n, wm_diag.N_SCAL), dtype=pack.dtype,
+                           device=pack.device)
+        det_planes = torch.empty((4, n, d), dtype=pack.dtype,
+                                 device=pack.device)
+        suffix = "f64" if pack.dtype == torch.float64 else "f32"
+        direct = direct_call(f"semi_wm_diag_{suffix}",
+                             (*planes, pack, scal, det_planes), n, d)
+        t = {"direct": [], "wrapper": []}
+        for name in ("direct", "wrapper", "wrapper", "direct"):
+            t[name] += (median_ms(direct, loops=5, calls=20)
+                        if name == "direct" else
+                        median_ms(wm_diag.wm_diag_derived, *planes, pack,
+                                  loops=5, calls=20))
+        dms, wms = (float(np.median(t[k])) for k in ("direct", "wrapper"))
+        size = pack.element_size()
+        b_ms, b_by = bound((14 * n * d + wm_diag.N_SCAL * n + 17 * d) * size,
+                           K5_FLOPS * n * d, pack.dtype == torch.float32)
+        print(f"K5 direct ({n}, {d}) {dname}: entry point called directly "
+              f"{dms:.4f} ms, through the wrapper {wms:.4f} ms per call "
+              f"(median of CUDA-event windows of 20 calls); bound {b_ms:.4f}"
+              f" ms ({b_by}): the entry point at {100 * b_ms / dms:.1f}% of "
+              "it", flush=True)
 
 
 def coumarin_task(file):
@@ -1747,11 +1832,12 @@ def trace_busy(prop, potential, dt, steps):
 
 
 def mode_line(cli, label, precision, run, cls, args, by_dtype, smi,
-              prop=None):
+              prop=None, expect=None):
     """The precision phase's line: the mode, the dtypes of q, qc, Z and S
-    (of `prop`, or the first batch of the run's task drawn at the mode),
-    the launches by dtype, and the device's busy share over 10 traced
-    steps of that batch."""
+    (of `prop`, or the first batch of the run's task drawn at the mode,
+    after 10 traced steps), the launches by dtype, and the device's busy
+    share over those steps; fails unless the dtypes are `expect` (a dict
+    like EXPECT_DTYPES' entries) where given."""
     import torch
 
     from semiclassical_tpu_torch import units
@@ -1763,10 +1849,10 @@ def mode_line(cli, label, precision, run, cls, args, by_dtype, smi,
                                       with_potential=True)
     else:
         potential = run["potential"]
-    st = prop.state
     dt = task["time_step_fs"] / units.autime_to_fs
     prop._run(potential, dt, 2)                      # warm-up
     share, kernels, device_ms = trace_busy(prop, potential, dt, 10)
+    st = prop.state
     dtypes = {name: (None if getattr(st, name) is None
                      else str(getattr(st, name).dtype).removeprefix("torch."))
               for name in ("q", "qc", "Z", "S")}
@@ -1775,6 +1861,8 @@ def mode_line(cli, label, precision, run, cls, args, by_dtype, smi,
           f"{run['wall']:.3f} s; device busy {100 * share:.1f}% over 10 "
           f"traced steps of the first batch ({kernels:.1f} kernels, "
           f"{device_ms:.4f} device ms per step) [{smi}]", flush=True)
+    check(expect is None or dtypes == expect,
+          f"{label} {precision}: dtypes {dtypes}, expected {expect}")
     del prop
     torch.cuda.empty_cache()
 
@@ -1810,13 +1898,17 @@ def reduced_launches(label, by_dtype, need):
                             f"reduced type, expected at least {least}")
 
 
-def methylium_mixed_phase(cli, ops, smi, label, f64_run):
+def methylium_batch_phase(cli, ops, smi, label, f64_run, precision="mixed",
+                          nsteps=None, **task_keys):
     """The first batch of the methylium task of `label` ("HK" or "WM", the
-    f64 phase's task) in memory, 10,000 trajectories x 2000 steps at f64
-    and at mixed from the same draws (cut from the example's 5 batches
-    through the CLI, to keep the script's wall near 800 s; the CLI's mixed
-    path runs in the AS and coumarin phases): C(t) and k~ic(t) against
-    f64, K1 at complex64 on every step (and K2 three times per WM step)
+    f64 phase's task with `task_keys` set) in memory, 10,000 trajectories x
+    `nsteps` steps (default the task's 2000) at f64 and at `precision` from
+    the same draws (cut from the example's 5 batches through the CLI, to
+    keep the script's wall near 900 s; the CLI's reduced paths run in the
+    AS and coumarin phases): C(t)
+    and k~ic(t) against f64 within PRECISION_GATES, K1 at complex64 on
+    every step (under WM also K2 three times per step and K3 twice for the
+    batch's trackers: the counts are set to 0 before the batch is drawn)
     and no complex128 launch."""
     import torch
 
@@ -1824,82 +1916,188 @@ def methylium_mixed_phase(cli, ops, smi, label, f64_run):
     from semiclassical_tpu_torch.propagation import (
         HermanKlukPropagator, WaltonManolopoulosPropagator)
 
-    task = f64_run["task"]
+    task = dict(f64_run["task"], **task_keys)
     cls, args = ((WaltonManolopoulosPropagator, (CELL_WIDTH, CELL_WIDTH))
                  if label == "WM" else (HermanKlukPropagator, ()))
     dt = task["time_step_fs"] / units.autime_to_fs
-    nsteps = task["num_steps"]
+    nsteps = nsteps or task["num_steps"]
+    name = f"{label} methylium" + (" exact" if task.get("integrator")
+                                   == "exact" else "")
     runs = {}
-    for precision in ("f64", "mixed"):
-        prop, potential = first_batch(cli, task, cls, *args,
-                                      precision=precision,
-                                      with_potential=True)
+    for mode in ("f64", precision):
         reset_counts(ops)
+        prop, potential = first_batch(cli, task, cls, *args, precision=mode,
+                                      with_potential=True)
         t0 = time.perf_counter()
         cauto, kic = prop.propagate(potential, dt, nsteps, chunk=100)
         torch.cuda.synchronize()
-        runs[precision] = dict(autocorrelation=cauto, ic_correlation=kic,
-                               wall=time.perf_counter() - t0, task=task,
-                               potential=potential, prop=prop,
-                               by_dtype=read_counts_by_dtype(ops))
-        print(f"{label} methylium first batch {prop.ntraj} x {nsteps} steps "
-              f"at {precision}: {runs[precision]['wall']:.3f} s, "
-              f"{prop.ntraj * nsteps / runs[precision]['wall']:.0f} "
-              f"traj-steps/s [{smi}]", flush=True)
-        if precision == "f64":
+        runs[mode] = dict(autocorrelation=cauto, ic_correlation=kic,
+                          wall=time.perf_counter() - t0, task=task,
+                          potential=potential, prop=prop,
+                          by_dtype=read_counts_by_dtype(ops))
+        print(f"{name} first batch {prop.ntraj} x {nsteps} steps at {mode}: "
+              f"{runs[mode]['wall']:.3f} s, "
+              f"{prop.ntraj * nsteps / runs[mode]['wall']:.0f} traj-steps/s "
+              f"[{smi}]", flush=True)
+        if mode == "f64":
             del prop
             runs["f64"].pop("prop")
-    mixed = runs["mixed"]
-    check(abs(mixed["autocorrelation"][0] - 1.0) < 1e-3,
-          f"{label} methylium mixed |C(0) - 1|")
-    precision_curves(f"{label} methylium first batch", "mixed", mixed,
-                     runs["f64"])
-    # the counts were set to 0 after the batch's trackers were built
+    run = runs[precision]
+    check(abs(run["autocorrelation"][0] - 1.0) < 1e-3,
+          f"{name} {precision} |C(0) - 1|")
+    precision_curves(f"{name} first batch", precision, run, runs["f64"])
     need = {"K1": nsteps}
     if label == "WM":
-        need["K2"] = 3 * nsteps
-    reduced_launches(f"{label} methylium mixed", mixed["by_dtype"], need)
-    mode_line(cli, f"{label} methylium", "mixed", mixed, cls, args,
-              mixed["by_dtype"], smi, prop=mixed.pop("prop"))
+        need.update(K2=3 * nsteps, K3=2)
+    reduced_launches(f"{name} {precision}", run["by_dtype"], need)
+    mode_line(cli, name, precision, run, cls, args, run["by_dtype"], smi,
+              prop=run.pop("prop"))
 
 
-def as_comp32_phase(cli, ops, smi, model, label, file, ref):
-    """The AS example `file` as shipped at --precision comp32, at the f64
-    run's seed and size: the AS gates, C(t) and k~ic(t) against the f64
-    run, K5 at float32 on every WM step."""
+def as_comp32_phase(cli, ops, smi, model, label, file, ref,
+                    **dynamics_keys):
+    """The AS example `file` as shipped (with `dynamics_keys` set on its
+    dynamics task) at --precision comp32, at the f64 run `ref`'s seed and
+    size: the AS gates, C(t) and k~ic(t) against `ref`, K5 at float32 on
+    every WM step and none at float64, the comp32 dtypes; with integrator
+    "exact" also the RK4-routed rows."""
     from semiclassical_tpu_torch.propagation import (
         HermanKlukPropagator, WaltonManolopoulosPropagator)
 
-    run, _ = as_run(cli, ops, smi, model, f"{label} comp32", file, "comp32")
+    exact = dynamics_keys.get("integrator") == "exact"
+    name = f"{label} AS exact" if exact else f"{label} AS"
+    run, _ = as_run(cli, ops, smi, model,
+                    f"{label} exact comp32" if exact else f"{label} comp32",
+                    file, "comp32", **dynamics_keys)
     by_dtype = dict(LAST_BY_DTYPE)
-    precision_curves(f"{label} AS", "comp32", run, ref)
+    if exact:
+        print(f"{name} comp32: RK4-routed rows {routed_rows(run['lines'])}",
+              flush=True)
+    precision_curves(name, "comp32", run, ref)
     steps = run["nsteps"] * run["nrep"]
-    reduced_launches(f"{label} AS comp32", by_dtype,
+    reduced_launches(f"{name} comp32", by_dtype,
                      {"K5": steps} if label == "WM" else {})
     cls, args = ((WaltonManolopoulosPropagator, (CELL_WIDTH, CELL_WIDTH))
                  if label == "WM" else (HermanKlukPropagator, ()))
-    mode_line(cli, f"{label} AS", "comp32", run, cls, args, by_dtype, smi)
+    mode_line(cli, name, "comp32", run, cls, args, by_dtype, smi,
+              expect=EXPECT_DTYPES["comp32"])
 
 
-def as_f32_phase(cli, ops, smi, model):
-    """The HK AS example cut to 98,304 x 200 steps at f64 and at
-    --precision f32, same seed: C(t) and k~ic(t) within the f32 gates."""
+def as_f32_phase(cli, ops, smi, model, **dynamics_keys):
+    """The HK AS example (with `dynamics_keys` set on its dynamics task)
+    cut to 98,304 x 200 steps at f64 and at --precision f32, same seed:
+    C(t) and k~ic(t) within the f32 gates, the f32 dtypes; with integrator
+    "exact" also the RK4-routed rows."""
     from semiclassical_tpu_torch.propagation import HermanKlukPropagator
 
+    name = ("HK AS exact" if dynamics_keys.get("integrator") == "exact"
+            else "HK AS")
     runs = {}
     for precision in ("f64", "f32"):
         with tempfile.TemporaryDirectory() as tmp:
-            data, _, task, wall, _ = run_path(
-                cli, ops, as_config("semi.json", model, num_steps=200), {},
-                tmp, precision)
-        runs[precision] = dict(data, task=task, wall=wall,
+            data, _, task, wall, lines = run_path(
+                cli, ops, as_config("semi.json", model, num_steps=200,
+                                    **dynamics_keys), {}, tmp, precision)
+        runs[precision] = dict(data, task=task, wall=wall, lines=lines,
                                by_dtype=dict(LAST_BY_DTYPE))
-    print(f"HK AS 98304 x 200 steps: dynamics command "
+    routed = (f"; RK4-routed rows {routed_rows(runs['f32']['lines'])} at "
+              "f32" if "exact" in name else "")
+    print(f"{name} 98304 x 200 steps: dynamics command "
           f"{runs['f64']['wall']:.3f} s f64, {runs['f32']['wall']:.3f} s f32 "
-          f"[{smi}]", flush=True)
-    precision_curves("HK AS 98304 x 200", "f32", runs["f32"], runs["f64"])
-    mode_line(cli, "HK AS", "f32", runs["f32"], HermanKlukPropagator, (),
-              runs["f32"]["by_dtype"], smi)
+          f"[{smi}]{routed}", flush=True)
+    precision_curves(f"{name} 98304 x 200", "f32", runs["f32"], runs["f64"])
+    mode_line(cli, name, "f32", runs["f32"], HermanKlukPropagator, (),
+              runs["f32"]["by_dtype"], smi, expect=EXPECT_DTYPES["f32"])
+
+
+def as_taylor_phase(cli, ops, smi, model, label, file, stage):
+    """The AS example `file` as shipped with hessian_eval "taylor" and
+    taylor_every 8 at the stage run's seed and size: the AS gates, C(t)
+    against the stage run within TAYLOR_GAP_FACTOR x the JAX package's
+    own taylor-vs-stage gap, the hessian_eval log line, K5 at float64 on
+    every WM step."""
+    import numpy as np
+
+    from semiclassical_tpu_torch.propagation import (
+        HermanKlukPropagator, WaltonManolopoulosPropagator)
+
+    keys = {"hessian_eval": "taylor", "taylor_every": 8}
+    run, launches = as_run(cli, ops, smi, model, f"{label} taylor", file,
+                           potential_keys=keys)
+    by_dtype = dict(LAST_BY_DTYPE)
+    logged = any(line.split() == ["hessian_eval", ":", "taylor",
+                                  "(re-expansion", "every", "8", "steps)"]
+                 for line in run["lines"])
+    gap = float(np.abs(run["autocorrelation"]
+                       - stage["autocorrelation"]).max())
+    jax_gap = TAYLOR_STAGE_GAP_JAX[f"{label} AS"]
+    gate = TAYLOR_GAP_FACTOR * jax_gap
+    steps = run["nsteps"] * run["nrep"]
+    print(f"{label} AS taylor vs stage at seed {SEED}: max_t |C_taylor - "
+          f"C_stage| = {gap:.3e} (gate {gate:.3e}: {TAYLOR_GAP_FACTOR:g}x "
+          f"the JAX package's {jax_gap:.3e}); per step taylor "
+          f"{1e3 * run['wall'] / steps:.4f} ms, stage "
+          f"{1e3 * stage['wall'] / steps:.4f} ms [{smi}]; hessian_eval line "
+          f"logged: {logged}", flush=True)
+    check(logged, f"{label} AS taylor: no hessian_eval log line")
+    check(gap < gate, f"{label} AS taylor vs stage gap {gap:.3e} >= "
+                      f"{gate:.3e}")
+    if label == "WM":
+        got = by_dtype["K5"].get("float64", 0)
+        check(got >= steps, f"WM AS taylor: K5 launched {got} times at "
+                            f"float64 for {steps} steps")
+    cls, args = ((WaltonManolopoulosPropagator, (CELL_WIDTH, CELL_WIDTH))
+                 if label == "WM" else (HermanKlukPropagator, ()))
+    mode_line(cli, f"{label} AS taylor", "f64", run, cls, args, by_dtype,
+              smi, expect=EXPECT_DTYPES["f64"])
+
+
+def as_step_phase(cli, ops, smi, model):
+    """The HK AS example's first batch, 98,304 x 200 steps in memory with
+    hessian_eval "step" and "stage" from the same draws: q, p and S equal
+    to STEP_GATE (the trajectories do not depend on the mode), C(t)'s gap
+    printed (the monodromy freezes the midpoint Hessian)."""
+    import numpy as np
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.propagation import HermanKlukPropagator
+
+    runs = {}
+    for mode in ("stage", "step"):
+        task = as_config("semi.json", model, {"hessian_eval": mode},
+                         num_steps=200)["semi"][0]
+        reset_counts(ops)
+        prop, potential = first_batch(cli, task, HermanKlukPropagator,
+                                      with_potential=True)
+        dt = task["time_step_fs"] / units.autime_to_fs
+        t0 = time.perf_counter()
+        cauto, _ = prop.propagate(potential, dt, task["num_steps"],
+                                  chunk=500)
+        torch.cuda.synchronize()
+        runs[mode] = dict(autocorrelation=cauto, task=task,
+                          wall=time.perf_counter() - t0, prop=prop,
+                          potential=potential,
+                          by_dtype=read_counts_by_dtype(ops))
+    a, b = runs["step"]["prop"].state, runs["stage"]["prop"].state
+    errs = {name: float((getattr(a, name) - getattr(b, name)).abs().max()
+                        / getattr(b, name).abs().max())
+            for name in ("q", "p", "S")}
+    gap = float(np.abs(runs["step"]["autocorrelation"]
+                       - runs["stage"]["autocorrelation"]).max())
+    print(f"HK AS step: first batch {a.q.shape[0]} x 200 steps, step "
+          f"{runs['step']['wall']:.3f} s, stage {runs['stage']['wall']:.3f} s"
+          f" [{smi}]; step vs stage q, p, S "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" of the largest value (gate {STEP_GATE:g}); max_t |C_step - "
+          f"C_stage| = {gap:.3e}", flush=True)
+    check(max(errs.values()) <= STEP_GATE,
+          f"HK AS step trajectories differ from stage's: {errs}")
+    del runs["stage"]
+    step = runs["step"]
+    mode_line(cli, "HK AS step", "f64", step, HermanKlukPropagator, (),
+              step["by_dtype"], smi, prop=step.pop("prop"),
+              expect=EXPECT_DTYPES["f64"])
 
 
 def coumarin_mixed_phase(cli, ops, smi, label, file, ref):
@@ -2027,14 +2225,19 @@ def main():
                                 "HK")
         wm, wm_launches = phase("WM methylium", wm_phase, cli, ops, smi, hk)
         check_tf32()
-        phase("HK methylium mixed", methylium_mixed_phase, cli, ops, smi,
-              "HK", hk)
-        phase("WM methylium mixed", methylium_mixed_phase, cli, ops, smi,
-              "WM", wm)
+        # mixed at 500 of the example's 2000 steps: the script's wall
+        phase("HK methylium mixed", methylium_batch_phase, cli, ops, smi,
+              "HK", hk, nsteps=500)
+        phase("WM methylium mixed", methylium_batch_phase, cli, ops, smi,
+              "WM", wm, nsteps=500)
         hk_ex = phase("HK methylium exact", exact_methylium_phase, cli, ops,
                       smi, hk, hk_launches)
         phase("WM methylium exact", exact_wm_methylium_phase, cli, ops, smi,
               hk_ex, wm, wm_launches)
+        phase("HK methylium exact comp32", methylium_batch_phase, cli, ops,
+              smi, "HK", hk, "comp32", integrator="exact")
+        phase("WM methylium exact comp32", methylium_batch_phase, cli, ops,
+              smi, "WM", wm, "comp32", integrator="exact")
         hk_as, hk_as_launches = phase("HK AS", as_run, cli, ops, smi, model,
                                       "HK", "semi.json")
         phase("HK AS error bars", error_bars_identity, cli, ops, model)
@@ -2047,8 +2250,19 @@ def main():
         phase("HK AS f32", as_f32_phase, cli, ops, smi, model)
         hk_as_ex = phase("HK AS exact", exact_as_phase, cli, ops, smi, model,
                          "HK", "semi.json", hk_as, hk_as_launches)
-        phase("WM AS exact", exact_as_phase, cli, ops, smi, model, "WM",
-              "semi_wm.json", wm_as, wm_as_launches)
+        wm_as_ex = phase("WM AS exact", exact_as_phase, cli, ops, smi, model,
+                         "WM", "semi_wm.json", wm_as, wm_as_launches)
+        phase("HK AS exact comp32", as_comp32_phase, cli, ops, smi, model,
+              "HK", "semi.json", hk_as_ex, integrator="exact")
+        phase("WM AS exact comp32", as_comp32_phase, cli, ops, smi, model,
+              "WM", "semi_wm.json", wm_as_ex, integrator="exact")
+        phase("HK AS exact f32", as_f32_phase, cli, ops, smi, model,
+              integrator="exact")
+        phase("HK AS taylor", as_taylor_phase, cli, ops, smi, model, "HK",
+              "semi.json", hk_as)
+        phase("WM AS taylor", as_taylor_phase, cli, ops, smi, model, "WM",
+              "semi_wm.json", wm_as)
+        phase("HK AS step", as_step_phase, cli, ops, smi, model)
         phase("AS exact coarse dt", coarse_phase, cli, ops, smi, model,
               hk_as_ex)
         phase("checkpoint", checkpoint_phase, cli, ops, smi, model, hk_as_ex)

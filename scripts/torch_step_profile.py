@@ -37,17 +37,26 @@ ones), and "exact_rk4_routed" counts the Morse map's RK4-routed rows. With
 the CLI on the same draws, its potential in the mode's form (keys "HK
 mixed", "WM mixed", ..., the windows in turns with the f64 ones), and each
 run's entry names the dtypes of q, Z and S and the launches per step by
-dtype.
+dtype. Given together with `--integrator exact`, the mode's runs take the
+exact integrator (keys "HK exact comp32", ...; "exact_rk4_routed_<mode>"
+counts their routed rows). With `--hessian-eval step|taylor` (and
+`--taylor-every N`, taylor only) each propagator also runs with the
+potential's reduced-cost Hessian at f64 (keys "HK taylor every 8", "WM
+step", ..., the windows in turns with the "stage" ones; the taylor window
+restarts at the head of every timed or traced run, so make `--window` and
+`--steps` multiples of N).
 
 Prints one JSON object, and writes it to `--out` if given.
 
     python scripts/torch_step_profile.py [--example as|coumarin|methylium]
         [--ntraj N] [--steps 48] [--window 200] [--error-bars]
         [--integrator rk4|exact] [--precision mixed|comp32|f32]
+        [--hessian-eval step|taylor] [--taylor-every N]
         [--out profile.json]
 """
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -160,13 +169,21 @@ def main(argv=None):
                         default="rk4")
     parser.add_argument("--precision", choices=("mixed", "comp32", "f32"),
                         default=None)
+    parser.add_argument("--hessian-eval", choices=("step", "taylor"),
+                        default=None)
+    parser.add_argument("--taylor-every", type=int, default=1)
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
-    if args.precision in ("comp32", "f32") and args.integrator == "exact":
-        parser.error("the exact integrators run under 'f64' and 'mixed'")
     if args.integrator == "exact" and args.example == "coumarin":
         parser.error("the exact integrators cover the 'as' and 'methylium' "
                      "examples")
+    if args.hessian_eval and args.example != "as":
+        parser.error("--hessian-eval profiles the AS model's reduced-cost "
+                     "Hessian (the coumarin example ships with its own)")
+    if args.taylor_every < 1 or (args.taylor_every > 1
+                                 and args.hessian_eval != "taylor"):
+        parser.error("--taylor-every N >= 1, above 1 with --hessian-eval "
+                     "taylor only")
     if not torch.cuda.is_available():
         print("torch_step_profile: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -205,12 +222,25 @@ def main(argv=None):
     if args.precision:
         dtypes = cli._precision_dtypes(args.precision)
         mode_potential = cli._reduced_potential(potential, dtypes[0])
+        exact = " exact" if args.integrator == "exact" else ""
         for name in ("HK", "WM"):
-            label = f"{name} {args.precision}"
+            label = f"{name}{exact} {args.precision}"
             props[label] = _propagator(name, G, q0, mode_potential,
                                        args.ntraj, args.seed,
-                                       dtypes=dtypes)
+                                       args.integrator, dtypes)
             potentials[label] = mode_potential
+            runs.append((label, label, False))
+    if args.hessian_eval:
+        reduced = dataclasses.replace(potential,
+                                      hessian_eval=args.hessian_eval,
+                                      taylor_every=args.taylor_every)
+        every = (f" every {args.taylor_every}" if args.taylor_every > 1
+                 else "")
+        for name in ("HK", "WM"):
+            label = f"{name} {args.hessian_eval}{every}"
+            props[label] = _propagator(name, G, q0, reduced, args.ntraj,
+                                       args.seed)
+            potentials[label] = reduced
             runs.append((label, label, False))
     for name, prop in props.items():
         prop._run(potentials[name], dt, 20)           # warm-up
@@ -246,9 +276,12 @@ def main(argv=None):
             launches_per_step={k: (after[k] - before[k]) / args.steps
                                for k in after if after[k] > before[k]})
         result[label] = trace
-    if args.integrator == "exact" and props["HK exact"]._morse is not None:
-        sub = props["HK exact"]._morse.pack.sub_idx
-        result["exact_rk4_routed"] = 0 if sub is None else int(sub.numel())
+    for label, key in (("HK exact", "exact_rk4_routed"),
+                       (f"HK exact {args.precision}",
+                        f"exact_rk4_routed_{args.precision}")):
+        if label in props and props[label]._morse is not None:
+            sub = props[label]._morse.pack.sub_idx
+            result[key] = 0 if sub is None else int(sub.numel())
     result["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
     text = json.dumps(result, indent=1)
     print(text)

@@ -16,10 +16,9 @@ same `.npz` accumulation semantics:
 raises when that device is not available and never moves to another one.
 `--precision` selects the numerical mode of the JAX package ("f64", the
 default on every device, "mixed", "comp32" or "f32"; see `PRECISIONS`).
-Task keywords outside the ported slice (the AS model's reduced-cost
-Hessian, the exact integrators under "comp32" and "f32") raise
-`ConfigurationError` naming them, rather than being ignored. The
-checkpoints of `checkpoint` are the port's own format
+Task keywords outside the ported slice (other propagators or potential
+types, unknown names) raise `ConfigurationError` naming them, rather than
+being ignored. The checkpoints of `checkpoint` are the port's own format
 (`semiclassical_tpu_torch.checkpoint`).
 """
 
@@ -35,6 +34,7 @@ import sys
 import numpy as np
 
 from semiclassical_tpu_torch.config import ConfigurationError, validate_task
+from semiclassical_tpu_torch.propagation.eom import HESSIAN_EVAL_MODES
 from semiclassical_tpu_torch.sampling import SAMPLING_METHODS
 
 logger = logging.getLogger(__name__)
@@ -155,11 +155,10 @@ def _load_tasks(json_input, kind):
 def check_slice(task, precision="f64"):
     """Raise ConfigurationError, naming the keyword, for a dynamics task
     that asks for anything outside the ported slice (HK, or WM with
-    `cell_width`; the molecular harmonic PES and the anharmonic AS model
-    with the 4-stage Hessian, the sGDML PES with `hess_dtype`,
-    `hessian_eval`, `taylor_every` and `eg_mode`; the precision modes of
-    `PRECISIONS`, the exact integrators under "f64" and "mixed"), and
-    validate up front the integrator name and the statistics keywords
+    `cell_width`; the molecular harmonic PES, the anharmonic AS model and
+    the sGDML PES, the latter with `hess_dtype` and `eg_mode`; the
+    precision modes of `PRECISIONS`), and validate up front the names of
+    the integrator and of `hessian_eval` and the statistics keywords
     `sampling`, `micro_batch`, `calc_norm_every` and `norm_samples`."""
     if precision not in PRECISIONS:
         raise ConfigurationError(
@@ -182,25 +181,15 @@ def check_slice(task, precision="f64"):
             raise ConfigurationError(
                 f"hess_dtype '{hess_dtype}' is not ported (ported: "
                 "'float32', 'float64')")
-    else:
-        if hessian_eval != "stage":
-            raise ConfigurationError(
-                f"hessian_eval '{hessian_eval}' is not ported yet for the "
-                f"'{ptype}' potential (ported: 'stage'; the 'gdml' "
-                "potential takes 'stage', 'step' and 'taylor')")
-        if pot.get("taylor_every", 1) != 1:
-            raise ConfigurationError(
-                f"potential keyword 'taylor_every' is not ported yet for "
-                f"the '{ptype}' potential (the 'gdml' potential takes it)")
+    if hessian_eval not in HESSIAN_EVAL_MODES:
+        raise ConfigurationError(
+            f"hessian_eval '{hessian_eval}' is unknown (expected one of "
+            + ", ".join(f"'{m}'" for m in HESSIAN_EVAL_MODES) + ")")
     integrator = task.get("integrator", "rk4")
     if integrator not in INTEGRATORS:
         raise ConfigurationError(
             f"integrator '{integrator}' is unknown (expected 'rk4' or "
             "'exact')")
-    if integrator == "exact" and precision in ("comp32", "f32"):
-        raise ConfigurationError(
-            f"integrator 'exact' with precision '{precision}' is not ported "
-            "yet (the exact maps run under 'f64' and 'mixed')")
     for key in ("micro_batch", "calc_norm_every", "norm_samples"):
         value = task.get(key, 0)
         if isinstance(value, bool) or not isinstance(value, int) or value < 0:
@@ -253,7 +242,15 @@ def _build_potential(task, device):
         # horizontal shift dQ from the Huang-Rhys factor S = dQ^2 omega / 2
         dQ = np.sqrt(2.0 * np.abs(S) / omega) * np.sign(S)
         dQ[omega == 0.0] = 0.0
-        potential = MorsePotential.create(omega, chi, nac, device=device)
+        potential = MorsePotential.create(
+            omega, chi, nac, device=device,
+            hessian_eval=p.get("hessian_eval", "stage"),
+            taylor_every=p.get("taylor_every", 1))
+        if potential.hessian_eval != "stage":
+            logger.info("  hessian_eval                              : "
+                        f"{potential.hessian_eval}"
+                        + (f" (re-expansion every {potential.taylor_every}"
+                           " steps)" if potential.taylor_every > 1 else ""))
         return (potential, dQ, 0.0 * dQ, np.diag(omega),
                 float(np.sum(0.5 * omega)), np.nan, None)
     with open(p["coupling"]) as f:

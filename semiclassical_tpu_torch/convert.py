@@ -88,14 +88,12 @@ def local_quadratic(f, device):
 
 
 def morse_potential(f, device):
-    """From the fields of `MorsePotential` (the 4-stage Hessian mode), at
-    the dtype of its arrays."""
-    if f.get("hessian_eval", "stage") != "stage" or f.get("taylor_every",
-                                                           1) != 1:
-        raise ValueError("reduced-cost Hessian evaluation is not ported")
-    return MorsePotential.from_arrays(f["omega"], f["a"], f["D"], f["nac"],
-                                      f["harmonic"], device,
-                                      _torch_dtype(f["omega"]))
+    """From the fields of `MorsePotential`, at the dtype of its arrays,
+    with its `hessian_eval` and `taylor_every`."""
+    return MorsePotential.from_arrays(
+        f["omega"], f["a"], f["D"], f["nac"], f["harmonic"], device,
+        _torch_dtype(f["omega"]), f.get("hessian_eval", "stage"),
+        f.get("taylor_every", 1))
 
 
 def nonharmonic_potential(f, device):

@@ -8,7 +8,9 @@ diagonal monodromy representation and its per-mode RK4 map. All methods
 take batches with the trajectory axis leading, q of shape (n, d), and run
 at the parameters' dtype: `local_expansion` casts q to it, so float32
 parameters (the reduced-precision modes) evaluate the PES at float32 under
-float64 trajectories.
+float64 trajectories. `MorsePotential` carries the JAX package's
+reduced-cost Hessian modes (`hessian_eval`, `taylor_every`), which
+`eom.rk4_step` and the propagators' time loop read.
 """
 
 from __future__ import annotations
@@ -100,8 +102,14 @@ class MorsePotential:
     are describable by the same Morse form without changing results. Purely
     harmonic models (all chi = 0) use the closed-form harmonic branch,
     selected at construction. Unit masses; tau1 = nac (constant), tau2 = 0.
-    The JAX package's reduced-cost Hessian modes (`hessian_eval`,
-    `taylor_every`) are not ported: every stage evaluates the Hessian.
+
+    `hessian_eval` selects the reduced-cost PES sampling of `eom.rk4_step`,
+    the contract of the sGDML potential: "stage" (the default, every RK4
+    stage evaluates the Hessian), "step" (the Hessian once per step at the
+    midpoint stage, trajectories unchanged) or "taylor" (one evaluation
+    per step at the free-flight midpoint, the stage forces from its local
+    quadratic), with `taylor_every` > 1 re-expanding once per window of
+    that many steps.
     """
 
     omega: torch.Tensor  # (d,)
@@ -109,9 +117,12 @@ class MorsePotential:
     D: torch.Tensor      # (d,)
     nac: torch.Tensor    # (d,)
     harmonic: bool       # all chi == 0
+    hessian_eval: str = "stage"
+    taylor_every: int = 1
 
     @staticmethod
-    def create(omega, chi, nac, device="cuda", dtype=torch.float64):
+    def create(omega, chi, nac, device="cuda", dtype=torch.float64,
+               hessian_eval="stage", taylor_every=1):
         omega = np.asarray(omega, dtype=np.float64)
         chi = np.array(chi, dtype=np.float64, copy=True)
         nac = np.asarray(nac, dtype=np.float64)
@@ -123,13 +134,26 @@ class MorsePotential:
         a = np.sqrt(2 * omega * chi)
         D = np.where(chi > 0, 0.25 * omega / np.where(chi > 0, chi, 1.0), 0.0)
         return MorsePotential.from_arrays(omega, a, D, nac, harmonic, device,
-                                          dtype)
+                                          dtype, hessian_eval, taylor_every)
 
     @staticmethod
-    def from_arrays(omega, a, D, nac, harmonic, device, dtype=torch.float64):
+    def from_arrays(omega, a, D, nac, harmonic, device, dtype=torch.float64,
+                    hessian_eval="stage", taylor_every=1):
+        """From the parameter arrays; `hessian_eval` and `taylor_every` are
+        validated as the JAX package validates them."""
+        if hessian_eval not in ("stage", "step", "taylor"):
+            raise ValueError(f"unknown hessian_eval {hessian_eval!r}")
+        taylor_every = int(taylor_every)
+        if taylor_every < 1:
+            raise ValueError("taylor_every must be >= 1")
+        if taylor_every > 1 and hessian_eval != "taylor":
+            raise ValueError(
+                "taylor_every > 1 requires hessian_eval='taylor'")
         t = lambda x: _t(x, device, dtype)
         return MorsePotential(omega=t(omega), a=t(a), D=t(D), nac=t(nac),
-                              harmonic=bool(harmonic))
+                              harmonic=bool(harmonic),
+                              hessian_eval=hessian_eval,
+                              taylor_every=taylor_every)
 
     def to_dtype(self, dtype):
         """The potential with its parameters at `dtype`."""

@@ -24,8 +24,11 @@ product T @ Z on the stacked blocks Z (n, 2d, 2d). The increment, the
 action's quadratic form and the monodromy product run at the monodromy's
 dtype (float32 under the "mixed" mode, as in the JAX package: the entries
 of T - I are O(omega dt), so the rounding costs eps |omega dt z| a step),
-the action's linear and constant anchors at float64. At float64 there is
-no time-discretization error at any dt and no drift of the energy.
+the action's linear and constant anchors at float64. On float32
+trajectories the step reads the comp32 residuals and folds its increments
+back through the compensated accumulate (`harmonic_step`). At float64
+there is no time-discretization error at any dt and no drift of the
+energy.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from semiclassical_tpu_torch.propagation.eom import _comp_accumulate
 from semiclassical_tpu_torch.propagation.state import TrajState
 
 __all__ = ["HarmonicMap", "build_harmonic_map", "harmonic_step",
@@ -123,22 +127,39 @@ def build_harmonic_map(potential, dt, state: TrajState) -> HarmonicMap:
 
 def harmonic_step(hmap: HarmonicMap, state: TrajState, potential):
     """One exact step. Returns (new_state, mean energy at the step start),
-    the contract of `eom.rk4_step`."""
+    the contract of `eom.rk4_step`.
+
+    A comp32 state folds both residuals into the displacement and p before
+    the map reads them (the map consumes p itself, so dropping pc would
+    leave the compensation one-sided), and the increments fold back into
+    (q, qc) and (p, pc) through `eom._comp_accumulate`; under the plain
+    modes they are plain adds."""
     q, p = state.q, state.p
     d = state.dim
-    z = torch.cat([q - hmap.pos0.to(q.dtype)[None, :], p], dim=1)  # (n, 2d)
+    dq = q - hmap.pos0.to(q.dtype)[None, :]
+    pt = p
+    if state.compensated:
+        dq, pt = dq + state.qc, p + state.pc
+    z = torch.cat([dq, pt], dim=1)                       # (n, 2d)
 
-    # the energy guard reads <T + V> at the step start
+    # the energy guard reads <T + V> at the step start, at the folded values
     inv_m = (1.0 / potential.masses()).to(q.dtype)
-    tkin = 0.5 * torch.sum(p * p * inv_m[None, :], dim=1)
-    vpot = potential.local_expansion(q)[0]
+    tkin = 0.5 * torch.sum(pt * pt * inv_m[None, :], dim=1)
+    vpot = potential.local_expansion(
+        q + state.qc if state.compensated else q)[0]
     mean_energy = torch.mean(tkin + vpot.to(tkin.dtype))
 
     zc = z.to(hmap.dT.dtype)
     inc = torch.addmm(hmap.w[None, :], zc, hmap.dT.T).to(q.dtype)  # (n, 2d)
+    if state.compensated:
+        new_q, new_qc = _comp_accumulate(q, state.qc, inc[:, :d])
+        new_p, new_pc = _comp_accumulate(p, state.pc, inc[:, d:])
+    else:
+        new_q, new_p = q + inc[:, :d], p + inc[:, d:]
+        new_qc = new_pc = None
     ds = (0.5 * torch.sum(zc * (zc @ hmap.Wzz.T), dim=1).to(torch.float64)
           + z.to(torch.float64) @ hmap.wz + 0.5 * hmap.w11)
-    new_state = TrajState(q=q + inc[:, :d], p=p + inc[:, d:],
-                          Z=torch.matmul(hmap.T, state.Z),
-                          S=state.S + ds.to(state.S.dtype))
+    new_state = TrajState(q=new_q, p=new_p, Z=torch.matmul(hmap.T, state.Z),
+                          S=state.S + ds.to(state.S.dtype), qc=new_qc,
+                          pc=new_pc)
     return new_state, mean_energy

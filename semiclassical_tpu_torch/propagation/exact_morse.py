@@ -12,17 +12,30 @@ Positions, momenta, the monodromy M(t) = dZ(t)/dZ(0) and the action
 S(t) = int (T - V) dt all have closed forms, so for a separable Morse PES
 the RK4 stepper is replaced by a map with no time-discretization error:
 
-* the setup (`build_morse_map`) runs once per batch in float64 and derives
-  per-(trajectory, mode) constants from the current state;
+* the setup (`build_morse_map`) runs once per batch in float64 (the comp32
+  residuals folded into q and p first) and derives per-(trajectory, mode)
+  constants from the current state;
 * the only evolving quantity is the phase th (n, d), advanced by the
   constant wE dt (reduced mod 2 pi at build time) through a Neumaier
   two-sum and wrapped to [-pi, pi] (`morse_map_advance`), plus the time
-  since the setup;
+  since the setup, kept as a float64 Python float;
 * q, p, the four diagonal monodromy planes and S are evaluated fresh from
   the constants at every step (`morse_map_state`); the monodromy factorises
   as M(t) = Jhat(th) . shear(t) . Jhat(th0)^{-1} and is composed with the
   setup-time monodromy M0 when the state did not start at the identity
   (a resumed checkpoint, state surgery).
+
+The map runs at the state's work dtype, q's: float64 under the "f64" and
+"mixed" modes, float32 under "comp32" and "f32". The pack holds its
+constants at that dtype, except the secular action terms (`A`, `S_base`)
+and the bound rows' energy, which stay float64. The constants that grow
+with time carry a float64 value as a (hi, lo) pair of the work dtype: the
+shear rate (multiplied into the float64 time through a two-product), the
+phase increment wE dt and 2 pi (folded into the phase's two-sum), and the
+phase itself starts as the split of th0. At float64 every lo part is
+exactly zero. Under comp32 the materialised state has zero residuals
+(closed-form values carry no accumulated error) and a float64 S; under
+f32 S is cast to float32.
 
 Rows with a mode of eps > EPS_EXACT (unbound or near the separatrix) or a
 non-finite value are routed to an RK4 side-channel: a sub-batch of exactly
@@ -41,7 +54,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from semiclassical_tpu_torch.propagation.eom import rk4_step
+from semiclassical_tpu_torch.propagation.eom import (_NP_DTYPE,
+                                                     _comp_accumulate,
+                                                     rk4_step)
 from semiclassical_tpu_torch.propagation.state import TrajState
 
 logger = logging.getLogger(__name__)
@@ -60,10 +75,25 @@ EPS_EXACT = 0.9
 RK4_FRACTION_MAX = 0.25
 
 
+def _split_hi_lo(x64, wdtype):
+    """(hi, lo) at `wdtype` with hi + lo = the float64 `x64` to about twice
+    wdtype's precision (lo is zero at float64)."""
+    hi = x64.to(wdtype)
+    return hi, (x64 - hi.to(torch.float64)).to(wdtype)
+
+
+def _split_float(x, wdtype):
+    """The Python float `x` as a (hi, lo) pair of Python floats, each
+    exactly a value of `wdtype`."""
+    hi = _NP_DTYPE[wdtype](x)
+    return float(hi), float(_NP_DTYPE[wdtype](x - float(hi)))
+
+
 @dataclass(frozen=True)
 class MorseMapPack:
-    """Per-batch constants of the exact Morse map, float64, (n, d) unless
-    noted. Built once per (batch, potential, dt)."""
+    """Per-batch constants of the exact Morse map at the work dtype, (n, d)
+    unless noted; `A`, `S_base` and `e_bound_sum` are float64. Built once
+    per (batch, potential, dt)."""
 
     s: torch.Tensor       # sqrt(eps)
     inv_a: torch.Tensor   # (d,) 1/a
@@ -74,7 +104,8 @@ class MorseMapPack:
     c12b: torch.Tensor    # s/(1-eps) * inv_a
     c22a: torch.Tensor    # (wpE eps + wE/2) * inv_a
     c22b: torch.Tensor    # s wE inv_a / 2
-    bco: torch.Tensor     # eps wpE, the shear rate
+    bco_hi: torch.Tensor  # eps wpE, the shear rate (hi part)
+    bco_lo: torch.Tensor  # eps wpE (lo part)
     j011: torch.Tensor    # Jhat(th0)^{-1} entries
     j012: torch.Tensor
     j021: torch.Tensor
@@ -82,7 +113,8 @@ class MorseMapPack:
     beta: torch.Tensor    # s / (1 + sqrt(1-eps))
     pc1: torch.Tensor     # (d,) 2 D / w0 (action: coefficient of g)
     pc2: torch.Tensor     # -2 D (1-eps) s / wE (action: coefficient of sn/den)
-    wdt: torch.Tensor     # wE dt mod 2 pi
+    wdt_hi: torch.Tensor  # wE dt mod 2 pi (hi part)
+    wdt_lo: torch.Tensor  # wE dt mod 2 pi (lo part)
     A: torch.Tensor       # (n,) secular dS/dt = sum_d E_d - 2 D (1 - rt)
     S_base: torch.Tensor  # (n,) S0 - P(th0) summed over modes
     e_bound_sum: torch.Tensor  # () energy summed over the closed-form rows
@@ -90,6 +122,7 @@ class MorseMapPack:
                                      # at the identity
     sub_idx: torch.Tensor | None = None  # (n_bad,) rows of the side-channel
     mono_dtype: torch.dtype = torch.float64  # the state's monodromy dtype
+    compensated: bool = False  # comp32: zero residuals qc, pc, float64 S
 
 
 @dataclass(frozen=True)
@@ -98,8 +131,8 @@ class MorseMapCarry:
     (true phase th + thc, wrapped to [-pi, pi]), the time since the setup,
     and the side-channel's RK4 sub-batch (None when every row is bound)."""
 
-    th: torch.Tensor      # (n, d)
-    thc: torch.Tensor     # (n, d)
+    th: torch.Tensor      # (n, d) work dtype
+    thc: torch.Tensor     # (n, d) work dtype
     t_rel: float
     sub: TrajState | None = None
 
@@ -111,16 +144,6 @@ def supports_exact_morse(potential, state) -> bool:
 
     return (isinstance(potential, MorsePotential) and not potential.harmonic
             and state.diag_monodromy)
-
-
-def _comp_accumulate(x, c, inc):
-    """One Neumaier-compensated accumulation step: (x', c') with
-    x' + c' = x + c + inc, through the exact two-sum of x and inc + c."""
-    y = inc + c
-    t = x + y
-    yv = t - x
-    xv = t - yv
-    return t, (x - xv) + (y - yv)
 
 
 def _setup(q, p, S0, a, D, dt):
@@ -186,11 +209,12 @@ def _setup(q, p, S0, a, D, dt):
 
 
 def build_morse_map(state: TrajState, potential, dt):
-    """(MorseMapPack, MorseMapCarry) of the map at the current state. Rows
-    with a mode of eps > EPS_EXACT, or a non-finite value, are routed to the
-    RK4 side-channel; raises ValueError for a harmonic or non-Morse
-    potential, a dense monodromy, non-unit masses, or when more than
-    RK4_FRACTION_MAX of the batch would be routed."""
+    """(MorseMapPack, MorseMapCarry) of the map at the current state, at the
+    state's work dtype (q's). Rows with a mode of eps > EPS_EXACT, or a
+    non-finite value, are routed to the RK4 side-channel; raises ValueError
+    for a harmonic or non-Morse potential, a dense monodromy, non-unit
+    masses, or when more than RK4_FRACTION_MAX of the batch would be
+    routed."""
     from semiclassical_tpu_torch.potentials.model import MorsePotential
 
     if not isinstance(potential, MorsePotential) or potential.harmonic:
@@ -205,9 +229,13 @@ def build_morse_map(state: TrajState, potential, dt):
         raise ValueError("the exact Morse map assumes unit masses")
 
     f64 = torch.float64
+    wdtype = state.q.dtype
+    q, p = state.q.to(f64), state.p.to(f64)
+    if state.compensated:
+        # a resumed or edited comp32 state carries residuals
+        q, p = q + state.qc.to(f64), p + state.pc.to(f64)
     a, D = potential.a.to(f64), potential.D.to(f64)
-    consts, th0, e_row, eps = _setup(state.q.to(f64), state.p.to(f64),
-                                     state.S.to(f64), a, D, float(dt))
+    consts, th0, e_row, eps = _setup(q, p, state.S.to(f64), a, D, float(dt))
     n = state.q.shape[0]
     # ~all(<=) rather than any(>): NaN rows are routed too, where RK4
     # carries the NaN into the energies and the energy guard raises, as
@@ -223,28 +251,37 @@ def build_morse_map(state: TrajState, potential, dt):
     sub_idx = sub = None
     if n_bad:
         sub_idx = torch.nonzero(bad_row).flatten()
+        rows = lambda x: None if x is None else x[sub_idx]
         sub = TrajState(q=state.q[sub_idx], p=state.p[sub_idx],
-                        Z=state.Z[:, sub_idx], S=state.S[sub_idx])
+                        Z=state.Z[:, sub_idx], S=state.S[sub_idx],
+                        qc=rows(state.qc), pc=rows(state.pc))
         logger.info("exact Morse map: %d/%d rows RK4-routed (eps > %s)",
                     n_bad, n, EPS_EXACT)
     Z = state.Z
     identity = bool(torch.all((Z[0] == 1.0) & (Z[3] == 1.0) & (Z[1] == 0.0)
                               & (Z[2] == 0.0)))
-    inv_a = 1.0 / a
+    work = {k: v.to(wdtype) for k, v in consts.items()
+            if k not in ("A", "S_base", "bco", "wdt")}
+    bco_hi, bco_lo = _split_hi_lo(consts["bco"], wdtype)
+    wdt_hi, wdt_lo = _split_hi_lo(consts["wdt"], wdtype)
+    th_hi, th_lo = _split_hi_lo(th0, wdtype)
+    inv_a = (1.0 / a).to(wdtype)
     pack = MorseMapPack(
-        **consts, inv_a=inv_a, c12a=0.5 * inv_a,
-        pc1=2.0 * D / (a * torch.sqrt(2.0 * D)),
+        **work, A=consts["A"], S_base=consts["S_base"],
+        bco_hi=bco_hi, bco_lo=bco_lo, wdt_hi=wdt_hi, wdt_lo=wdt_lo,
+        inv_a=inv_a, c12a=0.5 * inv_a,
+        pc1=(2.0 * D / (a * torch.sqrt(2.0 * D))).to(wdtype),
         e_bound_sum=torch.sum(torch.where(bad_row, 0.0, e_row)),
-        m0=None if identity else Z, sub_idx=sub_idx, mono_dtype=Z.dtype)
-    return pack, MorseMapCarry(th=th0, thc=torch.zeros_like(th0), t_rel=0.0,
-                               sub=sub)
+        m0=None if identity else Z, sub_idx=sub_idx, mono_dtype=Z.dtype,
+        compensated=state.compensated)
+    return pack, MorseMapCarry(th=th_hi, thc=th_lo, t_rel=0.0, sub=sub)
 
 
 def morse_map_state(pack: MorseMapPack, carry: MorseMapCarry) -> TrajState:
     """The state at the carry's phase and time: q, p, the monodromy planes
     (composed with M0 where the setup state was not at the identity, then
-    cast to the state's monodromy dtype) and S, with the side-channel rows
-    scattered in."""
+    cast to the state's monodromy dtype), S (float64 under comp32, with
+    zero residuals qc, pc) and the side-channel rows scattered in."""
     th, thc = carry.th, carry.thc
     sn0, cs0 = torch.sin(th), torch.cos(th)
     # first-order residual correction: sin/cos at th + thc
@@ -259,7 +296,10 @@ def morse_map_state(pack: MorseMapPack, carry: MorseMapCarry) -> TrajState:
     j21 = pack.cE * (cs - pack.s) * r2
     j12 = pack.c12b - cs * r * pack.c12a[None, :]
     j22 = sn * (pack.c22a * r + pack.c22b * cs * r2)
-    b = pack.bco * carry.t_rel
+    # shear entry b = eps wpE t: a two-product of the (hi, lo) rate and the
+    # float64 time split at the work dtype
+    t_hi, t_lo = _split_float(carry.t_rel, th.dtype)
+    b = pack.bco_hi * t_hi + (pack.bco_hi * t_lo + pack.bco_lo * t_hi)
     m11 = pack.j011 + b * pack.j021
     m12 = pack.j012 + b * pack.j022
     mqq = j11 * m11 + j12 * pack.j021
@@ -272,7 +312,13 @@ def morse_map_state(pack: MorseMapPack, carry: MorseMapCarry) -> TrajState:
                               mpq * m0qq + mpp * m0pq, mpq * m0qp + mpp * m0pp)
     g = 2.0 * torch.atan2(pack.beta * sn, 1.0 - pack.beta * cs)
     P = pack.pc1[None, :] * g + pack.pc2 * sn * r
-    S = pack.S_base + pack.A * carry.t_rel + torch.sum(P, dim=1)
+    S = pack.S_base + pack.A * carry.t_rel + torch.sum(P, dim=1).to(
+        torch.float64)
+    qc = pc = None
+    if pack.compensated:
+        qc, pc = torch.zeros_like(q), torch.zeros_like(p)
+    else:
+        S = S.to(q.dtype)
     Z = torch.stack([mqq, mqp, mpq, mpp]).to(pack.mono_dtype)
     if carry.sub is not None:
         idx, sub = pack.sub_idx, carry.sub
@@ -280,24 +326,32 @@ def morse_map_state(pack: MorseMapPack, carry: MorseMapCarry) -> TrajState:
         p.index_copy_(0, idx, sub.p)
         Z.index_copy_(1, idx, sub.Z)
         S.index_copy_(0, idx, sub.S)
-    return TrajState(q=q, p=p, Z=Z, S=S)
+        if pack.compensated:
+            qc.index_copy_(0, idx, sub.qc)
+            pc.index_copy_(0, idx, sub.pc)
+    return TrajState(q=q, p=p, Z=Z, S=S, qc=qc, pc=pc)
 
 
 def morse_map_advance(pack: MorseMapPack, carry: MorseMapCarry, dt,
                       potential):
-    """One step: th += wE dt through the Neumaier two-sum, wrapped to
+    """One step: th += wE dt through the Neumaier two-sum (the lo parts of
+    the increment and of 2 pi folded into the residual), wrapped to
     [-pi, pi], and one RK4 step of the side-channel. Returns (new carry,
-    batch-mean energy at the step start): the closed-form rows' energy is
-    a constant of the motion, the side-channel rows add their current
-    T + V, so the energy guard still watches them."""
-    th, thc = _comp_accumulate(carry.th, carry.thc, pack.wdt)
+    batch-mean energy at the step start, float64): the closed-form rows'
+    energy is a constant of the motion, the side-channel rows add their
+    current T + V, so the energy guard still watches them."""
+    th, thc = _comp_accumulate(carry.th, carry.thc + pack.wdt_lo,
+                               pack.wdt_hi)
+    tp_hi, tp_lo = _split_float(2.0 * math.pi, th.dtype)
     k = torch.round(th * (1.0 / (2.0 * math.pi)))
-    th = th - k * (2.0 * math.pi)    # exact: k in {-1, 0, 1}
+    th = th - k * tp_hi              # exact: k in {-1, 0, 1}
+    thc = thc - k * tp_lo
     n = th.shape[0]
     energy = pack.e_bound_sum / n
     sub = carry.sub
     if sub is not None:
         sub, e_sub = rk4_step(sub, potential, dt)
-        energy = (pack.e_bound_sum + sub.q.shape[0] * e_sub) / n
+        energy = (pack.e_bound_sum + sub.q.shape[0] * e_sub.to(
+            torch.float64)) / n
     return MorseMapCarry(th=th, thc=thc, t_rel=carry.t_rel + float(dt),
                          sub=sub), energy

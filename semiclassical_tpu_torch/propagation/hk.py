@@ -35,7 +35,9 @@ The port of `semiclassical_tpu.propagation.hk` on two paths:
   error: the affine map of a constant-Hessian PES (`exact_harmonic`) or
   the closed-form Morse map with its RK4 side-channel (`exact_morse`),
   whose constants and phase persist across segments and calls until dt,
-  the potential object or the state itself is replaced;
+  the potential object or the state itself is replaced; both run at the
+  state's dtypes in every precision mode (the Morse map's float64
+  constants split hi/lo on float32 trajectories);
 * the granular API (`semiclassical_prefactor`, `autocorrelation`,
   `coefficients`, `norm`, `wavefunction`, ...) works on the current state;
   the O(n^2) norm is a loop over block pairs on the device with one host
@@ -780,7 +782,8 @@ class HermanKlukPropagator:
     `integrator` is "rk4" (fixed-step Runge-Kutta) or "exact" (no
     time-discretization error at any dt: the affine map of a
     constant-Hessian molecular PES, or the closed-form map of a
-    non-harmonic separable Morse PES with its RK4 side-channel).
+    non-harmonic separable Morse PES with its RK4 side-channel), in every
+    precision mode.
 
     `dtype` (torch.float64 or torch.float32) is the precision of the
     parameter packs, the monodromy and all complex algebra (complex128 or
@@ -805,13 +808,6 @@ class HermanKlukPropagator:
                 f"{traj_dtype}")
         if traj_dtype == "comp32" and dtype != torch.float32:
             raise ValueError("comp32 trajectories require dtype=float32")
-        if integrator == "exact" and traj_dtype != torch.float64:
-            # the JAX package runs its maps on float32 trajectories with
-            # float64 constants split hi/lo; the port does not (yet)
-            raise ValueError(
-                f"integrator 'exact' with traj_dtype {traj_dtype} is not "
-                "ported (the exact maps take float64 trajectories: the "
-                "'f64' and 'mixed' modes)")
         self.dtype = dtype
         self.traj_dtype = traj_dtype
         self.integrator = integrator

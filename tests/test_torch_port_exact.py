@@ -650,7 +650,8 @@ def test_exact_wdt_reduced_mod_2pi_any_dt():
     state = _state(qi, pi)
     dt = float(3.0 * np.pi / omega.min())
     packc, carryc = em.build_morse_map(state, pot, dt)
-    assert packc.wdt.abs().max() <= np.pi + 1e-12
+    assert packc.wdt_hi.abs().max() <= np.pi + 1e-12
+    assert not packc.wdt_lo.any()      # float64: no lo part
     packf, carryf = em.build_morse_map(state, pot, dt / 64)
     for _ in range(4):
         carryc, _ = em.morse_map_advance(packc, carryc, dt, pot)

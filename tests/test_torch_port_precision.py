@@ -504,12 +504,21 @@ def test_exact_runs_under_mixed(pes):
 
 
 def test_comp32_requires_float32():
+    """comp32 trajectories need the float32 algebra; with it the exact
+    integrator runs on them (the Morse map at float32, S at float64)."""
     with pytest.raises(ValueError, match="comp32 trajectories require"):
         HermanKlukPropagator(np.eye(2), np.eye(2), "cpu",
                              dtype=torch.float64, traj_dtype="comp32")
-    with pytest.raises(ValueError, match="integrator 'exact'"):
-        HermanKlukPropagator(np.eye(2), np.eye(2), "cpu", integrator="exact",
-                             dtype=torch.float32, traj_dtype="comp32")
+    pot, _, q0 = _morse_pair("comp32", d=2)
+    G = np.diag(_as12(d=2)[0])
+    prop = HermanKlukPropagator(G, G, "cpu", integrator="exact",
+                                dtype=torch.float32, traj_dtype="comp32")
+    prop.initial_conditions(q0, 0 * q0, G, pot, ntraj=16,
+                            normals=torch.from_numpy(_draw(16, 2)))
+    cauto, _ = prop.propagate(pot, DT_AS, 5)
+    assert np.isfinite(cauto).all() and abs(cauto[0] - 1.0) < 1e-2
+    assert prop.state.q.dtype == torch.float32 and prop.state.compensated
+    assert prop.state.S.dtype == torch.float64
 
 
 def test_comp32_checkpoint_roundtrip(tmp_path):
@@ -755,14 +764,25 @@ def test_cli_comp32_as_model(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv, named", [
     (["--precision", "bf16"], "'bf16' is unknown"),
-    (["--precision", "f32"], "'exact' with precision 'f32'")])
+    (["--precision", "f32"], None)], ids=["bf16-refused", "f32-exact-runs"])
 def test_cli_refusals(methylium_task, tmp_path, argv, named):
+    """An unknown precision is refused by name before the npz is written;
+    `integrator: "exact"` under f32 runs and writes it."""
     methylium_task.update(integrator="exact")
+    npz = tmp_path / "c.npz"
     path = tmp_path / "semi.json"
     path.write_text(json.dumps({"semi": [dict(
-        methylium_task, results={"correlations": str(tmp_path / "c.npz")})]}))
+        methylium_task, results={"correlations": str(npz)})]}))
+    if named is None:
+        assert cli.main(["dynamics", str(path), "--device", "cpu",
+                         *argv]) == 0
+        data = np.load(npz)
+        assert np.isfinite(data["autocorrelation"]).all()
+        assert abs(data["autocorrelation"][0] - 1.0) < 1e-3
+        return
     with pytest.raises(ConfigurationError, match=named):
         cli.main(["dynamics", str(path), "--device", "cpu", *argv])
+    assert not npz.exists()
 
 
 def test_cli_gdml_warns_for_comp32(caplog, monkeypatch):

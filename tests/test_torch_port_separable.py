@@ -131,16 +131,26 @@ def test_local_expansion_matches_jax(name):
     np.testing.assert_array_equal(v_conv.numpy(), v.numpy())
 
 
-@pytest.mark.parametrize("key, value, named", [
-    ("hessian_eval", "taylor", "'taylor'"), ("hessian_eval", "step", "'step'"),
-    ("taylor_every", 4, "'taylor_every'")])
-def test_reduced_cost_hessian_is_refused(key, value, named):
-    """The JAX package's reduced-cost Hessian modes of the AS potential are
-    refused by name before anything runs."""
+@pytest.mark.parametrize("keys, named", [
+    ({"hessian_eval": "taylor"}, None), ({"hessian_eval": "step"}, None),
+    ({"hessian_eval": "taylor", "taylor_every": 4}, None),
+    ({"hessian_eval": "midpoint"}, "'midpoint' is unknown")])
+def test_reduced_cost_hessian_is_refused(tmp_path, keys, named):
+    """Only an unknown `hessian_eval` of the AS potential is refused, by
+    name, before anything runs: the JAX package's reduced-cost modes pass
+    `check_slice` and build the potential with them."""
+    model = tmp_path / "AS_model.dat"
+    model.write_text("1000.0  0.20  0.5  0.02\n 600.0  0.30  0.8  0.02\n")
     task = {"task": "dynamics", "potential": {
-        "type": "anharmonic AS", "model_file": "AS_model.dat", key: value}}
-    with pytest.raises(ConfigurationError, match=f"{named}.*not ported"):
-        cli.check_slice(task)
+        "type": "anharmonic AS", "model_file": str(model), **keys}}
+    if named is not None:
+        with pytest.raises(ConfigurationError, match=named):
+            cli.check_slice(task)
+        return
+    cli.check_slice(task)
+    pot = cli._build_potential(task, "cpu")[0]
+    assert pot.hessian_eval == keys["hessian_eval"]
+    assert pot.taylor_every == keys.get("taylor_every", 1)
 
 
 def _diag_state_pair(d, n, seed):
