@@ -10,52 +10,34 @@
 // Gram sums s_k s_l / M' and 4 real sums (g_DD, g_Dn, p0_dQ, p0_n). It
 // writes the 30 sums of each row (scal, (n, 30)) and the per-mode planes
 // [det_i re, det_i im, M'/m_scale re, M'/m_scale im] (det_planes,
-// (4, n, d)). The same arithmetic, in the same order, as the plain version
-// in ops/wm_diag.py; hbar = 1 (atomic units), asserted by the wrapper.
+// (4, n, d)). The same arithmetic, in the same order per mode, as the plain
+// version in ops/wm_diag.py; hbar = 1 (atomic units), asserted by the
+// wrapper.
 //
-// What bounds it: at the flagship shape (n = 98,304, d = 60, float64) a
-// call reads 10 planes of 47.2 MB and writes 4 planes plus 30 sums per row,
-// ~0.68 GB, for ~0.4 kflop per (trajectory, mode), ~2.5 GFLOP: ~0.2 ms of
-// HBM traffic against ~0.07 ms of FP64 arithmetic, so it is bound by bytes.
-// The design therefore reads each input once and writes each output once,
-// and keeps every intermediate (some 30 complex values per mode) and every
-// sum in registers:
-//  - one warp owns one trajectory row and its lanes walk the modes, so the
-//    row-major (n, d) planes are read in place and coalesced (two passes at
-//    d = 60); for d <= 16 a group of the next power of two >= d lanes owns
-//    a row, and a warp serves several rows;
-//  - the 30 mode sums are butterfly shuffles inside the group, held in
-//    registers; after them every lane of the group holds every sum, and
-//    lane g writes sums g, g + group, ... so a row's 30 sums are one
-//    contiguous store;
-//  - the per-mode det planes are written straight back, coalesced;
-//  - the constant pack is copied to shared memory once per block;
-//  - ragged n and any 1 <= d <= 256 are masked in the kernel: rows past n
-//    compute nothing but still take part in the shuffles; no padding pass.
-// The TPU kernel's mode-in-sublane transposes, identity padding and
-// float32-only arithmetic are artifacts of the TPU and are not carried over;
-// this kernel is templated on double (the main path) and float.
-//
-// C interface (loaded with ctypes): pointers and the stream as void*, the
-// return value is cudaGetLastError() after the launch (or
-// cudaErrorInvalidValue for a shape the kernel does not take).
+// PROBE BUILD: the register design and the shared-memory ring side by side.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kConsts = 17;   // rows of the constant pack (ops/wm_diag.py CONSTS)
 constexpr int kGram = 13;     // complex Gram sums (ops/wm_diag.py GRAM_PAIRS)
 constexpr int kScal = 2 * kGram + 4;
+constexpr int kSums = 32;     // kScal padded to a power of two for the halving
+constexpr int kPlanes = 10;
 constexpr int kMaxD = 256;
+constexpr int kMaxSmem = 232448;
 
 // constant-pack rows
 enum {
   kU1, kU2, kGt, kCb11, kCb12Im, kCb22, kC2_11, kC2_12Im, kC2_22, kM0,
   kInvMScale, kFq1, kFq2Im, kBq1, kBq2Im, kG0, kP0
 };
+// input planes
+enum { kMqq, kMqp, kMpq, kMpp, kDQ, kDp, kDq, kN1q, kN1Q, kV0c };
 
 template <typename T> struct Cx { T re, im; };
 
@@ -81,150 +63,421 @@ __device__ __forceinline__ Cx<T> operator*(T s, Cx<T> a) {
 // i * a
 template <typename T>
 __device__ __forceinline__ Cx<T> mul_i(Cx<T> a) { return cx(-a.im, a.re); }
+// correctly rounded 1 / x, the value of the IEEE division
+__device__ __forceinline__ float rcp(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double rcp(double x) { return __drcp_rn(x); }
 // conj(a) / |a|^2
 template <typename T>
 __device__ __forceinline__ Cx<T> recip(Cx<T> a) {
-  const T s = T(1) / (a.re * a.re + a.im * a.im);
+  const T s = rcp(a.re * a.re + a.im * a.im);
   return cx(a.re * s, -a.im * s);
 }
 
+// V consecutive elements moved as one access
+template <typename T, int V> struct Vec;
+template <> struct Vec<float, 1> { using type = float; };
+template <> struct Vec<float, 2> { using type = float2; };
+template <> struct Vec<float, 4> { using type = float4; };
+template <> struct Vec<double, 1> { using type = double; };
+template <> struct Vec<double, 2> { using type = double2; };
+
+template <typename T, int V>
+union Pack {
+  typename Vec<T, V>::type v;
+  T e[V];
+};
+
+template <typename T, int V, bool kGlobal>
+__device__ __forceinline__ void load_vec(T (&dst)[V], const T* src) {
+  using VT = typename Vec<T, V>::type;
+  Pack<T, V> p;
+  if constexpr (kGlobal)
+    p.v = __ldg(reinterpret_cast<const VT*>(src));
+  else
+    p.v = *reinterpret_cast<const VT*>(src);
+#pragma unroll
+  for (int e = 0; e < V; ++e) dst[e] = p.e[e];
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* dst, const T (&src)[V]) {
+  Pack<T, V> p;
+#pragma unroll
+  for (int e = 0; e < V; ++e) p.e[e] = src[e];
+  *reinterpret_cast<typename Vec<T, V>::type*>(dst) = p.v;
+}
+
+template <typename T> struct Planes { const T* in[kPlanes]; };
+
+// The chain of mode j of one row: x holds the mode's ten plane values, c
+// the (kConsts, d) pack in shared memory. Adds the mode's 30 terms to acc
+// and returns its four det-plane values in out.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) wm_diag_kernel(
-    const T* __restrict__ mqq, const T* __restrict__ mqp,
-    const T* __restrict__ mpq, const T* __restrict__ mpp,
-    const T* __restrict__ dQ_in, const T* __restrict__ dp_in,
-    const T* __restrict__ dq_in, const T* __restrict__ n1q_in,
-    const T* __restrict__ n1Q_in, const T* __restrict__ v0c_in,
-    const T* __restrict__ pack, T* __restrict__ scal,
-    T* __restrict__ det_planes, long long n, int d, int group) {
+__device__ __forceinline__ void mode_chain(const T* __restrict__ c, int d, int j,
+                                           const T (&x)[kPlanes], T (&acc)[kSums],
+                                           T (&out)[4]) {
+  const T u1 = c[kU1 * d + j], u2 = c[kU2 * d + j], gt = c[kGt * d + j];
+  const T X1 = x[kMqq] * u1, X2 = x[kMqp] * u2;
+  const T Z1 = x[kMpq] * u1, Z2 = x[kMpp] * u2;
+
+  // balanced transposed-A blocks and P, per mode
+  const T G11 = gt * X1 * X1, G12 = gt * X1 * X2, G22 = gt * X2 * X2;
+  const T B11 = X1 * Z1, B12 = X1 * Z2, B21 = X2 * Z1, B22 = X2 * Z2;
+  const T TR1 = Z1 * X2, TR2 = Z2 * X2;
+  const Cx<T> At11 = cx(c[kCb11 * d + j] + G11, B11);
+  const Cx<T> At12 = cx(G12, c[kCb12Im * d + j] + (T(2) * B12 - TR1));
+  const Cx<T> At21 = cx(G12, B21);
+  const Cx<T> At22 = cx(c[kCb22 * d + j] + G22, T(2) * B22 - TR2);
+  const Cx<T> P1 = cx(gt * X1, Z1), P2 = cx(gt * X2, Z2);
+
+  // det, y = At^{-1} P
+  const Cx<T> det = At11 * At22 - At12 * At21;
+  const Cx<T> inv_det = recip(det);
+  const Cx<T> y1 = (At22 * P1 - At12 * P2) * inv_det;
+  const Cx<T> y2 = (At11 * P2 - At21 * P1) * inv_det;
+
+  // M' = M0 - y^T (P + C2b y), its scaled value and reciprocal
+  const T c2_12 = c[kC2_12Im * d + j];
+  const Cx<T> c2y1 = c[kC2_11 * d + j] * y1 + c2_12 * mul_i(y2);
+  const Cx<T> c2y2 = c2_12 * mul_i(y1) + c[kC2_22 * d + j] * y2;
+  const Cx<T> Mp = cx(c[kM0 * d + j], T(0)) - (y1 * (P1 + c2y1) + y2 * (P2 + c2y2));
+  const T ims = c[kInvMScale * d + j];
+  const Cx<T> iM = recip(Mp);
+  out[0] = det.re;
+  out[1] = det.im;
+  out[2] = Mp.re * ims;
+  out[3] = Mp.im * ims;
+
+  // the five observable vectors of this mode and their Gram terms
+  const Cx<T> yf = c[kFq1 * d + j] * y1 + c[kFq2Im * d + j] * mul_i(y2);
+  const Cx<T> yb = c[kBq1 * d + j] * y1 + c[kBq2Im * d + j] * mul_i(y2);
+  const T dQ = x[kDQ], n1Q = x[kN1Q], g0 = c[kG0 * d + j];
+  Cx<T> s[5];
+  s[0] = x[kDq] * yf;
+  s[1] = x[kN1q] * yf;
+  s[2] = cx(g0 * dQ, T(0));
+  s[3] = cx(g0 * n1Q, T(0));
+  s[4] = cx(x[kDp], T(0)) + x[kV0c] * yb;
+  Cx<T> w[5];
+#pragma unroll
+  for (int l = 0; l < 5; ++l) w[l] = s[l] * iM;
+  // the Gram pairs (k, l) of ops/wm_diag.py GRAM_PAIRS, in order
+#define SEMI_GRAM(q, k, l)       \
+  {                              \
+    const Cx<T> t = s[k] * w[l]; \
+    acc[2 * (q)] += t.re;        \
+    acc[2 * (q) + 1] += t.im;    \
+  }
+  SEMI_GRAM(0, 0, 0) SEMI_GRAM(1, 0, 1) SEMI_GRAM(2, 0, 2) SEMI_GRAM(3, 0, 3)
+  SEMI_GRAM(4, 0, 4) SEMI_GRAM(5, 1, 2) SEMI_GRAM(6, 1, 3) SEMI_GRAM(7, 1, 4)
+  SEMI_GRAM(8, 2, 2) SEMI_GRAM(9, 2, 3) SEMI_GRAM(10, 2, 4) SEMI_GRAM(11, 3, 4)
+  SEMI_GRAM(12, 4, 4)
+#undef SEMI_GRAM
+  const T p0 = c[kP0 * d + j];
+  acc[2 * kGram] += dQ * g0 * dQ;
+  acc[2 * kGram + 1] += dQ * g0 * n1Q;
+  acc[2 * kGram + 2] += p0 * dQ;
+  acc[2 * kGram + 3] += p0 * n1Q;
+}
+
+// One chunk of V modes j .. j + V - 1 of a row at element i = row * d + j:
+// the ten planes read at offset `at` of `src` (global memory, or a stage of
+// the ring in shared memory), the four det planes written to global memory.
+template <typename T, int V, bool kGlobal>
+__device__ __forceinline__ void chunk(const T* __restrict__ c, int d, int j,
+                                      const Planes<T>& src, long long at,
+                                      T* __restrict__ det_planes, long long nd,
+                                      long long i, T (&acc)[kSums]) {
+  T x[kPlanes][V];
+#pragma unroll
+  for (int q = 0; q < kPlanes; ++q) load_vec<T, V, kGlobal>(x[q], src.in[q] + at);
+  T out[4][V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    T xe[kPlanes], oe[4];
+#pragma unroll
+    for (int q = 0; q < kPlanes; ++q) xe[q] = x[q][e];
+    mode_chain(c, d, j + e, xe, acc, oe);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[q][e] = oe[q];
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) store_vec<T, V>(det_planes + q * nd + i, out[q]);
+}
+
+// One level of the halving below: lanes O apart swap halves of their H + H
+// values, each keeps the half its bit O names, adds its partner's copy of
+// it, and goes on with H values.
+template <typename T, int O, int H>
+__device__ __forceinline__ void halve(T (&acc)[kSums], int g) {
+  if constexpr (O >= 1) {
+    const bool up = (g & O) != 0;
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      const T send = up ? acc[k] : acc[k + H];
+      const T keep = up ? acc[k + H] : acc[k];
+      acc[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    halve<T, O / 2, H / 2>(acc, g);
+  }
+}
+
+// Sum the 32 partial sums over the L lanes of a row by recursive halving:
+// after log2(L) levels (32 - 32/L shuffles) lane g holds the sums g*K ..
+// g*K + K - 1 (K = 32/L), and the row's 30 sums are one contiguous store.
+template <typename T, int L>
+__device__ __forceinline__ void reduce_store(T (&acc)[kSums], int g, bool valid,
+                                             T* __restrict__ dst) {
+  constexpr int K = kSums / L;
+  halve<T, L / 2, kSums / 2>(acc, g);
+  if (valid) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (g * K + k < kScal) dst[g * K + k] = acc[k];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_pack(T* c, const T* __restrict__ pack, int d) {
+  for (int e = threadIdx.x; e < kConsts * d; e += blockDim.x) c[e] = pack[e];
+}
+
+// (a) registers: L lanes per row, each lane V consecutive modes per pass,
+// loaded straight from global memory.
+template <typename T, int V, int L>
+__global__ void __launch_bounds__(kThreads) wm_diag_regs(
+    Planes<T> p, const T* __restrict__ pack, T* __restrict__ scal,
+    T* __restrict__ det_planes, long long n, int d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* c = reinterpret_cast<T*>(smem_raw);  // (kConsts, d)
-  for (int e = threadIdx.x; e < kConsts * d; e += blockDim.x) c[e] = pack[e];
+  load_pack(c, pack, d);
   __syncthreads();
 
-  const int g = threadIdx.x % group;  // lane within the row's group
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (blockDim.x / group) + threadIdx.x / group;
+  const int g = threadIdx.x % L;
+  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / L) + threadIdx.x / L;
   const bool valid = row < n;
   const long long nd = n * d;
-
-  T acc[kScal];
+  T acc[kSums];
 #pragma unroll
-  for (int k = 0; k < kScal; ++k) acc[k] = T(0);
-
+  for (int k = 0; k < kSums; ++k) acc[k] = T(0);
   if (valid) {
-    for (int j = g; j < d; j += group) {
-      const long long i = row * d + j;
-      const T u1 = c[kU1 * d + j], u2 = c[kU2 * d + j], gt = c[kGt * d + j];
-      const T X1 = mqq[i] * u1, X2 = mqp[i] * u2;
-      const T Z1 = mpq[i] * u1, Z2 = mpp[i] * u2;
-
-      // balanced transposed-A blocks and P, per mode
-      const T G11 = gt * X1 * X1, G12 = gt * X1 * X2, G22 = gt * X2 * X2;
-      const T B11 = X1 * Z1, B12 = X1 * Z2, B21 = X2 * Z1, B22 = X2 * Z2;
-      const T TR1 = Z1 * X2, TR2 = Z2 * X2;
-      const Cx<T> At11 = cx(c[kCb11 * d + j] + G11, B11);
-      const Cx<T> At12 = cx(G12, c[kCb12Im * d + j] + (T(2) * B12 - TR1));
-      const Cx<T> At21 = cx(G12, B21);
-      const Cx<T> At22 = cx(c[kCb22 * d + j] + G22, T(2) * B22 - TR2);
-      const Cx<T> P1 = cx(gt * X1, Z1), P2 = cx(gt * X2, Z2);
-
-      // det, y = At^{-1} P
-      const Cx<T> det = At11 * At22 - At12 * At21;
-      const Cx<T> inv_det = recip(det);
-      const Cx<T> y1 = (At22 * P1 - At12 * P2) * inv_det;
-      const Cx<T> y2 = (At11 * P2 - At21 * P1) * inv_det;
-
-      // M' = M0 - y^T (P + C2b y), its scaled value and reciprocal
-      const T c2_12 = c[kC2_12Im * d + j];
-      const Cx<T> c2y1 = c[kC2_11 * d + j] * y1 + c2_12 * mul_i(y2);
-      const Cx<T> c2y2 = c2_12 * mul_i(y1) + c[kC2_22 * d + j] * y2;
-      const Cx<T> Mp = cx(c[kM0 * d + j], T(0)) - (y1 * (P1 + c2y1) + y2 * (P2 + c2y2));
-      const T ims = c[kInvMScale * d + j];
-      const Cx<T> iM = recip(Mp);
-      det_planes[i] = det.re;
-      det_planes[nd + i] = det.im;
-      det_planes[2 * nd + i] = Mp.re * ims;
-      det_planes[3 * nd + i] = Mp.im * ims;
-
-      // the five observable vectors of this mode and their Gram terms
-      const Cx<T> yf = c[kFq1 * d + j] * y1 + c[kFq2Im * d + j] * mul_i(y2);
-      const Cx<T> yb = c[kBq1 * d + j] * y1 + c[kBq2Im * d + j] * mul_i(y2);
-      const T dQ = dQ_in[i], n1Q = n1Q_in[i], g0 = c[kG0 * d + j];
-      Cx<T> s[5];
-      s[0] = dq_in[i] * yf;
-      s[1] = n1q_in[i] * yf;
-      s[2] = cx(g0 * dQ, T(0));
-      s[3] = cx(g0 * n1Q, T(0));
-      s[4] = cx(dp_in[i], T(0)) + v0c_in[i] * yb;
-      Cx<T> w[5];
-#pragma unroll
-      for (int l = 0; l < 5; ++l) w[l] = s[l] * iM;
-      // the Gram pairs (k, l) of ops/wm_diag.py GRAM_PAIRS, in order
-#define SEMI_GRAM(q, k, l)                 \
-  {                                        \
-    const Cx<T> t = s[k] * w[l];           \
-    acc[2 * (q)] += t.re;                  \
-    acc[2 * (q) + 1] += t.im;              \
+    for (int j = g * V; j < d; j += L * V)
+      chunk<T, V, true>(c, d, j, p, row * d + j, det_planes, nd, row * d + j, acc);
   }
-      SEMI_GRAM(0, 0, 0) SEMI_GRAM(1, 0, 1) SEMI_GRAM(2, 0, 2) SEMI_GRAM(3, 0, 3)
-      SEMI_GRAM(4, 0, 4) SEMI_GRAM(5, 1, 2) SEMI_GRAM(6, 1, 3) SEMI_GRAM(7, 1, 4)
-      SEMI_GRAM(8, 2, 2) SEMI_GRAM(9, 2, 3) SEMI_GRAM(10, 2, 4) SEMI_GRAM(11, 3, 4)
-      SEMI_GRAM(12, 4, 4)
-#undef SEMI_GRAM
-      const T p0 = c[kP0 * d + j];
-      acc[2 * kGram] += dQ * g0 * dQ;
-      acc[2 * kGram + 1] += dQ * g0 * n1Q;
-      acc[2 * kGram + 2] += p0 * dQ;
-      acc[2 * kGram + 3] += p0 * n1Q;
+  reduce_store<T, L>(acc, g, valid, scal + row * kScal);
+}
+
+// ---- (b) the shared-memory ring (probe) -------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+constexpr int kBarBytes = 128;  // full[8], empty[8]
+constexpr int kMaxStages = 8;
+
+// (b) ring: W consumer warps and one producer warp; the producer's lane 0
+// copies each plane's span of a tile (rows * d contiguous elements) into a
+// stage of the ring with one bulk copy, completing on the stage's full
+// barrier; the consumers compute from shared memory and release the stage
+// on its empty barrier.
+template <typename T, int V, int L, int W>
+__global__ void __launch_bounds__((W + 1) * 32, 1) wm_diag_ring(
+    Planes<T> p, const T* __restrict__ pack, T* __restrict__ scal,
+    T* __restrict__ det_planes, long long n, int d, int rows, int stages, int pack_bytes) {
+  extern __shared__ __align__(128) unsigned char ring_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_raw);
+  uint64_t* empty = full + kMaxStages;
+  T* c = reinterpret_cast<T*>(ring_raw + kBarBytes);
+  T* ring = reinterpret_cast<T*>(ring_raw + kBarBytes + pack_bytes);
+  const long long tiles = (n + rows - 1) / rows;
+  const int span = rows * d;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_pack(c, pack, d);
+  __syncthreads();
+
+  if (warp == W) {
+    if (lane == 0) {
+      int k = 0;
+      for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+        const int s = k % stages;
+        if (k >= stages) mbar_wait(&empty[s], ((k / stages) - 1) & 1);
+        const long long r0 = t * rows;
+        const long long nr = min(static_cast<long long>(rows), n - r0);
+        const uint32_t bytes = static_cast<uint32_t>(nr * d * sizeof(T));
+        mbar_expect_tx(&full[s], kPlanes * bytes);
+#pragma unroll
+        for (int q = 0; q < kPlanes; ++q)
+          bulk_g2s(ring + (s * kPlanes + q) * span, p.in[q] + r0 * d, bytes, &full[s]);
+      }
+    }
+    return;
   }
 
-  // sums over the row's modes: butterfly inside the group (every lane of
-  // the warp takes part, rows past n with zeros)
-  for (int off = group / 2; off > 0; off >>= 1) {
+  const int g = lane % L;
+  const long long nd = n * d;
+  int k = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
+    const int s = k % stages;
+    mbar_wait(&full[s], (k / stages) & 1);
+    for (int lr = warp * (32 / L) + lane / L; lr - lane / L < rows; lr += W * (32 / L)) {
+      const long long row = t * rows + lr;
+      const bool valid = lr < rows && row < n;
+      T acc[kSums];
 #pragma unroll
-    for (int k = 0; k < kScal; ++k) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-  }
-  if (valid) {
-    T* dst = scal + row * kScal;
+      for (int q = 0; q < kSums; ++q) acc[q] = T(0);
+      if (valid) {
+        Planes<T> src;
 #pragma unroll
-    for (int k = 0; k < kScal; ++k)
-      if (k % group == g) dst[k] = acc[k];
+        for (int q = 0; q < kPlanes; ++q) src.in[q] = ring + (s * kPlanes + q) * span + lr * d;
+        for (int j = g * V; j < d; j += L * V)
+          chunk<T, V, false>(c, d, j, src, j, det_planes, nd, row * d + j, acc);
+      }
+      reduce_store<T, L>(acc, g, valid, scal + row * kScal);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
+}
+
+template <typename T, int V, int L>
+int launch_regs(const Planes<T>& p, const T* pack, T* scal, T* det_planes, long long n, int d,
+                int blocks, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kConsts) * d * sizeof(T);
+  wm_diag_regs<T, V, L><<<blocks, kThreads, smem, stream>>>(p, pack, scal, det_planes, n, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V, int L, int W>
+int launch_ring(const Planes<T>& p, const T* pack, T* scal, T* det_planes, long long n, int d,
+                int rows, int stages, int blocks, cudaStream_t stream) {
+  const int pack_bytes = (kConsts * d * static_cast<int>(sizeof(T)) + 127) / 128 * 128;
+  const size_t smem = kBarBytes + pack_bytes +
+                      static_cast<size_t>(stages) * kPlanes * rows * d * sizeof(T);
+  if (stages < 1 || stages > kMaxStages || smem > kMaxSmem ||
+      (static_cast<long long>(n) * d * sizeof(T)) % 16 != 0 || (rows * d * sizeof(T)) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = wm_diag_ring<T, V, L, W>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  kernel<<<blocks, (W + 1) * 32, smem, stream>>>(p, pack, scal, det_planes, n, d, rows, stages,
+                                                  pack_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int dispatch(const Planes<T>& p, const T* pack, T* scal, T* det_planes, long long n, int d,
+             int lanes, int stages, int blocks, cudaStream_t stream) {
+  if (stages > 0) {
+    // probe: stages = 100 * rows + stages
+    const int rows = stages / 100, st = stages % 100;
+    constexpr int W = sizeof(T) == 4 ? 16 : 12;
+    if (lanes == 32) return launch_ring<T, V, 32, W>(p, pack, scal, det_planes, n, d, rows, st, blocks, stream);
+    if (lanes == 16) return launch_ring<T, V, 16, W>(p, pack, scal, det_planes, n, d, rows, st, blocks, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (lanes) {
+    case 32: return launch_regs<T, V, 32>(p, pack, scal, det_planes, n, d, blocks, stream);
+    case 4: return launch_regs<T, V, 4>(p, pack, scal, det_planes, n, d, blocks, stream);
+    case 8: return launch_regs<T, V, 8>(p, pack, scal, det_planes, n, d, blocks, stream);
+    case 16: return launch_regs<T, V, 16>(p, pack, scal, det_planes, n, d, blocks, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int launch(const void* const* planes, const void* pack, void* scal, void* det_planes,
-           long long n, int d, void* stream) {
+           long long n, int d, int vec, int lanes, int stages, int blocks, void* stream) {
   if (d < 1 || d > kMaxD || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  int group = 1;
-  while (group < d && group < kWarp) group *= 2;
-  const int rows_per_block = kThreads / group;
-  const long long blocks = (n + rows_per_block - 1) / rows_per_block;
-  const size_t smem = static_cast<size_t>(kConsts) * d * sizeof(T);
-  const T* const* p = reinterpret_cast<const T* const*>(planes);
-  wm_diag_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9],
-      static_cast<const T*>(pack), static_cast<T*>(scal), static_cast<T*>(det_planes),
-      n, d, group);
-  return static_cast<int>(cudaGetLastError());
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Planes<T> p;
+  for (int q = 0; q < kPlanes; ++q) p.in[q] = static_cast<const T*>(planes[q]);
+  // a vector access needs whole vectors per row and aligned rows
+  if (vec > 1) {
+    if (d % vec != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const uintptr_t mask = static_cast<uintptr_t>(vec * sizeof(T)) - 1;
+    for (int q = 0; q < kPlanes; ++q)
+      if (reinterpret_cast<uintptr_t>(planes[q]) & mask)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (reinterpret_cast<uintptr_t>(det_planes) & mask)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (stages == 0 && static_cast<long long>(blocks) * (kThreads / (lanes > 0 ? lanes : 1)) < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* pk = static_cast<const T*>(pack);
+  T* sc = static_cast<T*>(scal);
+  T* dp = static_cast<T*>(det_planes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (sizeof(T) == 4) {
+    switch (vec) {
+      case 1: return dispatch<T, 1>(p, pk, sc, dp, n, d, lanes, stages, blocks, st);
+      case 2: return dispatch<T, 2>(p, pk, sc, dp, n, d, lanes, stages, blocks, st);
+      case 4: return dispatch<T, 4>(p, pk, sc, dp, n, d, lanes, stages, blocks, st);
+    }
+  } else {
+    switch (vec) {
+      case 1: return dispatch<T, 1>(p, pk, sc, dp, n, d, lanes, stages, blocks, st);
+      case 2: return dispatch<T, 2>(p, pk, sc, dp, n, d, lanes, stages, blocks, st);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // K5. Ten (n, d) planes Mqq, Mqp, Mpq, Mpp, dQ, dp, dq, n1q, n1Q, v0c, the
 // (17, d) constant pack, scal (n, 30) and det_planes (4, n, d), all float64,
-// row-major and contiguous; 1 <= d <= 256.
+// row-major and contiguous; 1 <= d <= 256; the layout of ops.wm_diag.layout.
 extern "C" int semi_wm_diag_f64(const void* mqq, const void* mqp, const void* mpq,
                                 const void* mpp, const void* dQ, const void* dp,
                                 const void* dq, const void* n1q, const void* n1Q,
                                 const void* v0c, const void* pack, void* scal,
-                                void* det_planes, long long n, int d, void* stream) {
-  const void* planes[10] = {mqq, mqp, mpq, mpp, dQ, dp, dq, n1q, n1Q, v0c};
-  return launch<double>(planes, pack, scal, det_planes, n, d, stream);
+                                void* det_planes, long long n, int d, int vec, int lanes,
+                                int stages, int blocks, void* stream) {
+  const void* planes[kPlanes] = {mqq, mqp, mpq, mpp, dQ, dp, dq, n1q, n1Q, v0c};
+  return launch<double>(planes, pack, scal, det_planes, n, d, vec, lanes, stages, blocks,
+                        stream);
 }
 
 // K5 for float32.
@@ -232,7 +485,9 @@ extern "C" int semi_wm_diag_f32(const void* mqq, const void* mqp, const void* mp
                                 const void* mpp, const void* dQ, const void* dp,
                                 const void* dq, const void* n1q, const void* n1Q,
                                 const void* v0c, const void* pack, void* scal,
-                                void* det_planes, long long n, int d, void* stream) {
-  const void* planes[10] = {mqq, mqp, mpq, mpp, dQ, dp, dq, n1q, n1Q, v0c};
-  return launch<float>(planes, pack, scal, det_planes, n, d, stream);
+                                void* det_planes, long long n, int d, int vec, int lanes,
+                                int stages, int blocks, void* stream) {
+  const void* planes[kPlanes] = {mqq, mqp, mpq, mpp, dQ, dp, dq, n1q, n1Q, v0c};
+  return launch<float>(planes, pack, scal, det_planes, n, d, vec, lanes, stages, blocks,
+                       stream);
 }

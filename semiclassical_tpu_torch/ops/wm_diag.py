@@ -35,14 +35,17 @@ How the kernel is laid out for Hopper is described at the top of
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from semiclassical_tpu_torch.ops.det import dtype_name
 from semiclassical_tpu_torch.units import hbar
 
 __all__ = ["wm_diag_derived", "wm_diag_derived_plain", "wm_diag_core_plain",
-           "build_const_pack", "scal_col", "check_args", "CONSTS",
-           "GRAM_PAIRS", "N_SCAL", "MAX_D", "LAUNCHES",
+           "build_const_pack", "scal_col", "check_args", "layout", "layout_of",
+           "Layout",
+           "CONSTS", "GRAM_PAIRS", "N_SCAL", "MAX_D", "MAX_SMEM", "LAUNCHES",
            "LAUNCHES_BY_DTYPE"]
 
 # rows of the per-mode constant pack (csrc/wm_diag.cu reads them in this
@@ -58,6 +61,14 @@ GRAM_PAIRS = ((0, 0), (0, 1), (0, 2), (0, 3), (0, 4),
 _EXTRA = ("g_DD", "g_Dn", "p0_dQ", "p0_n")
 N_SCAL = 2 * len(GRAM_PAIRS) + len(_EXTRA)  # 30
 MAX_D = 256
+# shared memory a block of the H100 may take
+MAX_SMEM = 232448
+# threads of a block (csrc/wm_diag.cu kThreads) and the lane counts per row
+# it is built for
+_THREADS = 256
+_LANES = (4, 8, 16)
+# the widest vector access per type: 16 bytes
+_MAX_VEC = {torch.float64: 2, torch.float32: 4}
 
 # kernel launches made by the wrapper (one per launch), and the same
 # launches by the planes' dtype name
@@ -177,6 +188,61 @@ def check_args(planes, pack):
                          f"{[tuple(x.shape) for x in planes]}")
 
 
+class Layout(NamedTuple):
+    """How K5 runs a batch: `variant` "vector" (each lane reads `vec`
+    consecutive modes of a row as one 8- or 16-byte access) or "scalar"
+    (`vec` 1, for planes whose pointers are not 16-byte aligned or a d that
+    no vector divides); `lanes` lanes own a row, `rows` rows make the tile
+    of a block, `blocks` tiles cover the batch; `stages` of a shared-memory
+    ring (0: the planes are read straight from global memory); `smem` the
+    block's shared-memory bytes (the constant pack)."""
+    variant: str
+    rows: int
+    lanes: int
+    vec: int
+    stages: int
+    smem: int
+    blocks: int
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def layout(n: int, d: int, dtype: torch.dtype, aligned: bool) -> Layout:
+    """The layout rule of K5 for n rows of d modes of `dtype` (float64 or
+    float32); `aligned`: every plane and output pointer is a multiple of 16
+    bytes. A lane takes the widest vector of modes that divides d (16 bytes
+    at most) when the pointers are aligned, one mode otherwise; a row takes
+    the fewest lanes, 4 to 16, a power of two, that cover its vectors in one
+    pass (more passes above 16 vectors)."""
+    if dtype not in _MAX_VEC:
+        raise ValueError(f"K5 takes float64 or float32, got {dtype}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"K5 takes 1 <= d <= {MAX_D}, got d = {d}")
+    if n < 0:
+        raise ValueError(f"K5 takes n >= 0 rows, got n = {n}")
+    vec = next(v for v in (4, 2, 1)
+               if v <= _MAX_VEC[dtype] and d % v == 0
+               and (aligned or v == 1))
+    chunks = _ceil_div(d, vec)
+    lanes = next((w for w in _LANES if w >= chunks), _LANES[-1])
+    rows = _THREADS // lanes
+    smem = len(CONSTS) * d * torch.finfo(dtype).bits // 8
+    return Layout("vector" if vec > 1 else "scalar", rows, lanes, vec, 0,
+                  smem, _ceil_div(n, rows))
+
+
+def layout_of(planes) -> Layout:
+    """K5's layout for the ten (n, d) planes as they lie in memory: the
+    vector variant only when every plane starts on a 16-byte boundary (a
+    view of a (4, n, d) tensor at an odd n d, or a narrowed tensor, may
+    not). The outputs are allocated aligned."""
+    n, d = planes[0].shape
+    aligned = all(x.data_ptr() % 16 == 0 for x in planes)
+    return layout(n, d, planes[0].dtype, aligned)
+
+
 def _launch(planes, pack):
     from semiclassical_tpu_torch.ops import _build
 
@@ -186,10 +252,12 @@ def _launch(planes, pack):
     det_planes = torch.empty((4, n, d), dtype=pack.dtype, device=pack.device)
     if n == 0:
         return scal, det_planes
+    lay = layout_of(planes)
     err = _build.launch(
         _build.entry("wm_diag", pack.dtype), pack.device,
         *(x.data_ptr() for x in planes), pack.data_ptr(), scal.data_ptr(),
-        det_planes.data_ptr(), n, d)
+        det_planes.data_ptr(), n, d, lay.vec, lay.lanes, lay.stages,
+        lay.blocks)
     if err != 0:
         raise RuntimeError(f"wm_diag kernel launch failed: CUDA error {err} "
                            f"(n = {n}, d = {d}, {pack.dtype})")

@@ -17,7 +17,10 @@ relative in complex128 and 1e-5 in complex64 (rounding-order differences
 of the same elimination, FMA contraction included), on well-conditioned
 matrices I + 0.3 noise/sqrt(r). K5 (`ops.wm_diag.wm_diag_derived`,
 csrc/wm_diag.cu) likewise, 1e-12 in float64 and 1e-5 in float32 of each
-output's largest entry, on identity-plus-noise monodromy planes. K4
+output's largest entry, on identity-plus-noise monodromy planes, in both
+variants of its layout rule (vector loads; scalar loads for planes that do
+not start on a 16-byte boundary, as views of one (4, n, d) tensor at odd
+n d), at d around every lane and vector edge, at ragged n and n = 0. K4
 (`ops.det_block.batched_det_block`, csrc/det_lu_block.cu, one thread block
 per matrix) is held against the same plain version as K1 at the same
 limits, and `linalg.batched_det` is checked to launch K1 for r <=
@@ -223,6 +226,98 @@ def test_wm_diag_kernel_matches_plain(card, dtype, n, d, rtol):
     err = ((det_planes - det_p).abs().amax((1, 2))
            / det_p.abs().amax((1, 2))).max()
     assert float(err) <= rtol
+
+
+def _wm_diag_check(planes, pack, rtol):
+    """One K5 launch on `planes` against the plain version: every scal
+    column and det plane within rtol of its own largest entry."""
+    from semiclassical_tpu_torch.ops import wm_diag
+
+    n, d = planes[0].shape
+    before = wm_diag.LAUNCHES
+    scal, det_planes = wm_diag.wm_diag_derived(*planes, pack)
+    torch.cuda.synchronize()
+    assert wm_diag.LAUNCHES == before + 1
+    assert scal.shape == (n, wm_diag.N_SCAL) and det_planes.shape == (4, n, d)
+    assert bool(torch.isfinite(scal).all() and torch.isfinite(det_planes).all())
+    scal_p, det_p = wm_diag.wm_diag_derived_plain(*planes, pack)
+    scale = scal_p.abs().amax(0)
+    err = ((scal - scal_p).abs().amax(0)
+           / torch.where(scale > 0, scale, 1.0)).max()
+    assert float(err) <= rtol
+    err = ((det_planes - det_p).abs().amax((1, 2))
+           / det_p.abs().amax((1, 2))).max()
+    assert float(err) <= rtol
+
+
+_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("d", [7, 8, 9, 31, 32, 33, 64, 65, 255, 256])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_wm_diag_kernel_at_chunk_edges(card, dtype, d):
+    """K5 at d on both sides of a vector, of a pass of 4, 8 and 16 lanes
+    and at the largest d, with a batch that fills no whole block."""
+    planes, pack = _wm_diag_inputs(101, d, dtype, card, seed=d)
+    _wm_diag_check(planes, pack, _RTOL[dtype])
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, 4099])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_wm_diag_kernel_ragged_batches(card, dtype, n):
+    """K5 at the flagship's d = 60 with n smaller than one block's rows and
+    n that is no multiple of them (the vector variant)."""
+    from semiclassical_tpu_torch.ops import wm_diag
+
+    planes, pack = _wm_diag_inputs(n, 60, dtype, card, seed=n)
+    assert wm_diag.layout_of(planes).variant == "vector"
+    _wm_diag_check(planes, pack, _RTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype, n, d", [
+    (torch.float64, 1001, 5), (torch.float64, 33, 63),
+    (torch.float32, 1001, 5), (torch.float32, 33, 63),
+    (torch.float32, 1001, 6)])
+def test_wm_diag_kernel_on_views(card, dtype, n, d):
+    """K5 on Mqq .. Mpp passed as the four views of one (4, n, d) tensor,
+    as `propagation.wm.wm_diag_inputs` passes them: at odd n d (and at
+    float32 n d = 2 mod 4) the views after the first are not 16-byte
+    aligned and run the scalar variant."""
+    from semiclassical_tpu_torch.ops import wm_diag
+
+    planes, pack = _wm_diag_inputs(n, d, dtype, card, seed=n + d)
+    Z = torch.stack(planes[:4]).contiguous()
+    views = [*Z, *planes[4:]]
+    assert Z[1].data_ptr() % 16 != 0
+    assert wm_diag.layout_of(views).variant == "scalar"
+    _wm_diag_check(views, pack, _RTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_wm_diag_kernel_on_narrowed_planes(card, dtype):
+    """At d = 60, planes narrowed one element into a flat tensor run the
+    scalar variant, the same planes aligned the vector variant; both match
+    the plain version."""
+    from semiclassical_tpu_torch.ops import wm_diag
+
+    n, d = 1001, 60
+    planes, pack = _wm_diag_inputs(n, d, dtype, card, seed=11)
+    narrowed = [torch.cat([x.new_zeros(1), x.reshape(-1)]).narrow(0, 1, n * d)
+                .view(n, d) for x in planes]
+    assert wm_diag.layout_of(planes).variant == "vector"
+    assert wm_diag.layout_of(narrowed).variant == "scalar"
+    _wm_diag_check(planes, pack, _RTOL[dtype])
+    _wm_diag_check(narrowed, pack, _RTOL[dtype])
+
+
+def test_wm_diag_empty_batch_launches_nothing(card):
+    from semiclassical_tpu_torch.ops import wm_diag
+
+    planes, pack = _wm_diag_inputs(0, 60, torch.float64, card, seed=0)
+    before = wm_diag.LAUNCHES
+    scal, det_planes = wm_diag.wm_diag_derived(*planes, pack)
+    assert wm_diag.LAUNCHES == before
+    assert scal.shape == (0, wm_diag.N_SCAL) and det_planes.shape == (4, 0, 60)
 
 
 @pytest.mark.parametrize("case", ["d257", "float-pack", "non-contiguous"])
