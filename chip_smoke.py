@@ -72,14 +72,23 @@ K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
              times of K4, K1, the plain version
              and torch.linalg.det at (2048, 45, 45) complex128, in turns;
              host times as for K1 (K2's at (10000, 6, 6 | 12) in its phase);
-4c. K5     — the fused separable WM kernel against its plain version on
-             the 60-mode AS example's WM state after 10 steps, at
-             (98304, 60), (8192, 60) and (1000, 5) in float64 and (98304,
-             60) in float32, every output row within 1e-12 (float64) / 1e-5
-             (float32) of its own largest entry; times at (98304, 60)
-             float64 and float32; its C entry point called directly (the
-             outputs allocated once) in turns with the wrapper, beside the
-             byte bound and the share of it, in both types;
+4c. K5     — ptxas' registers and spills of every instantiation (the
+             script fails if one spills); the fused separable WM kernel
+             against its plain version on the 60-mode AS example's WM
+             state after 10 steps, at (98304, 60), (8192, 60) and (1000, 5)
+             in float64, (98304, 60) in float32 and (98305, 60) in both (a
+             batch that fills no whole block), and on the planes
+             `wm.wm_diag_inputs` gives for a 5-mode state at n = 1001 in
+             both and a 6-mode one in float32 (Mqq .. Mpp views of one
+             (4, n, d) tensor, not 16-byte aligned: the scalar variant of
+             its layout rule, as at odd d; every other case runs the
+             vector variant, and the script checks which ran),
+             every output row within 1e-12 (float64) / 1e-5 (float32) of
+             its own largest entry; times at (98304, 60) float64 and
+             float32; its C entry point called directly with the layout of
+             its rule (the outputs allocated once) in turns with the
+             wrapper, beside the byte bound and the share of it, in both
+             types;
 5. HK methylium — examples/methylium_AH at its own size (50,000
              trajectories x 2000 steps, batches of 10,000) through the
              port's `cli.main(["dynamics", ...])` and
@@ -356,6 +365,15 @@ K5_CASES = [
     (8192, 60, "float64", 1e-12),
     (1000, 5, "float64", 1e-12),
     (98304, 60, "float32", 1e-5),
+    # a batch that fills no whole block; at n = 1001 the planes of
+    # `wm.wm_diag_inputs` on a WM state of the model's first d modes, Mqq ..
+    # Mpp the views of one (4, n, d) tensor, not 16-byte aligned at odd n d
+    # (and at float32 n d = 2 mod 4): the scalar variant
+    (98305, 60, "float64", 1e-12),
+    (98305, 60, "float32", 1e-5),
+    (1001, 5, "float64", 1e-12),
+    (1001, 5, "float32", 1e-5),
+    (1001, 6, "float32", 1e-5),
 ]
 # (n, m, dtype name, limit kernel-vs-plain, limit vs the c128 oracle)
 K3_CASES = [
@@ -1589,15 +1607,69 @@ def wm_norm_phase(cli, ops, smi):
     return launches, dict(block=block, n=n, d=d, r=r)
 
 
-def k5_phase(cli, wm_diag, model):
-    """K5 against its plain version on a WM state of the 60-mode AS
-    example after 10 steps, and its times at (98304, 60) float64."""
+def k5_ptxas(build_log):
+    """K5's lines of ptxas' report (registers and spills; its shared memory
+    is dynamic, the layout's `smem`) from the build's log, two per
+    instantiation; fails if one spills."""
+    entry, lines = None, []
+    for line in build_log.splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "wm_diag_kernel" in line else None
+        elif entry and ("spill" in line or "Used" in line):
+            lines.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
+            if "spill" in line:
+                check("0 bytes spill stores, 0 bytes spill loads" in line,
+                      f"K5 spills: {entry}: {line.strip()}")
+    return lines
+
+
+def k5_planes_few_modes(cli, model, d):
+    """K5's inputs from `wm.wm_diag_inputs` on a WM state of the first d
+    modes of the AS model after 10 steps at n = 1001, the main path's own
+    planes: Mqq .. Mpp the views of the state's (4, n, d) Z; at float32 the
+    views of Z cast as one tensor, as the reduced modes cast it."""
     import torch
 
     from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.potentials import MorsePotential
     from semiclassical_tpu_torch.propagation import (
         WaltonManolopoulosPropagator, wm)
 
+    task = {"potential": {"type": "anharmonic AS", "model_file": model}}
+    potential, q0, _, G, _, _, _ = cli._build_potential(task, "cuda")
+    sub = lambda x: x[:d].cpu().numpy()
+    pot = MorsePotential.from_arrays(sub(potential.omega), sub(potential.a),
+                                     sub(potential.D), sub(potential.nac),
+                                     False, "cuda")
+    Gd, qd = G[:d, :d], q0[:d]
+    prop = WaltonManolopoulosPropagator(Gd, Gd, CELL_WIDTH, CELL_WIDTH,
+                                        device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 6)
+    prop.initial_conditions(qd, 0 * qd, Gd, pot, ntraj=1001, generator=g)
+    prop._run(pot, 0.005 / units.autime_to_fs, 10)
+    planes, _ = wm.wm_diag_inputs(prop.params, prop.bc, prop.state, pot)
+    pack = prop.params.diag_pack
+    z32 = prop.state.Z.to(torch.float32)
+    return {"float64": (list(planes), pack),
+            "float32": ([*z32, *(x.float() for x in planes[4:])],
+                        pack.float())}
+
+
+def k5_phase(cli, wm_diag, model):
+    """K5 against its plain version on a WM state of the 60-mode AS
+    example after 10 steps (and on the main path's planes of 5- and 6-mode
+    states at n = 1001, misaligned), its times at (98304, 60) float64 and
+    float32, and ptxas' report of its instantiations."""
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.ops import _build
+    from semiclassical_tpu_torch.propagation import (
+        WaltonManolopoulosPropagator, wm)
+
+    for line in k5_ptxas(_build.build_log()):
+        print(f"K5 ptxas: {line}", flush=True)
     task = {"potential": {"type": "anharmonic AS", "model_file": model}}
     potential, q0, _, G, _, _, _ = cli._build_potential(task, "cuda")
     prop = WaltonManolopoulosPropagator(G, G, CELL_WIDTH, CELL_WIDTH,
@@ -1611,6 +1683,7 @@ def k5_phase(cli, wm_diag, model):
                                   potential)
     pack = prop.params.diag_pack
     del prop
+    few = {d: k5_planes_few_modes(cli, model, d) for d in (5, 6)}
 
     def row_err(got, ref, dims):
         """Largest error per output row relative to the row's largest
@@ -1619,11 +1692,20 @@ def k5_phase(cli, wm_diag, model):
         return float(((got - ref).abs().amax(dim=dims)
                       / torch.where(scale > 0, scale, 1.0)).max())
 
+    def case_inputs(n, d, dname):
+        dtype = getattr(torch, dname)
+        if n == 1001:
+            return few[d][dname]
+        # rows past the state's repeat its first ones
+        src = [torch.cat([x, x[:n - x.shape[0]]]) if n > x.shape[0] else x
+               for x in planes]
+        return ([x[:n, :d].to(dtype).contiguous() for x in src],
+                pack[:, :d].to(dtype).contiguous())
+
     main_abs_err = None
     for n, d, dname, lim in K5_CASES:
-        dtype = getattr(torch, dname)
-        args = [x[:n, :d].to(dtype).contiguous() for x in planes]
-        cpack = pack[:, :d].to(dtype).contiguous()
+        args, cpack = case_inputs(n, d, dname)
+        variant = wm_diag.layout_of(args).variant
         scal_k, det_k = wm_diag.wm_diag_derived(*args, cpack)
         scal_p, det_p = wm_diag.wm_diag_derived_plain(*args, cpack)
         torch.cuda.synchronize()
@@ -1633,11 +1715,17 @@ def k5_phase(cli, wm_diag, model):
         if (n, d, dname) == (98304, 60, "float64"):
             main_abs_err = max(float((scal_k - scal_p).abs().max()),
                                float((det_k - det_p).abs().max()))
-        print(f"K5 ({n}, {d}) {dname}: max error kernel-plain per output "
-              f"row, relative to the row's largest entry, {err:.3e} (limit "
-              f"{lim:g})", flush=True)
+        print(f"K5 ({n}, {d}) {dname}, {variant} variant: max error "
+              f"kernel-plain per output row, relative to the row's largest "
+              f"entry, {err:.3e} (limit {lim:g})", flush=True)
         check(finite, f"K5 non-finite at ({n}, {d}) {dname}")
         check(err <= lim, f"K5 kernel vs plain {err} > {lim}")
+        misaligned = any(x.data_ptr() % 16 for x in args)
+        check(misaligned == (n == 1001), f"K5 at ({n}, {d}) {dname}: planes "
+              f"misaligned {misaligned}")
+        check(variant == ("scalar" if misaligned or d % 2 else "vector"),
+              f"K5 at ({n}, {d}) {dname} ran the {variant} variant")
+    del few
 
     n, d = 98304, 60
     timed = in_turns(wm_diag.wm_diag_derived, wm_diag.wm_diag_derived_plain,
@@ -1663,11 +1751,11 @@ def k5_phase(cli, wm_diag, model):
 
 
 def k5_direct_rows(wm_diag, inputs):
-    """K5's C entry point called directly at (98304, 60), its outputs
-    allocated once, in turns with the wrapper (direct, wrapper, wrapper,
-    direct), beside the byte bound and the share of it the entry point
-    reaches; one line per type of `inputs` ({dtype name: (planes,
-    pack)})."""
+    """K5's C entry point called directly at (98304, 60) with the layout
+    of its rule, its outputs allocated once, in turns with the wrapper
+    (direct, wrapper, wrapper, direct), beside the byte bound and the share
+    of it the entry point reaches; one line per type of `inputs` ({dtype
+    name: (planes, pack)})."""
     import numpy as np
     import torch
 
@@ -1678,8 +1766,10 @@ def k5_direct_rows(wm_diag, inputs):
         det_planes = torch.empty((4, n, d), dtype=pack.dtype,
                                  device=pack.device)
         suffix = "f64" if pack.dtype == torch.float64 else "f32"
+        lay = wm_diag.layout_of(planes)
         direct = direct_call(f"semi_wm_diag_{suffix}",
-                             (*planes, pack, scal, det_planes), n, d)
+                             (*planes, pack, scal, det_planes), n, d,
+                             lay.vec, lay.lanes, lay.blocks)
         t = {"direct": [], "wrapper": []}
         for name in ("direct", "wrapper", "wrapper", "direct"):
             t[name] += (median_ms(direct, loops=5, calls=20)
@@ -1692,9 +1782,9 @@ def k5_direct_rows(wm_diag, inputs):
                            K5_FLOPS * n * d, pack.dtype == torch.float32)
         print(f"K5 direct ({n}, {d}) {dname}: entry point called directly "
               f"{dms:.4f} ms, through the wrapper {wms:.4f} ms per call "
-              f"(median of CUDA-event windows of 20 calls); bound {b_ms:.4f}"
-              f" ms ({b_by}): the entry point at {100 * b_ms / dms:.1f}% of "
-              "it", flush=True)
+              f"(median of CUDA-event windows of 20 calls; layout "
+              f"{tuple(lay)}); bound {b_ms:.4f} ms ({b_by}): the entry point "
+              f"at {100 * b_ms / dms:.1f}% of it", flush=True)
 
 
 def coumarin_task(file):

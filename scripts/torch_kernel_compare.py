@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 # coding: utf-8
-"""Time the hand-written elimination kernels (K1 determinant, K2 det +
-solve, K3 det + inverse, K4 block determinant) of two checkouts of
-semiclassical_tpu_torch on one NVIDIA GPU, in one process, in turns:
-parent, change, change, parent.
+"""Time the hand-written kernels (K1 determinant, K2 det + solve, K3 det +
+inverse, K4 block determinant, K5 fused separable WM step) of two
+checkouts of semiclassical_tpu_torch on one NVIDIA GPU, in one process, in
+turns: parent, change, change, parent.
 
     python3 scripts/torch_kernel_compare.py --parent DIR [--change DIR]
+        [--ptxas] [--direct] [--k5-only]
 
 `DIR` is the root of a checkout (the directory that holds
 semiclassical_tpu_torch/); `--change` defaults to this script's checkout.
@@ -34,7 +35,14 @@ names):
   over 3.35 TB/s or flops over 34 TFLOP/s) with the share reached;
 * K1 (the layout of its rule, and its warp kernel) against K4 on the
   change at r = 12 .. 32, n = 2048 and 10^4: the crossing that
-  `linalg.DET_WARP_MAX_R` states.
+  `linalg.DET_WARP_MAX_R` states;
+* K5 at the 60-mode AS batch (98,304, 60) and its `micro_batch` 8192
+  sub-batch, in float64 and float32: the entry point of each side (with the
+  layout its own rule names) and each side's wrapper, every window's time
+  kept, so that each side's median prints beside its spread (the range of
+  its windows), the bound and the share of it reached.
+
+`--k5-only` times K5 alone (K1-K4 are skipped).
 """
 
 import argparse
@@ -65,7 +73,7 @@ def load_side(root):
     again, so that a second checkout can be imported the same way."""
     sys.path.insert(0, str(root))
     try:
-        for name in ("_build", "det", "det_block", "gj"):
+        for name in ("_build", "det", "det_block", "gj", "wm_diag"):
             importlib.import_module(f"{PACKAGE}.ops.{name}")
         sys.modules[f"{PACKAGE}.ops._build"].load()
     finally:
@@ -261,6 +269,101 @@ def direct_phase(sides, g, smoke):
               f"per call", flush=True)
     small_kernels_phase(sides, g, smoke)
     crossing_phase(new, g)
+    k5_phase(sides, g, smoke)
+
+
+# K5 (n, d) for --direct: the flagship batch and its micro_batch sub-batch
+K5_DIRECT = [(98304, 60), (8192, 60)]
+
+
+def k5_inputs(n, d, dtype, g):
+    """K5's ten planes (identity-plus-noise monodromy, O(1) vectors) and the
+    change's constant pack of diagonal widths in [0.001, 0.014], cell 1e4,
+    at `dtype` on the card."""
+    from semiclassical_tpu_torch.ops import wm_diag
+    from semiclassical_tpu_torch.propagation import wm
+
+    def noise(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.float64)
+    eye = torch.tensor([1.0, 0.0, 0.0, 1.0], dtype=torch.float64,
+                       device="cuda")[:, None, None]
+    planes = [*(eye + 0.3 * noise(4, n, d)), *noise(6, n, d)]
+    omega = 0.001 + 0.013 * torch.rand(d, generator=g, device="cuda",
+                                       dtype=torch.float64)
+    G = torch.diag(omega).cpu().numpy()
+    consts = wm.WMDiagConsts(**{
+        k: torch.tensor(np.asarray(v, dtype=np.float64))
+        for k, v in wm._diag_consts(G, G, G, 1e4, 1e4).items()})
+    pack = wm_diag.build_const_pack(consts, noise(d).cpu(), 2.5e-3)
+    return ([x.to(dtype).contiguous() for x in planes],
+            pack.to(device="cuda", dtype=dtype).contiguous())
+
+
+def direct_wm_diag(side, planes, pack):
+    """K5's entry point of `side` on the planes, its outputs allocated
+    once, with the layout `side`'s own rule names (a checkout without
+    `layout_of` takes no layout)."""
+    wm_diag = ops(side, "wm_diag")
+    n, d = planes[0].shape
+    layout = ()
+    if hasattr(wm_diag, "layout_of"):
+        lay = wm_diag.layout_of(planes)
+        layout = (lay.vec, lay.lanes, lay.blocks)
+    out = (torch.empty((n, wm_diag.N_SCAL), dtype=pack.dtype, device="cuda"),
+           torch.empty((4, n, d), dtype=pack.dtype, device="cuda"))
+    suffix = "f64" if pack.dtype == torch.float64 else "f32"
+    return direct(side, f"semi_wm_diag_{suffix}", (*planes, pack, *out), n, d,
+                  *layout)
+
+
+def k5_phase(sides, g, smoke):
+    """K5 direct and through the wrapper, parent and change in turns, each
+    side's median beside the range of its windows, the bound and the
+    share."""
+    new = sides["change"]
+    for dtype in (torch.float64, torch.float32):
+        for n, d in K5_DIRECT:
+            activate(new)
+            planes, pack = k5_inputs(n, d, dtype, g)
+            wm_diag = ops(new, "wm_diag")
+            got = wm_diag.wm_diag_derived(*planes, pack)
+            ref = wm_diag.wm_diag_derived_plain(*planes, pack)
+            torch.cuda.synchronize()
+            err = max(rel(got[0].T, ref[0].T), rel(got[1], ref[1]))
+            t = {(kind, name): [] for kind in ("direct", "wrapper")
+                 for name in ("parent", "change")}
+            for name in ("parent", "change", "change", "parent"):
+                side = sides[name]
+                activate(side)
+                t["direct", name] += window_ms(
+                    direct_wm_diag(side, planes, pack), loops=5, calls=20)
+                t["wrapper", name] += window_ms(
+                    ops(side, "wm_diag").wm_diag_derived, *planes, pack,
+                    loops=5, calls=20)
+            b_ms, by = smoke.bound(
+                (14 * n * d + wm_diag.N_SCAL * n + 17 * d)
+                * planes[0].element_size(), smoke.K5_FLOPS * n * d,
+                dtype == torch.float32)
+            med = {k: float(np.median(v)) for k, v in t.items()}
+            span = lambda k: f"{min(t[k]):.4f}-{max(t[k]):.4f}"
+            layout = tuple(wm_diag.layout_of(planes))
+            print(f"direct K5 ({n}, {d}) {str(dtype)[6:]}: parent "
+                  f"{med['direct', 'parent']:.4f} ms [{span(('direct', 'parent'))}], "
+                  f"change {med['direct', 'change']:.4f} ms "
+                  f"[{span(('direct', 'change'))}] "
+                  f"({med['direct', 'parent'] / med['direct', 'change']:.2f}x); "
+                  f"through the wrapper parent "
+                  f"{med['wrapper', 'parent']:.4f} ms, change "
+                  f"{med['wrapper', 'change']:.4f} ms (medians [ranges] of "
+                  f"{len(t['direct', 'change'])} CUDA-event windows of 20 "
+                  f"calls); bound {b_ms:.4f} ms by {by}, parent "
+                  f"{100 * b_ms / med['direct', 'parent']:.1f}%, change "
+                  f"{100 * b_ms / med['direct', 'change']:.1f}% of it; "
+                  f"change's layout {layout}, vs its plain version "
+                  f"{err:.3e}", flush=True)
+            del planes, got, ref
+            torch.cuda.empty_cache()
 
 
 def inputs(n, r, k, g):
@@ -292,6 +395,8 @@ def main():
                     help="print ptxas' register / spill lines of both builds")
     ap.add_argument("--direct", action="store_true",
                     help="also time the C entry points themselves")
+    ap.add_argument("--k5-only", action="store_true",
+                    help="time K5 alone, direct and through the wrapper")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_compare needs an NVIDIA GPU", file=sys.stderr)
@@ -310,6 +415,11 @@ def main():
                     print(f"{name} build: {line.strip()}", flush=True)
     g = torch.Generator(device="cuda")
     g.manual_seed(1234)
+    sys.path.insert(0, str(args.change.resolve()))
+    import chip_smoke
+    if args.k5_only:
+        k5_phase(sides, g, chip_smoke)
+        return 0
     new = sides["change"]
     for n, m, k in K2_SHAPES:
         A, B = inputs(n, m, k, g)
@@ -352,8 +462,6 @@ def main():
               f"({ms['parent'] / ms['change']:.2f}x); change vs its plain "
               f"version {err:.3e}", flush=True)
     if args.direct:
-        sys.path.insert(0, str(args.change.resolve()))
-        import chip_smoke
         direct_phase(sides, g, chip_smoke)
     return 0
 

@@ -14,7 +14,52 @@
 // version in ops/wm_diag.py; hbar = 1 (atomic units), asserted by the
 // wrapper.
 //
-// PROBE BUILD: the register design and the shared-memory ring side by side.
+// What bounds it on the H100: at the flagship shape (n = 98,304, d = 60) a
+// call reads ten (n, d) planes and writes four plus 30 sums a row: 342 MB
+// in float32 (0.102 ms at 3.35 TB/s), 684 MB in float64 (0.204 ms), for
+// ~290 flops per (row, mode), 1.7 GFLOP (0.026 ms at the FP32 peak, 0.05
+// ms at FP64). So it is bound by bytes, and what holds it back is how many
+// bytes each SM keeps in flight while its warps compute and reduce.
+//
+// The design reads each input once and writes each output once, keeps
+// every intermediate and every sum in registers, and spends few
+// instructions off the critical path:
+//  - L lanes (4, 8 or 16, a power of two) own a row; lane g reads V = 2
+//    consecutive modes j = g V, g V + L V, ... of each plane as one 8- or
+//    16-byte load (the read-only path), so a warp reads 32/L neighbouring
+//    rows as one contiguous span per plane; at d = 60, L = 16: two passes,
+//    14 of 16 lanes busy in the second;
+//  - each lane adds its modes' terms into 30 partial sums in mode order;
+//    recursive halving over the row's lanes (32 - 32/L shuffles for the
+//    warp's 32/L rows: 15 a row at L = 16, against the 150 of a butterfly
+//    of 30 values over 32 lanes) leaves lane g holding sums g K .. g K + K
+//    - 1 (K = 32/L), so a row's 30 sums are one contiguous store;
+//  - the per-mode det planes are written back as the same vectors;
+//  - the constant pack is copied to shared memory once per block;
+//  - reciprocals are __frcp_rn / __drcp_rn, the correctly rounded 1 / x
+//    (the value of the IEEE division T(1) / x, which nvcc already turns
+//    into a reciprocal sequence; the intrinsics' is a little shorter);
+//  - bytes in flight come from occupancy: 124 registers a thread at
+//    float32 (two blocks of 8 warps an SM), 208 at float64 (one), each lane
+//    with ten loads outstanding per pass.
+// A shared-memory ring (bulk copies of each plane's tile span on mbarriers,
+// a producer warp) was measured beside it: 5-6% faster at the flagship
+// shape, slower at the micro_batch shape (8192, 60) in float32, and it
+// would need a second kernel for planes that are not 16-byte aligned; so
+// the planes are read straight from global memory (PERF.md, K5).
+//
+// Layouts (ops/wm_diag.py `layout`): V = 2 where d is even and every plane
+// starts on a 16-byte boundary ("vector"), else V = 1 ("scalar": views of
+// one (4, n, d) tensor at an odd n d, narrowed planes); ragged n and any
+// 1 <= d <= 256 are masked in the kernel: rows past n compute nothing but
+// take part in the shuffles. The TPU kernel's mode-in-sublane transposes,
+// identity padding and float32-only arithmetic are artifacts of the TPU and
+// are not carried over; this kernel is templated on double (the main path)
+// and float (the reduced-precision modes).
+//
+// C interface (loaded with ctypes): pointers and the stream as void*, the
+// return value is cudaGetLastError() after the launch (or
+// cudaErrorInvalidValue for a shape or layout the kernel does not take).
 
 #include <cuda_runtime.h>
 
@@ -29,7 +74,6 @@ constexpr int kScal = 2 * kGram + 4;
 constexpr int kSums = 32;     // kScal padded to a power of two for the halving
 constexpr int kPlanes = 10;
 constexpr int kMaxD = 256;
-constexpr int kMaxSmem = 232448;
 
 // constant-pack rows
 enum {
@@ -77,7 +121,6 @@ __device__ __forceinline__ Cx<T> recip(Cx<T> a) {
 template <typename T, int V> struct Vec;
 template <> struct Vec<float, 1> { using type = float; };
 template <> struct Vec<float, 2> { using type = float2; };
-template <> struct Vec<float, 4> { using type = float4; };
 template <> struct Vec<double, 1> { using type = double; };
 template <> struct Vec<double, 2> { using type = double2; };
 
@@ -87,14 +130,10 @@ union Pack {
   T e[V];
 };
 
-template <typename T, int V, bool kGlobal>
+template <typename T, int V>
 __device__ __forceinline__ void load_vec(T (&dst)[V], const T* src) {
-  using VT = typename Vec<T, V>::type;
   Pack<T, V> p;
-  if constexpr (kGlobal)
-    p.v = __ldg(reinterpret_cast<const VT*>(src));
-  else
-    p.v = *reinterpret_cast<const VT*>(src);
+  p.v = __ldg(reinterpret_cast<const typename Vec<T, V>::type*>(src));
 #pragma unroll
   for (int e = 0; e < V; ++e) dst[e] = p.e[e];
 }
@@ -181,16 +220,14 @@ __device__ __forceinline__ void mode_chain(const T* __restrict__ c, int d, int j
 }
 
 // One chunk of V modes j .. j + V - 1 of a row at element i = row * d + j:
-// the ten planes read at offset `at` of `src` (global memory, or a stage of
-// the ring in shared memory), the four det planes written to global memory.
-template <typename T, int V, bool kGlobal>
+// the ten planes read, the chain run per mode, the four det planes written.
+template <typename T, int V>
 __device__ __forceinline__ void chunk(const T* __restrict__ c, int d, int j,
-                                      const Planes<T>& src, long long at,
-                                      T* __restrict__ det_planes, long long nd,
-                                      long long i, T (&acc)[kSums]) {
+                                      const Planes<T>& p, T* __restrict__ det_planes,
+                                      long long nd, long long i, T (&acc)[kSums]) {
   T x[kPlanes][V];
 #pragma unroll
-  for (int q = 0; q < kPlanes; ++q) load_vec<T, V, kGlobal>(x[q], src.in[q] + at);
+  for (int q = 0; q < kPlanes; ++q) load_vec<T, V>(x[q], p.in[q] + i);
   T out[4][V];
 #pragma unroll
   for (int e = 0; e < V; ++e) {
@@ -237,23 +274,16 @@ __device__ __forceinline__ void reduce_store(T (&acc)[kSums], int g, bool valid,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void load_pack(T* c, const T* __restrict__ pack, int d) {
-  for (int e = threadIdx.x; e < kConsts * d; e += blockDim.x) c[e] = pack[e];
-}
-
-// (a) registers: L lanes per row, each lane V consecutive modes per pass,
-// loaded straight from global memory.
 template <typename T, int V, int L>
-__global__ void __launch_bounds__(kThreads) wm_diag_regs(
+__global__ void __launch_bounds__(kThreads) wm_diag_kernel(
     Planes<T> p, const T* __restrict__ pack, T* __restrict__ scal,
     T* __restrict__ det_planes, long long n, int d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* c = reinterpret_cast<T*>(smem_raw);  // (kConsts, d)
-  load_pack(c, pack, d);
+  for (int e = threadIdx.x; e < kConsts * d; e += blockDim.x) c[e] = pack[e];
   __syncthreads();
 
-  const int g = threadIdx.x % L;
+  const int g = threadIdx.x % L;  // lane within the row's group
   const long long row = static_cast<long long>(blockIdx.x) * (kThreads / L) + threadIdx.x / L;
   const bool valid = row < n;
   const long long nd = n * d;
@@ -262,222 +292,73 @@ __global__ void __launch_bounds__(kThreads) wm_diag_regs(
   for (int k = 0; k < kSums; ++k) acc[k] = T(0);
   if (valid) {
     for (int j = g * V; j < d; j += L * V)
-      chunk<T, V, true>(c, d, j, p, row * d + j, det_planes, nd, row * d + j, acc);
+      chunk<T, V>(c, d, j, p, det_planes, nd, row * d + j, acc);
   }
   reduce_store<T, L>(acc, g, valid, scal + row * kScal);
 }
 
-// ---- (b) the shared-memory ring (probe) -------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-constexpr int kBarBytes = 128;  // full[8], empty[8]
-constexpr int kMaxStages = 8;
-
-// (b) ring: W consumer warps and one producer warp; the producer's lane 0
-// copies each plane's span of a tile (rows * d contiguous elements) into a
-// stage of the ring with one bulk copy, completing on the stage's full
-// barrier; the consumers compute from shared memory and release the stage
-// on its empty barrier.
-template <typename T, int V, int L, int W>
-__global__ void __launch_bounds__((W + 1) * 32, 1) wm_diag_ring(
-    Planes<T> p, const T* __restrict__ pack, T* __restrict__ scal,
-    T* __restrict__ det_planes, long long n, int d, int rows, int stages, int pack_bytes) {
-  extern __shared__ __align__(128) unsigned char ring_raw[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring_raw);
-  uint64_t* empty = full + kMaxStages;
-  T* c = reinterpret_cast<T*>(ring_raw + kBarBytes);
-  T* ring = reinterpret_cast<T*>(ring_raw + kBarBytes + pack_bytes);
-  const long long tiles = (n + rows - 1) / rows;
-  const int span = rows * d;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], W);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  load_pack(c, pack, d);
-  __syncthreads();
-
-  if (warp == W) {
-    if (lane == 0) {
-      int k = 0;
-      for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
-        const int s = k % stages;
-        if (k >= stages) mbar_wait(&empty[s], ((k / stages) - 1) & 1);
-        const long long r0 = t * rows;
-        const long long nr = min(static_cast<long long>(rows), n - r0);
-        const uint32_t bytes = static_cast<uint32_t>(nr * d * sizeof(T));
-        mbar_expect_tx(&full[s], kPlanes * bytes);
-#pragma unroll
-        for (int q = 0; q < kPlanes; ++q)
-          bulk_g2s(ring + (s * kPlanes + q) * span, p.in[q] + r0 * d, bytes, &full[s]);
-      }
-    }
-    return;
-  }
-
-  const int g = lane % L;
-  const long long nd = n * d;
-  int k = 0;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++k) {
-    const int s = k % stages;
-    mbar_wait(&full[s], (k / stages) & 1);
-    for (int lr = warp * (32 / L) + lane / L; lr - lane / L < rows; lr += W * (32 / L)) {
-      const long long row = t * rows + lr;
-      const bool valid = lr < rows && row < n;
-      T acc[kSums];
-#pragma unroll
-      for (int q = 0; q < kSums; ++q) acc[q] = T(0);
-      if (valid) {
-        Planes<T> src;
-#pragma unroll
-        for (int q = 0; q < kPlanes; ++q) src.in[q] = ring + (s * kPlanes + q) * span + lr * d;
-        for (int j = g * V; j < d; j += L * V)
-          chunk<T, V, false>(c, d, j, src, j, det_planes, nd, row * d + j, acc);
-      }
-      reduce_store<T, L>(acc, g, valid, scal + row * kScal);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-  }
-}
-
 template <typename T, int V, int L>
-int launch_regs(const Planes<T>& p, const T* pack, T* scal, T* det_planes, long long n, int d,
-                int blocks, cudaStream_t stream) {
+int launch_layout(const Planes<T>& p, const T* pack, T* scal, T* det_planes, long long n,
+                  int d, int blocks, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kConsts) * d * sizeof(T);
-  wm_diag_regs<T, V, L><<<blocks, kThreads, smem, stream>>>(p, pack, scal, det_planes, n, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int V, int L, int W>
-int launch_ring(const Planes<T>& p, const T* pack, T* scal, T* det_planes, long long n, int d,
-                int rows, int stages, int blocks, cudaStream_t stream) {
-  const int pack_bytes = (kConsts * d * static_cast<int>(sizeof(T)) + 127) / 128 * 128;
-  const size_t smem = kBarBytes + pack_bytes +
-                      static_cast<size_t>(stages) * kPlanes * rows * d * sizeof(T);
-  if (stages < 1 || stages > kMaxStages || smem > kMaxSmem ||
-      (static_cast<long long>(n) * d * sizeof(T)) % 16 != 0 || (rows * d * sizeof(T)) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = wm_diag_ring<T, V, L, W>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  kernel<<<blocks, (W + 1) * 32, smem, stream>>>(p, pack, scal, det_planes, n, d, rows, stages,
-                                                  pack_bytes);
+  wm_diag_kernel<T, V, L><<<blocks, kThreads, smem, stream>>>(p, pack, scal, det_planes, n, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int V>
-int dispatch(const Planes<T>& p, const T* pack, T* scal, T* det_planes, long long n, int d,
-             int lanes, int stages, int blocks, cudaStream_t stream) {
-  if (stages > 0) {
-    // probe: stages = 100 * rows + stages
-    const int rows = stages / 100, st = stages % 100;
-    constexpr int W = sizeof(T) == 4 ? 16 : 12;
-    if (lanes == 32) return launch_ring<T, V, 32, W>(p, pack, scal, det_planes, n, d, rows, st, blocks, stream);
-    if (lanes == 16) return launch_ring<T, V, 16, W>(p, pack, scal, det_planes, n, d, rows, st, blocks, stream);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch_lanes(const Planes<T>& p, const T* pack, T* scal, T* det_planes, long long n, int d,
+                 int lanes, int blocks, cudaStream_t stream) {
   switch (lanes) {
-    case 32: return launch_regs<T, V, 32>(p, pack, scal, det_planes, n, d, blocks, stream);
-    case 4: return launch_regs<T, V, 4>(p, pack, scal, det_planes, n, d, blocks, stream);
-    case 8: return launch_regs<T, V, 8>(p, pack, scal, det_planes, n, d, blocks, stream);
-    case 16: return launch_regs<T, V, 16>(p, pack, scal, det_planes, n, d, blocks, stream);
+    case 4: return launch_layout<T, V, 4>(p, pack, scal, det_planes, n, d, blocks, stream);
+    case 8: return launch_layout<T, V, 8>(p, pack, scal, det_planes, n, d, blocks, stream);
+    case 16: return launch_layout<T, V, 16>(p, pack, scal, det_planes, n, d, blocks, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int launch(const void* const* planes, const void* pack, void* scal, void* det_planes,
-           long long n, int d, int vec, int lanes, int stages, int blocks, void* stream) {
+           long long n, int d, int vec, int lanes, int blocks, void* stream) {
   if (d < 1 || d > kMaxD || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Planes<T> p;
-  for (int q = 0; q < kPlanes; ++q) p.in[q] = static_cast<const T*>(planes[q]);
-  // a vector access needs whole vectors per row and aligned rows
-  if (vec > 1) {
-    if (d % vec != 0) return static_cast<int>(cudaErrorInvalidValue);
-    const uintptr_t mask = static_cast<uintptr_t>(vec * sizeof(T)) - 1;
+  // the blocks must cover the rows; a vector needs whole vectors per row
+  // and planes that start on its size
+  if (lanes < 1 || static_cast<long long>(blocks) * (kThreads / lanes) < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec != 1 && vec != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == 2) {
+    if (d % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const uintptr_t mask = 2 * sizeof(T) - 1;
     for (int q = 0; q < kPlanes; ++q)
       if (reinterpret_cast<uintptr_t>(planes[q]) & mask)
         return static_cast<int>(cudaErrorInvalidValue);
     if (reinterpret_cast<uintptr_t>(det_planes) & mask)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (stages == 0 && static_cast<long long>(blocks) * (kThreads / (lanes > 0 ? lanes : 1)) < n)
-    return static_cast<int>(cudaErrorInvalidValue);
+  Planes<T> p;
+  for (int q = 0; q < kPlanes; ++q) p.in[q] = static_cast<const T*>(planes[q]);
   const T* pk = static_cast<const T*>(pack);
   T* sc = static_cast<T*>(scal);
   T* dp = static_cast<T*>(det_planes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (sizeof(T) == 4) {
-    switch (vec) {
-      case 1: return dispatch<T, 1>(p, pk, sc, dp, n, d, lanes, stages, blocks, st);
-      case 2: return dispatch<T, 2>(p, pk, sc, dp, n, d, lanes, stages, blocks, st);
-      case 4: return dispatch<T, 4>(p, pk, sc, dp, n, d, lanes, stages, blocks, st);
-    }
-  } else {
-    switch (vec) {
-      case 1: return dispatch<T, 1>(p, pk, sc, dp, n, d, lanes, stages, blocks, st);
-      case 2: return dispatch<T, 2>(p, pk, sc, dp, n, d, lanes, stages, blocks, st);
-    }
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return vec == 2 ? launch_lanes<T, 2>(p, pk, sc, dp, n, d, lanes, blocks, st)
+                  : launch_lanes<T, 1>(p, pk, sc, dp, n, d, lanes, blocks, st);
 }
 
 }  // namespace
 
 // K5. Ten (n, d) planes Mqq, Mqp, Mpq, Mpp, dQ, dp, dq, n1q, n1Q, v0c, the
 // (17, d) constant pack, scal (n, 30) and det_planes (4, n, d), all float64,
-// row-major and contiguous; 1 <= d <= 256; the layout of ops.wm_diag.layout.
+// row-major and contiguous; 1 <= d <= 256; vec, lanes and blocks the layout
+// of ops/wm_diag.py `layout`.
 extern "C" int semi_wm_diag_f64(const void* mqq, const void* mqp, const void* mpq,
                                 const void* mpp, const void* dQ, const void* dp,
                                 const void* dq, const void* n1q, const void* n1Q,
                                 const void* v0c, const void* pack, void* scal,
                                 void* det_planes, long long n, int d, int vec, int lanes,
-                                int stages, int blocks, void* stream) {
+                                int blocks, void* stream) {
   const void* planes[kPlanes] = {mqq, mqp, mpq, mpp, dQ, dp, dq, n1q, n1Q, v0c};
-  return launch<double>(planes, pack, scal, det_planes, n, d, vec, lanes, stages, blocks,
-                        stream);
+  return launch<double>(planes, pack, scal, det_planes, n, d, vec, lanes, blocks, stream);
 }
 
 // K5 for float32.
@@ -486,8 +367,7 @@ extern "C" int semi_wm_diag_f32(const void* mqq, const void* mqp, const void* mp
                                 const void* dq, const void* n1q, const void* n1Q,
                                 const void* v0c, const void* pack, void* scal,
                                 void* det_planes, long long n, int d, int vec, int lanes,
-                                int stages, int blocks, void* stream) {
+                                int blocks, void* stream) {
   const void* planes[kPlanes] = {mqq, mqp, mpq, mpp, dQ, dp, dq, n1q, n1Q, v0c};
-  return launch<float>(planes, pack, scal, det_planes, n, d, vec, lanes, stages, blocks,
-                       stream);
+  return launch<float>(planes, pack, scal, det_planes, n, d, vec, lanes, blocks, stream);
 }

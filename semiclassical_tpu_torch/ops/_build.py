@@ -58,9 +58,9 @@ _ENTRY_POINTS = {
     "semi_gj_det_inv_c128": (_P, _P, _P, _N, *(_I,) * 4, _P),
     "semi_gj_det_inv_c64": (_P, _P, _P, _N, *(_I,) * 4, _P),
     # csrc/wm_diag.cu (K5): ten planes, pack, scal, det_planes, n, d, vec,
-    # lanes, stages, blocks, stream
-    "semi_wm_diag_f64": (*(_P,) * 13, _N, *(_I,) * 5, _P),
-    "semi_wm_diag_f32": (*(_P,) * 13, _N, *(_I,) * 5, _P),
+    # lanes, blocks, stream
+    "semi_wm_diag_f64": (*(_P,) * 13, _N, *(_I,) * 4, _P),
+    "semi_wm_diag_f32": (*(_P,) * 13, _N, *(_I,) * 4, _P),
 }
 
 _SUFFIX = {torch.complex128: "c128", torch.complex64: "c64",

@@ -30,11 +30,13 @@ version only for tensors on the CPU. hbar = 1 (atomic units) is assumed
 by the kernel, as by the TPU kernel, and asserted here.
 
 How the kernel is laid out for Hopper is described at the top of
-`csrc/wm_diag.cu`.
+`csrc/wm_diag.cu`; `layout` is the rule that picks its variant for a
+batch (`layout_of` for the planes as they lie in memory).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -44,9 +46,8 @@ from semiclassical_tpu_torch.units import hbar
 
 __all__ = ["wm_diag_derived", "wm_diag_derived_plain", "wm_diag_core_plain",
            "build_const_pack", "scal_col", "check_args", "layout", "layout_of",
-           "Layout",
-           "CONSTS", "GRAM_PAIRS", "N_SCAL", "MAX_D", "MAX_SMEM", "LAUNCHES",
-           "LAUNCHES_BY_DTYPE"]
+           "Layout", "CONSTS", "GRAM_PAIRS", "N_SCAL", "MAX_D", "MAX_SMEM",
+           "LAUNCHES", "LAUNCHES_BY_DTYPE"]
 
 # rows of the per-mode constant pack (csrc/wm_diag.cu reads them in this
 # order)
@@ -61,14 +62,13 @@ GRAM_PAIRS = ((0, 0), (0, 1), (0, 2), (0, 3), (0, 4),
 _EXTRA = ("g_DD", "g_Dn", "p0_dQ", "p0_n")
 N_SCAL = 2 * len(GRAM_PAIRS) + len(_EXTRA)  # 30
 MAX_D = 256
-# shared memory a block of the H100 may take
-MAX_SMEM = 232448
+# dynamic shared memory a block may take without opting in to more (the
+# kernel does not; the H100's opt-in limit is 232,448 bytes)
+MAX_SMEM = 48 * 1024
 # threads of a block (csrc/wm_diag.cu kThreads) and the lane counts per row
 # it is built for
 _THREADS = 256
 _LANES = (4, 8, 16)
-# the widest vector access per type: 16 bytes
-_MAX_VEC = {torch.float64: 2, torch.float32: 4}
 
 # kernel launches made by the wrapper (one per launch), and the same
 # launches by the planes' dtype name
@@ -189,18 +189,16 @@ def check_args(planes, pack):
 
 
 class Layout(NamedTuple):
-    """How K5 runs a batch: `variant` "vector" (each lane reads `vec`
+    """How K5 runs a batch: `variant` "vector" (each lane reads `vec` = 2
     consecutive modes of a row as one 8- or 16-byte access) or "scalar"
-    (`vec` 1, for planes whose pointers are not 16-byte aligned or a d that
-    no vector divides); `lanes` lanes own a row, `rows` rows make the tile
-    of a block, `blocks` tiles cover the batch; `stages` of a shared-memory
-    ring (0: the planes are read straight from global memory); `smem` the
-    block's shared-memory bytes (the constant pack)."""
+    (`vec` 1: an odd d, or planes that do not start on a 16-byte
+    boundary); `lanes` lanes own a row, `rows` rows make a block,
+    `blocks` blocks cover the batch; `smem` the block's shared-memory bytes
+    (the constant pack)."""
     variant: str
     rows: int
     lanes: int
     vec: int
-    stages: int
     smem: int
     blocks: int
 
@@ -209,28 +207,29 @@ def _ceil_div(a, b):
     return -(-a // b)
 
 
+@functools.lru_cache(maxsize=64)
 def layout(n: int, d: int, dtype: torch.dtype, aligned: bool) -> Layout:
     """The layout rule of K5 for n rows of d modes of `dtype` (float64 or
-    float32); `aligned`: every plane and output pointer is a multiple of 16
-    bytes. A lane takes the widest vector of modes that divides d (16 bytes
-    at most) when the pointers are aligned, one mode otherwise; a row takes
-    the fewest lanes, 4 to 16, a power of two, that cover its vectors in one
-    pass (more passes above 16 vectors)."""
-    if dtype not in _MAX_VEC:
+    float32); `aligned`: every plane starts on a 16-byte boundary. A lane
+    reads modes in pairs where d is even and the planes are aligned, one at
+    a time otherwise; a row takes the fewest lanes, 4, 8 or 16, that cover
+    its pairs (or modes) in one pass, 16 and more passes above that. At the
+    flagship's d = 60: pairs, 16 lanes, two passes (PERF.md, K5: the
+    fastest of the layouts measured in both types). Cached: a run asks
+    for the same batch every step."""
+    if dtype not in (torch.float64, torch.float32):
         raise ValueError(f"K5 takes float64 or float32, got {dtype}")
     if not 1 <= d <= MAX_D:
         raise ValueError(f"K5 takes 1 <= d <= {MAX_D}, got d = {d}")
     if n < 0:
         raise ValueError(f"K5 takes n >= 0 rows, got n = {n}")
-    vec = next(v for v in (4, 2, 1)
-               if v <= _MAX_VEC[dtype] and d % v == 0
-               and (aligned or v == 1))
+    vec = 2 if aligned and d % 2 == 0 else 1
     chunks = _ceil_div(d, vec)
     lanes = next((w for w in _LANES if w >= chunks), _LANES[-1])
     rows = _THREADS // lanes
     smem = len(CONSTS) * d * torch.finfo(dtype).bits // 8
-    return Layout("vector" if vec > 1 else "scalar", rows, lanes, vec, 0,
-                  smem, _ceil_div(n, rows))
+    return Layout("vector" if vec > 1 else "scalar", rows, lanes, vec, smem,
+                  _ceil_div(n, rows))
 
 
 def layout_of(planes) -> Layout:
@@ -239,8 +238,8 @@ def layout_of(planes) -> Layout:
     view of a (4, n, d) tensor at an odd n d, or a narrowed tensor, may
     not). The outputs are allocated aligned."""
     n, d = planes[0].shape
-    aligned = all(x.data_ptr() % 16 == 0 for x in planes)
-    return layout(n, d, planes[0].dtype, aligned)
+    return layout(n, d, planes[0].dtype,
+                  not any(x.data_ptr() % 16 for x in planes))
 
 
 def _launch(planes, pack):
@@ -252,12 +251,12 @@ def _launch(planes, pack):
     det_planes = torch.empty((4, n, d), dtype=pack.dtype, device=pack.device)
     if n == 0:
         return scal, det_planes
-    lay = layout_of(planes)
+    ptrs = [x.data_ptr() for x in planes]
+    lay = layout(n, d, pack.dtype, not any(p % 16 for p in ptrs))
     err = _build.launch(
-        _build.entry("wm_diag", pack.dtype), pack.device,
-        *(x.data_ptr() for x in planes), pack.data_ptr(), scal.data_ptr(),
-        det_planes.data_ptr(), n, d, lay.vec, lay.lanes, lay.stages,
-        lay.blocks)
+        _build.entry("wm_diag", pack.dtype), pack.device, *ptrs,
+        pack.data_ptr(), scal.data_ptr(), det_planes.data_ptr(), n, d,
+        lay.vec, lay.lanes, lay.blocks)
     if err != 0:
         raise RuntimeError(f"wm_diag kernel launch failed: CUDA error {err} "
                            f"(n = {n}, d = {d}, {pack.dtype})")
