@@ -231,6 +231,31 @@ R. the AS model's reduced-cost Hessian, at f64:
              the stage run's largest values (the JAX package's contract is
              bit for bit), the C(t) gap printed;
              each of these phases prints the precision line as P does;
+G. the scale-out layer (`semiclassical_tpu_torch.parallel`), on this one
+   card: NCCL refuses two ranks on one card, so groups of 2 and 4 ranks are
+   held on gloo in the CPU tier (tests/test_torch_port_group.py), and no
+   multi-GPU throughput is measured or claimed:
+   HK methylium group — after 5: the HK methylium run as shipped through
+             the CLI under a one-rank NCCL group (`--coordinator
+             127.0.0.1:<free port> --num-processes 1 --process-id 0`): its
+             npz within 1e-12 (of each curve's largest modulus) of the HK
+             methylium phase's, the same K1 launches, the rate gate, the
+             all-reduces of the run;
+   WM AS group — after 8c: WM AS at 98,304 x 100 steps through the CLI
+             under a one-rank group: C(t) and k~ic(t) within 1e-12 of the
+             micro_batch phase's whole-batch run, K5 launched as often;
+   ring norm — inside 8e: the WM methylium batch at t = 0 drawn under a
+             one-rank group, its norm through the ring pair sum (K3 on
+             every block pair of the rotation, counted) within 1e-12 of the
+             blocked sum's, both timed in turns; then the all-reduce of a
+             100-step methylium segment's sums, timed with CUDA events;
+   accumulation mode — after the WM norm phases: two `dynamics` processes
+             at once on the card with SEMI_PROCESS_ID 0 and 1 and no
+             coordinator, methylium HK 10,000 x 500 with one manual_seed and
+             `overwrite: true`, sharing one npz: each log shows the
+             forced-overwrite warning, the npz counts 20,000 trajectories
+             and equals the mean of the two ranks' batches run alone in
+             this process within 1e-12, and those differ;
 12. the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -949,9 +974,11 @@ def read_counts_by_dtype(ops):
 LAST_BY_DTYPE = {}
 
 
-def run_path(cli, ops, config, dynamics_keys, tmp, precision="f64"):
+def run_path(cli, ops, config, dynamics_keys, tmp, precision="f64",
+             extra_args=()):
     """Run `config`'s dynamics task (updated with `dynamics_keys`) at
-    `--precision precision`, then its rates and spectrum tasks, through the
+    `--precision precision` (and the CLI flags `extra_args`), then its
+    rates and spectrum tasks, through the
     port's CLI on cuda, writing into `tmp`; every launch count is set to 0
     just before the dynamics command and read just after (the counts by
     dtype into LAST_BY_DTYPE). Returns (the npz as a dict, the launches,
@@ -977,7 +1004,7 @@ def run_path(cli, ops, config, dynamics_keys, tmp, precision="f64"):
     t0 = time.perf_counter()
     with LogLines() as log:
         rc = cli.main(["dynamics", cfg, "--device", "cuda", "--precision",
-                       precision])
+                       precision, *extra_args])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(ops)
@@ -1021,11 +1048,12 @@ def gate_rates(label, data, ref_file, ntraj, nsteps, energy_rtol):
     return imax
 
 
-def methylium_run(cli, ops, smi, label, precision="f64", **task_keys):
+def methylium_run(cli, ops, smi, label, precision="f64", extra_args=(),
+                  **task_keys):
     """examples/methylium_AH at its own size through the port's CLI on
-    cuda at `precision`, with `task_keys` set on the dynamics task. Returns
-    (the rates npz as a dict, the kernels' launches during the dynamics
-    command)."""
+    cuda at `precision` (with the CLI flags `extra_args`), with `task_keys`
+    set on the dynamics task. Returns (the rates npz as a dict, the
+    kernels' launches during the dynamics command)."""
     with open(EXAMPLE) as f:
         config = json.load(f)
     for task in config["semi"]:
@@ -1035,7 +1063,8 @@ def methylium_run(cli, ops, smi, label, precision="f64", **task_keys):
                     (EXAMPLE.parent / task["potential"][key]).resolve())
     with tempfile.TemporaryDirectory() as tmp:
         data, launches, task, wall, _ = run_path(cli, ops, config,
-                                                 task_keys, tmp, precision)
+                                                 task_keys, tmp, precision,
+                                                 extra_args)
     nsteps, ntraj = task["num_steps"], task["num_trajectories"]
     nrep = ntraj // task["batch_size"]
     print(f"{label} methylium {ntraj} x {nsteps} steps ({nrep} batches): "
@@ -1216,6 +1245,267 @@ def micro_phase(cli, ops, smi, model):
           f" max |C_whole| {errs[0]:.3e}, k~ic {errs[1]:.3e} (gate 1e-12)",
           flush=True)
     check(max(errs) <= 1e-12, f"micro_batch vs whole batch: {errs}")
+    return runs[0]
+
+
+# NCCL refuses two ranks on one card, so groups of 2 and 4 ranks are held
+# on gloo in the CPU tier (tests/test_torch_port_group.py); one card cannot
+# measure multi-GPU throughput, and nothing here claims it.
+GROUP_GATE = 1e-12
+
+
+def free_port():
+    """A free TCP port on the loopback interface, for a group's store."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def group_args():
+    """The CLI flags of a one-rank NCCL group on this card."""
+    return ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes",
+            "1", "--process-id", "0"]
+
+
+def curve_gap(x, ref):
+    """max |x - ref| / max |ref| of two curves."""
+    import numpy as np
+
+    return float(np.abs(np.asarray(x) - np.asarray(ref)).max()
+                 / np.abs(np.asarray(ref)).max())
+
+
+class TimedReduces:
+    """Wraps the propagators' `group_sum` (`propagation.hk.group_sum`: the
+    batch set-up's and every segment end's all-reduce) while active,
+    recording each call's seconds between two synchronisations of the
+    card (the work queued before it is finished first)."""
+
+    def __enter__(self):
+        import torch
+
+        from semiclassical_tpu_torch.propagation import hk
+
+        self.hk, self.orig, self.calls = hk, hk.group_sum, []
+
+        def timed(tensors, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(tensors, group)
+            torch.cuda.synchronize()
+            self.calls.append(time.perf_counter() - t0)
+            return out
+
+        hk.group_sum = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.hk.group_sum = self.orig
+
+    def line(self):
+        total = sum(self.calls)
+        return (f"{len(self.calls)} all-reduces of the propagator, "
+                f"{1e3 * total:.3f} ms in all, "
+                f"{1e6 * total / max(len(self.calls), 1):.1f} us each")
+
+
+def group_methylium_phase(cli, ops, smi, hk, hk_launches):
+    """HK methylium as shipped through the CLI under a one-rank NCCL group
+    (--coordinator): the npz within GROUP_GATE of the HK methylium phase's,
+    the same K1 launches, the rate gate, and the all-reduces of the run."""
+    from semiclassical_tpu_torch.parallel import group as counter
+
+    counter.ALL_REDUCES = 0
+    with TimedReduces() as timed:
+        data, launches = methylium_run(cli, ops, smi, "HK group",
+                                       extra_args=group_args())
+    reduces = counter.ALL_REDUCES
+    gaps = [curve_gap(data[k], hk[k])
+            for k in ("autocorrelation", "ic_correlation")]
+    print(f"HK methylium, 1-rank NCCL group: {data['wall']:.3f} s wall "
+          f"against {hk['wall']:.3f} s alone [{smi}]; C(t) and k~ic(t) "
+          f"{gaps[0]:.3e}, {gaps[1]:.3e} of their largest modulus from the "
+          f"HK methylium npz (gate {GROUP_GATE:g}); K1 launches "
+          f"{launches['K1']} (alone {hk_launches['K1']}); all-reduces "
+          f"{reduces} ({reduces / data['nrep']:.0f} per batch of "
+          f"{data['nsteps']} steps); {timed.line()}", flush=True)
+    check(max(gaps) <= GROUP_GATE, f"HK methylium group vs alone: {gaps}")
+    check(launches["K1"] == hk_launches["K1"],
+          f"HK methylium group: K1 {launches['K1']} vs {hk_launches['K1']}")
+    check(reduces > 0, "HK methylium group: no all-reduce ran")
+
+
+def group_as_wm_phase(cli, ops, smi, model, plain):
+    """WM AS at 98,304 x 100 steps through the CLI under a one-rank NCCL
+    group: C(t) and k~ic(t) within GROUP_GATE of the run alone (`plain`:
+    the micro_batch phase's whole batch), K5 on every step."""
+    from semiclassical_tpu_torch.parallel import group as counter
+
+    counter.ALL_REDUCES = 0
+    with tempfile.TemporaryDirectory() as tmp, TimedReduces() as timed:
+        data, launches, _, wall, _ = run_path(
+            cli, ops, as_config("semi_wm.json", model, num_steps=100), {},
+            tmp, extra_args=group_args())
+    reduces = counter.ALL_REDUCES
+    ref, ref_launches, ref_wall = plain
+    gaps = [curve_gap(data[k], ref[k])
+            for k in ("autocorrelation", "ic_correlation")]
+    print(f"WM AS 98304 x 100 steps, 1-rank NCCL group: dynamics command "
+          f"{wall:.3f} s against {ref_wall:.3f} s alone [{smi}]; C(t) and "
+          f"k~ic(t) {gaps[0]:.3e}, {gaps[1]:.3e} of their largest modulus "
+          f"from the run alone (gate {GROUP_GATE:g}); K5 launches "
+          f"{launches['K5']} (alone {ref_launches['K5']}); all-reduces "
+          f"{reduces}; {timed.line()}", flush=True)
+    check(max(gaps) <= GROUP_GATE, f"WM AS group vs alone: {gaps}")
+    check(launches["K5"] >= 100 and launches["K5"] == ref_launches["K5"],
+          f"WM AS group: K5 {launches['K5']} vs {ref_launches['K5']}")
+
+
+def ring_norm_phase(cli, smi, task, prop, exact):
+    """The WM methylium batch at t = 0 under a one-rank NCCL group: its
+    norm through the ring (K3 on every block pair of the rotation) against
+    the single process's blocked sum (`exact`, of `prop`) within
+    GROUP_GATE, both timed; then the all-reduce of a methylium scan
+    segment's sums (100 steps: C, k~ic, energies), timed."""
+    import torch
+
+    from semiclassical_tpu_torch.ops import gj
+    from semiclassical_tpu_torch.parallel import (destroy_group, group_sum,
+                                                  init_group)
+    from semiclassical_tpu_torch.propagation import (
+        WaltonManolopoulosPropagator, hk, wm)
+
+    group = init_group(f"127.0.0.1:{free_port()}", 1, 0, "cuda",
+                       timeout=300.0)
+    try:
+        gprop = first_batch(cli, task, WaltonManolopoulosPropagator,
+                            CELL_WIDTH, CELL_WIDTH, group=group)
+        n, d, r = gprop.n_local, gprop.params.dim, gprop.params.rank
+        block = hk.pair_block(n, wm.wm_pair_bytes(d, r), "cuda")
+        nb = hk._ring_block_count(n, block)
+        walls = {}
+        for name, p in (("blocked", prop), ("ring", gprop),
+                        ("ring ", gprop), ("blocked ", prop)):
+            before = gj.LAUNCHES["det_inv"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = p.norm()
+            torch.cuda.synchronize()
+            walls.setdefault(name.strip(), []).append(
+                (time.perf_counter() - t0, gj.LAUNCHES["det_inv"] - before,
+                 value))
+        ring = walls["ring"][0][2]
+        rel = abs(ring - exact) / abs(exact)
+        segment = [torch.zeros(1, 100, dtype=torch.complex128, device="cuda"),
+                   torch.zeros(1, 100, dtype=torch.complex128, device="cuda"),
+                   torch.zeros(1, 100, dtype=torch.float64, device="cuda")]
+        for _ in range(10):
+            group_sum(segment, group)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        calls = 200
+        start.record()
+        for _ in range(calls):
+            group_sum(segment, group)
+        end.record()
+        torch.cuda.synchronize()
+        reduce_us = 1e3 * start.elapsed_time(end) / calls
+    finally:
+        destroy_group(group)
+    fmt = lambda runs: ", ".join(f"{w:.3f} s ({k} K3)" for w, k, _ in runs)
+    print(f"WM methylium norm at t = 0 through the ring, 1-rank NCCL group: "
+          f"{ring:.12f} against the blocked sum's {exact:.12f}: rel dev "
+          f"{rel:.3e} (gate {GROUP_GATE:g}); {nb} x {nb} block pairs of "
+          f"{n // nb}; ring {fmt(walls['ring'])}, blocked "
+          f"{fmt(walls['blocked'])} [{smi}]", flush=True)
+    print(f"all-reduce of a 100-step methylium segment's sums (C, k~ic "
+          f"complex128, energies float64: 500 float64), 1-rank NCCL group: "
+          f"{reduce_us:.1f} us per call over {calls} calls, packing "
+          f"included [{smi}]", flush=True)
+    check(rel <= GROUP_GATE, f"WM ring norm vs blocked: {rel}")
+    check(all(k >= nb * nb for _, k, _ in walls["ring"]),
+          f"WM ring norm: K3 launched {walls['ring']} for {nb * nb} pairs")
+
+
+def accumulation_phase(cli, smi):
+    """Two accumulation-mode `dynamics` processes at once on this card
+    (SEMI_PROCESS_ID 0 and 1, no coordinator), methylium HK 10,000 x 500
+    with one manual_seed and `overwrite: true`, sharing one npz: each log
+    shows the forced-overwrite warning, the npz counts 20,000
+    trajectories, and it is the equal-weight merge of each rank's batch
+    run alone in this process (SEMI_PROCESS_ID 0, then 1), whose C(t)
+    differ."""
+    import os
+
+    import numpy as np
+
+    with open(EXAMPLE) as f:
+        config = json.load(f)
+    task = next(t for t in config["semi"] if t["task"] == "dynamics")
+    for key in ("ground", "excited", "coupling"):
+        task["potential"][key] = str(
+            (EXAMPLE.parent / task["potential"][key]).resolve())
+    task.update(batch_size=10000, num_trajectories=10000, num_steps=500,
+                manual_seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        def write(name):
+            task["results"] = {"correlations": str(pathlib.Path(tmp)
+                                                   / f"{name}.npz"),
+                               "overwrite": True}
+            cfg = pathlib.Path(tmp) / f"{name}.json"
+            cfg.write_text(json.dumps({"semi": [task]}))
+            return str(cfg)
+
+        shared = write("shared")
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "semiclassical_tpu_torch.cli", "dynamics",
+             shared, "--device", "cuda"],
+            env=dict(env, SEMI_PROCESS_ID=str(rank)), cwd=tmp,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in (0, 1)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+        wall = time.perf_counter() - t0
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0,
+                  f"accumulation rank {rank} exited {p.returncode}: "
+                  f"{log[-2000:]}")
+            check("results.overwrite forced to false" in log,
+                  f"accumulation rank {rank}: no forced-overwrite warning")
+        data = dict(np.load(pathlib.Path(tmp) / "shared.npz"))
+        own = []
+        t1 = time.perf_counter()
+        for rank in (0, 1):
+            os.environ["SEMI_PROCESS_ID"] = str(rank)
+            try:
+                check(cli.main(["dynamics", write(f"own{rank}"), "--device",
+                                "cuda"]) == 0, f"lone rank {rank} failed")
+            finally:
+                del os.environ["SEMI_PROCESS_ID"]
+            own.append(dict(np.load(pathlib.Path(tmp) / f"own{rank}.npz")))
+        lone = time.perf_counter() - t1
+    gaps = [curve_gap(data[k], 0.5 * (own[0][k] + own[1][k]))
+            for k in ("autocorrelation", "ic_correlation")]
+    apart = curve_gap(own[1]["ic_correlation"], own[0]["ic_correlation"])
+    print(f"accumulation mode: two methylium HK processes 10000 x 500 at "
+          f"once on one card, {wall:.3f} s wall for both (the two lone runs "
+          f"in this process {lone:.3f} s) [{smi}]; npz "
+          f"{int(data['trajectories'])} trajectories; against the mean of "
+          f"the lone runs of rank 0 and 1: C(t) {gaps[0]:.3e}, k~ic(t) "
+          f"{gaps[1]:.3e} (gate {GROUP_GATE:g}); rank 1's k~ic(t) differs "
+          f"from rank 0's by {apart:.3e} of its largest modulus", flush=True)
+    check(int(data["trajectories"]) == 20000,
+          f"accumulation: {data['trajectories']} trajectories")
+    check(max(gaps) <= GROUP_GATE, f"accumulation merge vs lone runs: {gaps}")
+    check(apart > 1e-6, f"accumulation: the ranks drew one batch ({apart})")
 
 
 def exact_gap(label, exact, rk4):
@@ -1472,11 +1762,12 @@ def norm_lines(lines):
 
 
 def first_batch(cli, task, cls, *args, precision="f64",
-                with_potential=False):
+                with_potential=False, group=None):
     """The first repetition's batch of `task` at t = 0, drawn as the CLI
     draws it at seed SEED, at `precision` (the potential in the mode's
-    form, as the CLI builds it) with the task's integrator; with
-    `with_potential`, (the propagator, that potential)."""
+    form, as the CLI builds it) with the task's integrator, under the
+    process `group` if given; with `with_potential`, (the propagator, that
+    potential)."""
     import torch
 
     potential, q0, p0, G, _, _, _ = cli._build_potential(task, "cuda")
@@ -1490,7 +1781,7 @@ def first_batch(cli, task, cls, *args, precision="f64",
     prop.initial_conditions(q0, p0, G, potential,
                             ntraj=min(task["batch_size"],
                                       task["num_trajectories"]),
-                            generator=gen)
+                            generator=gen, group=group)
     return (prop, potential) if with_potential else prop
 
 
@@ -1602,7 +1893,9 @@ def wm_norm_phase(cli, ops, smi):
     check(same_as_printed(exact, norms[0]), "WM methylium t = 0 norm "
           "differs from the CLI's first line")
     check(rel <= 1e-10, f"WM norm pair sum, K3 vs plain: {rel}")
-    del prop, derived, arrays
+    del derived, arrays
+    ring_norm_phase(cli, smi, task, prop, exact)
+    del prop
     torch.cuda.empty_cache()
     return launches, dict(block=block, n=n, d=d, r=r)
 
@@ -2313,6 +2606,8 @@ def main():
         k5 = phase("K5", k5_phase, cli, wm_diag, model)
         hk, hk_launches = phase("HK methylium", methylium_run, cli, ops, smi,
                                 "HK")
+        phase("HK methylium group", group_methylium_phase, cli, ops, smi, hk,
+              hk_launches)
         wm, wm_launches = phase("WM methylium", wm_phase, cli, ops, smi, hk)
         check_tf32()
         # mixed at 500 of the example's 2000 steps: the script's wall
@@ -2357,12 +2652,15 @@ def main():
               hk_as_ex)
         phase("checkpoint", checkpoint_phase, cli, ops, smi, model, hk_as_ex)
         phase("sampling", sampling_phase, cli, ops, smi, model)
-        phase("micro_batch", micro_phase, cli, ops, smi, model)
+        wm_as_100 = phase("micro_batch", micro_phase, cli, ops, smi, model)
+        phase("WM AS group", group_as_wm_phase, cli, ops, smi, model,
+              wm_as_100)
         phase("HK AS norm", hk_norm_phase, cli, ops, smi, model)
     wm_norm_launches, norm_shape = phase("WM methylium norm", wm_norm_phase,
                                          cli, ops, smi)
     phase("WM methylium norm mixed", wm_norm_mixed_phase, cli, ops, smi,
           norm_shape)
+    phase("accumulation mode", accumulation_phase, cli, smi)
     wm_vs_hk("AS", wm_as, hk_as, WM_HK_GATE_AS)
     steps = wm_as["nsteps"] * wm_as["nrep"]
     check(wm_as_launches["K5"] >= steps,

@@ -15,6 +15,13 @@ precision mode raises naming the first key that differs. The file is
 written to `<name>.tmp.npz` and renamed over `<name>`, so a kill during a
 write leaves the previous checkpoint intact.
 
+Under a process group every rank writes its own file (the CLI names it
+with `parallel.rank_path`) of its own rows, with its `meta/rank` and the
+group's `meta/world`; a restore under another group size, or into another
+rank, raises naming the key (the JAX package restores a mesh-sharded
+checkpoint onto its mesh instead). `agree_on_resume` makes the ranks take
+one decision about resuming.
+
 The port's checkpoints are its own format: it neither reads the JAX
 package's checkpoints nor writes theirs.
 """
@@ -28,10 +35,12 @@ import os
 import numpy as np
 import torch
 
+from semiclassical_tpu_torch.parallel.group import group_sum, world_of
+
 logger = logging.getLogger(__name__)
 
 __all__ = ["save_propagator_state", "load_propagator_state",
-           "peek_checkpoint", "CheckpointedRun"]
+           "peek_checkpoint", "agree_on_resume", "CheckpointedRun"]
 
 
 def _flatten(prefix, obj):
@@ -85,6 +94,9 @@ def save_propagator_state(filename, propagator, partial=None):
         payload[key] = v.detach().cpu().numpy()
     payload["meta/t"] = np.asarray(propagator.t)
     payload["meta/ntraj"] = np.asarray(propagator.ntraj)
+    group = propagator.group
+    payload["meta/rank"] = np.asarray(0 if group is None else group.rank)
+    payload["meta/world"] = np.asarray(world_of(group))
     for k, v in (partial or {}).items():
         payload[f"partial/{k}"] = np.asarray(v)
     # np.savez appends .npz to a name without it: keep the extension explicit
@@ -150,6 +162,17 @@ def load_propagator_state(filename, propagator):
     (possibly empty)."""
     with np.load(filename) as data:
         data = {key: data[key] for key in data.files}
+    group = propagator.group
+    for key, here in (("meta/world", world_of(group)),
+                      ("meta/rank", 0 if group is None else group.rank)):
+        stored = int(data.get(key, 0 if key == "meta/rank" else 1))
+        if stored != here:
+            raise ValueError(
+                f"checkpoint key '{key}' holds {stored} where this run has "
+                f"{here}: the checkpoint was written by another process "
+                "group. Resume with the original --num-processes and "
+                "--process-id, or delete the checkpoints to restart the "
+                "repetition.")
     device = propagator.device
     residuals = _center_residuals(propagator)
     for key in ("params/q0c", "params/p0c"):
@@ -169,6 +192,48 @@ def load_propagator_state(filename, propagator):
     propagator._invalidate_map()
     return {key[len("partial/"):]: v for key, v in data.items()
             if key.startswith("partial/")}
+
+
+def agree_on_resume(filename, group):
+    """The `partial` entries of this process's checkpoint to resume from,
+    or None to start afresh, decided alike on every rank of `group` (one
+    all-reduce): the ranks resume when every rank holds a checkpoint of
+    this group's size at one repetition and step; a checkpoint of another
+    group size raises naming 'meta/world', and checkpoints on some ranks
+    only, or at different steps, raise — resuming them would mix batches.
+    A single process resumes whenever its file exists."""
+    meta, found, other_world = None, 0, 0
+    if filename and os.path.exists(filename):
+        with np.load(filename) as data:
+            other_world = int(int(data.get("meta/world", 1))
+                              != world_of(group))
+        meta = peek_checkpoint(filename)
+        found = 1
+    if group is None or not filename:
+        return meta
+    at = ((int(meta.get("repetition", 0)), int(meta.get("steps_done", 0)))
+          if meta else (0, 0))
+    # the spread of the ranks' (repetition, step) is zero iff they agree
+    flags = torch.tensor([found, other_world, *at, *(x * x for x in at)],
+                         dtype=torch.float64, device=group.device)
+    found, other_world, rep, step, rep2, step2 = group_sum(
+        [flags], group)[0].tolist()
+    if other_world:
+        raise ValueError(
+            "checkpoint key 'meta/world' of a rank's checkpoint differs "
+            f"from this group's size {group.world}: resume with the "
+            "original --num-processes, or delete the checkpoints to restart "
+            "the repetition")
+    if not found:
+        return None
+    if (found != group.world or group.world * rep2 != rep * rep
+            or group.world * step2 != step * step):
+        raise ValueError(
+            f"the checkpoints '{filename}' of the group's ranks do not "
+            f"match: {int(found)} of {group.world} ranks hold one, at "
+            "different repetitions or steps (a run killed between two "
+            "ranks' writes); delete them to restart the repetition")
+    return meta
 
 
 class CheckpointedRun:

@@ -14,6 +14,21 @@ same `.npz` accumulation semantics:
 
 `dynamics` runs on the device named by `--device` (default `cuda`); it
 raises when that device is not available and never moves to another one.
+Scale-out comes in two modes, as in the JAX package:
+
+* a process group (`--coordinator host:port --num-processes n
+  --process-id k`, or the SEMI_COORDINATOR / SEMI_NUM_PROCESSES /
+  SEMI_PROCESS_ID environment): one process per device (NCCL on the
+  cards, gloo with `--device cpu`) whose ranks share every batch — each
+  draws the whole batch and propagates its own rows, the batch sums are
+  added over the group, and rank 0 alone writes the npz and logs the
+  progress and norms (`semiclassical_tpu_torch.parallel`). `--devices n`
+  with n > 1 is refused: the port runs one process per device;
+* accumulation mode (SEMI_PROCESS_ID without a coordinator): independent
+  processes merge their own batches into one npz through its file lock;
+  `results.overwrite` is forced to false and the rank is folded into the
+  seed of every repetition (`_repetition_seed`).
+
 `--precision` selects the numerical mode of the JAX package ("f64", the
 default on every device, "mixed", "comp32" or "f32"; see `PRECISIONS`).
 Task keywords outside the ported slice (other propagators or potential
@@ -69,6 +84,24 @@ def main(argv=None):
         help="torch device of the propagation (default cuda; 'cpu' runs "
              "the plain versions of the kernels)")
     parser_dynamics.add_argument(
+        "--devices", type=int, default=1, metavar="n",
+        help="devices of one process: the port runs one process per device "
+             "(n > 1 is refused; launch n processes with --coordinator)")
+    parser_dynamics.add_argument(
+        "--coordinator", type=str,
+        default=os.environ.get("SEMI_COORDINATOR", ""), metavar="host:port",
+        help="rank 0's address of a process group whose ranks share every "
+             "batch (or a torch.distributed init URL such as file://path); "
+             "needs --num-processes and --process-id, or their SEMI_* envs")
+    parser_dynamics.add_argument(
+        "--num-processes", type=int,
+        default=int(os.environ.get("SEMI_NUM_PROCESSES", "0")),
+        help="number of processes of the group (with --coordinator)")
+    parser_dynamics.add_argument(
+        "--process-id", type=int,
+        default=int(os.environ.get("SEMI_PROCESS_ID", "-1")),
+        help="rank of this process in the group (with --coordinator)")
+    parser_dynamics.add_argument(
         "--precision", type=str, default="f64",
         help="numerical mode: f64 (float64/complex128 end to end, the "
              "default), mixed (float32/complex64 monodromy and complex "
@@ -116,12 +149,32 @@ def main(argv=None):
                         level=logging.INFO)
 
     if args.command == "dynamics":
+        if args.devices > 1:
+            raise ConfigurationError(
+                f"--devices {args.devices}: the port runs one process per "
+                "device; launch one process per device with --coordinator "
+                "host:port --num-processes n --process-id k")
         tasks = _load_tasks(args.json_input, "dynamics")
-        for task in tasks:
-            check_slice(task, args.precision)
-        for task in tasks:
-            run_semiclassical_dynamics(task, device=args.device,
-                                       precision=args.precision)
+        group = None
+        if args.coordinator:
+            from semiclassical_tpu_torch.parallel import init_group
+
+            group = init_group(args.coordinator, args.num_processes,
+                               args.process_id, args.device)
+            logger.info(f"process group: rank {group.rank} of {group.world}"
+                        f" on {group.device} via {args.coordinator}")
+        try:
+            for task in tasks:
+                check_slice(task, args.precision, group)
+            for task in tasks:
+                run_semiclassical_dynamics(
+                    task, device=args.device if group is None
+                    else group.device, precision=args.precision,
+                    group=group)
+        finally:
+            from semiclassical_tpu_torch.parallel import destroy_group
+
+            destroy_group(group)
     elif args.command in ("rates", "spectrum"):
         if not args.json_input.endswith(".json"):
             raise ConfigurationError(
@@ -152,14 +205,16 @@ def _load_tasks(json_input, kind):
     return [task for task in config["semi"] if task["task"] == kind]
 
 
-def check_slice(task, precision="f64"):
+def check_slice(task, precision="f64", group=None):
     """Raise ConfigurationError, naming the keyword, for a dynamics task
     that asks for anything outside the ported slice (HK, or WM with
     `cell_width`; the molecular harmonic PES, the anharmonic AS model and
     the sGDML PES, the latter with `hess_dtype` and `eg_mode`; the
     precision modes of `PRECISIONS`), and validate up front the names of
     the integrator and of `hessian_eval` and the statistics keywords
-    `sampling`, `micro_batch`, `calc_norm_every` and `norm_samples`."""
+    `sampling`, `micro_batch`, `calc_norm_every` and `norm_samples` (the
+    subsampled norm runs on a single process only: under a process `group`
+    the norm is the ring over every pair)."""
     if precision not in PRECISIONS:
         raise ConfigurationError(
             f"precision '{precision}' is unknown (expected one of "
@@ -196,6 +251,11 @@ def check_slice(task, precision="f64"):
             raise ConfigurationError(
                 f"task keyword '{key}' should be a non-negative int, got "
                 f"{value!r}")
+    if group is not None and task.get("norm_samples", 0):
+        raise ConfigurationError(
+            "task keyword 'norm_samples' (the subsampled norm) runs on a "
+            "single process only; under a process group the norm is the "
+            "ring over every pair (drop norm_samples)")
     sampling = task.get("sampling", "pseudo")
     if sampling not in SAMPLING_METHODS:
         raise ConfigurationError(
@@ -289,10 +349,26 @@ def _build_potential(task, device):
             excited_fchk.atomic_numbers())
 
 
-def _repetition_seed(seed, repetition):
+def _repetition_seed(seed, repetition, rank=None):
     """Seed of the repetition's generator: independent streams per
-    repetition from one root seed."""
-    return int(np.random.SeedSequence([seed, repetition]).generate_state(1)[0])
+    repetition from one root seed, and per rank of an accumulation-mode
+    run (`rank` folded in: SeedSequence([seed, rank, repetition])), so
+    processes that share a `manual_seed` draw different batches."""
+    entropy = [seed, repetition] if rank is None else [seed, rank,
+                                                       repetition]
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
+
+
+def _multiprocess_rank():
+    """(is_multiprocess, rank) of this process in an accumulation-mode
+    run: independent processes that share the results npz, each with its
+    rank in SEMI_PROCESS_ID (the JAX package's coordinator-less mode). A
+    process group (`--coordinator`) is not this mode: its ranks share each
+    batch."""
+    env = os.environ.get("SEMI_PROCESS_ID")
+    if env is not None:
+        return True, int(env)
+    return False, 0
 
 
 def _precision_dtypes(precision):
@@ -323,21 +399,27 @@ def _reduced_potential(potential, dtype):
     return potential
 
 
-def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
+def run_semiclassical_dynamics(task, device="cuda", precision="f64",
+                               group=None):
     """Run one `dynamics` task at the `precision` mode (see `PRECISIONS`);
-    returns the PhaseTimer of the run."""
+    returns the PhaseTimer of the run. Under a process `group` (a
+    `parallel.Group`; `device` its device) every rank calls this with the
+    same task: the ranks share each batch, and rank 0 writes the npz."""
     import torch
 
     from semiclassical_tpu_torch import units
     from semiclassical_tpu_torch.checkpoint import (CheckpointedRun,
-                                                    peek_checkpoint)
+                                                    agree_on_resume)
     from semiclassical_tpu_torch.io.results import (accumulate_results,
                                                     init_results)
+    from semiclassical_tpu_torch.parallel import (barrier, group_sum,
+                                                  is_leader, rank_path,
+                                                  world_of)
     from semiclassical_tpu_torch.profiling import PhaseTimer, RunMetrics
     from semiclassical_tpu_torch.propagation import (
         HermanKlukPropagator, WaltonManolopoulosPropagator)
 
-    check_slice(task, precision)
+    check_slice(task, precision, group)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -411,20 +493,39 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
     filename = task["results"].get("correlations", "correlations.npz")
     overwrite = task["results"].get("overwrite", True)
     seed = task.get("manual_seed", None)
-    if seed is not None and not overwrite and os.path.exists(filename):
+    leader = is_leader(group)
+    # accumulation mode: cooperating processes merge their own batches
+    # into one npz through its file lock, with the rank folded into the
+    # seed, so a shared manual_seed still gives each its own batches
+    multiproc, rank = (False, 0) if group is not None else \
+        _multiprocess_rank()
+    if multiproc and overwrite:
+        # a rank that resets the shared npz mid-run would drop every other
+        # rank's batches: accumulate instead
+        logger.warning("multi-process run: results.overwrite forced to "
+                       "false (delete the old npz before launching)")
+        overwrite = False
+    if (seed is not None and not overwrite and os.path.exists(filename)
+            and not multiproc):
         raise ConfigurationError(
             "Multiple runs with the same sequence of random numbers make no "
             "sense! Do not use `manual_seed` and `overwrite=False` at the "
             "same time")
+    # the files each process writes on its own: one per rank of a group or
+    # of an accumulation-mode run
+    own_rank = (group.rank if group is not None
+                else rank if multiproc else None)
     # mid-batch checkpoint/resume: with `checkpoint` set, each repetition
     # saves its state every `checkpoint_every` steps; a killed run loses
-    # at most one segment and resumes where the checkpoint stands
-    ckpt_file = task.get("checkpoint", "")
+    # at most one segment and resumes where the checkpoint stands (every
+    # rank of a group at once, or none)
+    ckpt_base = task.get("checkpoint", "")
+    ckpt_file = rank_path(ckpt_base, own_rank)
     ckpt_every = task.get("checkpoint_every", 500)
     resume_rep = None
     resume_steps_done = 0
-    if ckpt_file and os.path.exists(ckpt_file):
-        meta = peek_checkpoint(ckpt_file)
+    meta = agree_on_resume(ckpt_file, group)
+    if meta is not None:
         resume_rep = int(meta.get("repetition", 0))
         resume_steps_done = int(meta.get("steps_done", 0))
         logger.info(f"found checkpoint '{ckpt_file}' at repetition "
@@ -433,13 +534,24 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
                     f"'{filename}')")
     # WM: Filinov cell widths alpha = beta
     cell_width = task.get("cell_width", 10000.0)
-    init_results(filename, propagator_name, times, adiabatic_gap, en_zpt,
-                 overwrite=overwrite and resume_rep is None)
+    if leader:
+        init_results(filename, propagator_name, times, adiabatic_gap,
+                     en_zpt, overwrite=overwrite and resume_rep is None)
+    barrier(group)
     if seed is None:
         seed = int(np.random.SeedSequence().entropy)
+        if group is not None:
+            # the ranks share each batch, so they share rank 0's seed (52
+            # bits: exact through the float64 all-reduce)
+            mine = torch.tensor(float(seed % 2**52) if leader else 0.0,
+                                dtype=torch.float64, device=device)
+            seed = int(group_sum([mine], group)[0])
     else:
         logger.warning("The random number generator should not be seeded "
                        "manually unless for debugging!")
+    if multiproc:
+        logger.info(f"multi-process accumulation: rank {rank} (folded into "
+                    "the seed)")
 
     # scan segments of scan_chunk steps (one host read each, and the
     # restart of a taylor_every window): the separable AS steps are short,
@@ -452,6 +564,8 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
     scan_chunk = task.get("scan_chunk", default_chunk)
 
     def _progress(done, total, cauto_last):
+        if not leader:
+            return
         t_fs = times[min(done, nt) - 1] * units.autime_to_fs
         logger.info(f" time/fs= {t_fs:9.4f}  step {done}/{total}  "
                     f"|C(t)|= {abs(cauto_last):.6f}")
@@ -463,7 +577,8 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
             continue
         logger.info(f"*** Repetition {repetition + 1} ***")
         generator = torch.Generator(device=device)
-        generator.manual_seed(_repetition_seed(seed, repetition))
+        generator.manual_seed(_repetition_seed(
+            seed, repetition, rank if multiproc else None))
         if propagator_name == "WM":
             propagator = WaltonManolopoulosPropagator(
                 Gamma_i, Gamma_t, cell_width, cell_width, device=device,
@@ -479,20 +594,24 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
             propagator.initial_conditions(q0, p0, Gamma_0, potential,
                                           ntraj=num_samples,
                                           generator=generator,
-                                          sampling_method=sampling_method)
-        _export_trajectories(task.get("export_initial", ""), atomic_numbers,
-                             propagator, append=(repetition > 0))
+                                          sampling_method=sampling_method,
+                                          group=group)
+        _export_trajectories(rank_path(task.get("export_initial", ""),
+                                       own_rank),
+                             atomic_numbers, propagator,
+                             append=(repetition > 0))
 
         def _norm_log(step):
+            # the ring norm of a group is a collective: every rank runs it
             t_fs = times[step] * units.autime_to_fs
             if norm_samples > 0:
                 nrm, err = propagator.norm(sample_pairs=norm_samples,
                                            key=repetition)
-                logger.info(f" time/fs= {t_fs:.4f}  "
-                            f"norm= {nrm:9.6f} +- {err:.6f}")
+                line = f"norm= {nrm:9.6f} +- {err:.6f}"
             else:
-                logger.info(f" time/fs= {t_fs:.4f}  "
-                            f"norm= {propagator.norm():9.6f}")
+                line = f"norm= {propagator.norm():9.6f}"
+            if leader:
+                logger.info(f" time/fs= {t_fs:.4f}  {line}")
 
         err_c = err_k = None
         try:
@@ -544,30 +663,40 @@ def run_semiclassical_dynamics(task, device="cuda", precision="f64"):
             if atomic_numbers is not None:
                 logger.info("NaN's/instability detected, saving trajectories "
                             "to 'current_trajectories.xyz' for debugging ...")
-                _export_trajectories("current_trajectories.xyz",
-                                     atomic_numbers, propagator, append=False)
+                _export_trajectories(
+                    rank_path("current_trajectories.xyz", own_rank),
+                    atomic_numbers, propagator, append=False)
             raise
-        _export_trajectories(task.get("export_final", ""), atomic_numbers,
-                             propagator, append=(repetition > 0))
+        _export_trajectories(rank_path(task.get("export_final", ""),
+                                       own_rank),
+                             atomic_numbers, propagator,
+                             append=(repetition > 0))
         RunMetrics.from_run(propagator.last_energies, cauto, kic).log()
-        if ckpt_file and os.path.exists(ckpt_file):
+        # every rank has written its last checkpoint of the batch
+        barrier(group)
+        if leader:
             # removed before accumulating: a kill between the two loses
             # this batch but can never count it twice on resume
-            os.remove(ckpt_file)
-        with ptimer.phase("reduce"):
-            total = accumulate_results(filename, cauto, kic,
-                                       propagator.ntraj,
-                                       autocorrelation_stderr=err_c,
-                                       ic_correlation_stderr=err_k)
-        logger.info(f"  accumulated trajectories: {total}")
-        if err_c is not None:
-            logger.info(f"  MC stderr: |C(t)| max {err_c.max():.2e}, "
-                        f"k~ic max {err_k.max():.2e}")
+            for r in ([own_rank] if group is None
+                      else range(group.world)):
+                done_file = rank_path(ckpt_base, r)
+                if done_file and os.path.exists(done_file):
+                    os.remove(done_file)
+            with ptimer.phase("reduce"):
+                total = accumulate_results(filename, cauto, kic,
+                                           propagator.ntraj,
+                                           autocorrelation_stderr=err_c,
+                                           ic_correlation_stderr=err_k)
+            logger.info(f"  accumulated trajectories: {total}")
+            if err_c is not None:
+                logger.info(f"  MC stderr: |C(t)| max {err_c.max():.2e}, "
+                            f"k~ic max {err_k.max():.2e}")
+        barrier(group)
         steps_run = nt
         if repetition == resume_rep:
             steps_run = max(nt - resume_steps_done, 0)
         traj_steps += propagator.ntraj * steps_run
-    ptimer.log(traj_steps)
+    ptimer.log(traj_steps, nchips=world_of(group))
     return ptimer
 
 

@@ -44,19 +44,24 @@ class PhaseTimer:
             self.phases[name] = self.phases.get(name, 0.0) + (
                 time.perf_counter() - t0)
 
-    def throughput(self, traj_steps, phase="scan"):
-        """trajectory-steps per second of wall time in the given phase."""
+    def throughput(self, traj_steps, phase="scan", nchips=1):
+        """trajectory-steps per second of wall time in the given phase, per
+        device of a group of `nchips`."""
         wall = self.phases.get(phase, 0.0)
         if wall <= 0:
             return float("nan")
-        return traj_steps / wall
+        return traj_steps / wall / nchips
 
-    def log(self, traj_steps=None):
+    def log(self, traj_steps=None, nchips=1):
+        """The phases' walls and the throughput of `traj_steps` (of the
+        whole group: per device over `nchips` devices)."""
         for name, wall in sorted(self.phases.items()):
             logger.info(f"  phase {name:10s}: {wall:9.3f} s")
         if traj_steps:
-            logger.info(f"  throughput: {self.throughput(traj_steps):,.0f} "
-                        f"traj-steps/s on {self.device}")
+            rate = self.throughput(traj_steps, nchips=nchips)
+            where = (f"on {self.device}" if nchips == 1
+                     else f"per device, {nchips} devices")
+            logger.info(f"  throughput: {rate:,.0f} traj-steps/s {where}")
 
 
 @dataclass

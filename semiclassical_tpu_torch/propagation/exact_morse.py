@@ -54,6 +54,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from semiclassical_tpu_torch.parallel.group import group_sum
 from semiclassical_tpu_torch.propagation.eom import (_NP_DTYPE,
                                                      _comp_accumulate,
                                                      rk4_step)
@@ -208,13 +209,19 @@ def _setup(q, p, S0, a, D, dt):
     return consts, th0, torch.sum(E, dim=1), eps_raw
 
 
-def build_morse_map(state: TrajState, potential, dt):
+def build_morse_map(state: TrajState, potential, dt, group=None):
     """(MorseMapPack, MorseMapCarry) of the map at the current state, at the
     state's work dtype (q's). Rows with a mode of eps > EPS_EXACT, or a
     non-finite value, are routed to the RK4 side-channel; raises ValueError
     for a harmonic or non-Morse potential, a dense monodromy, non-unit
     masses, or when more than RK4_FRACTION_MAX of the batch would be
-    routed."""
+    routed.
+
+    Under a process `group` the state is this rank's shard: the routed
+    rows and the identity test of the monodromy are counted over the
+    group (one all-reduce), so every rank takes the same decision and
+    raises together or not at all; the side-channel holds this shard's
+    routed rows."""
     from semiclassical_tpu_torch.potentials.model import MorsePotential
 
     if not isinstance(potential, MorsePotential) or potential.harmonic:
@@ -241,25 +248,29 @@ def build_morse_map(state: TrajState, potential, dt):
     # carries the NaN into the energies and the energy guard raises, as
     # it does under integrator='rk4'
     bad_row = ~torch.all(eps <= EPS_EXACT, dim=1)
-    n_bad = int(bad_row.sum())
-    if n_bad > RK4_FRACTION_MAX * n:
+    Z = state.Z
+    not_identity = ~((Z[0] == 1.0) & (Z[3] == 1.0) & (Z[1] == 0.0)
+                     & (Z[2] == 0.0))
+    counts = torch.stack([bad_row.sum(), not_identity.sum()])
+    n_bad_here = int(counts[0])
+    n_bad, n_moved = group_sum([counts], group)[0].tolist()
+    n_all = n * (1 if group is None else group.world)
+    if n_bad > RK4_FRACTION_MAX * n_all:
         raise ValueError(
-            f"exact Morse map: {n_bad}/{n} trajectories have a mode with "
+            f"exact Morse map: {n_bad}/{n_all} trajectories have a mode with "
             f"eps = E/D > {EPS_EXACT} (unbound or near-separatrix) — the "
             "ensemble is too hot for the closed-form map; use "
             "integrator='rk4'")
     sub_idx = sub = None
-    if n_bad:
+    if n_bad_here:
         sub_idx = torch.nonzero(bad_row).flatten()
         rows = lambda x: None if x is None else x[sub_idx]
         sub = TrajState(q=state.q[sub_idx], p=state.p[sub_idx],
                         Z=state.Z[:, sub_idx], S=state.S[sub_idx],
                         qc=rows(state.qc), pc=rows(state.pc))
+    if n_bad:
         logger.info("exact Morse map: %d/%d rows RK4-routed (eps > %s)",
-                    n_bad, n, EPS_EXACT)
-    Z = state.Z
-    identity = bool(torch.all((Z[0] == 1.0) & (Z[3] == 1.0) & (Z[1] == 0.0)
-                              & (Z[2] == 0.0)))
+                    n_bad, n_all, EPS_EXACT)
     work = {k: v.to(wdtype) for k, v in consts.items()
             if k not in ("A", "S_base", "bco", "wdt")}
     bco_hi, bco_lo = _split_hi_lo(consts["bco"], wdtype)
@@ -272,7 +283,7 @@ def build_morse_map(state: TrajState, potential, dt):
         inv_a=inv_a, c12a=0.5 * inv_a,
         pc1=(2.0 * D / (a * torch.sqrt(2.0 * D))).to(wdtype),
         e_bound_sum=torch.sum(torch.where(bad_row, 0.0, e_row)),
-        m0=None if identity else Z, sub_idx=sub_idx, mono_dtype=Z.dtype,
+        m0=Z if n_moved else None, sub_idx=sub_idx, mono_dtype=Z.dtype,
         compensated=state.compensated)
     return pack, MorseMapCarry(th=th_hi, thc=th_lo, t_rel=0.0, sub=sub)
 

@@ -74,6 +74,10 @@ from semiclassical_tpu_torch.coherent import (OverlapParams,
 from semiclassical_tpu_torch.potentials.base import (ConstHessian,
                                                      DenseHessian,
                                                      DiagHessian)
+from semiclassical_tpu_torch.parallel.group import (group_sum,
+                                                    pad_to_multiple,
+                                                    ring_shift, shard_rows,
+                                                    world_of)
 from semiclassical_tpu_torch.propagation.eom import (const_step_map,
                                                      make_taylor_window,
                                                      rk4_step)
@@ -403,14 +407,18 @@ def _shifted_momentum(params: HKParams, p, pc=None):
 
 
 def hk_batch_constants(params: HKParams, qi, pi, log_prob,
-                       potential) -> BatchConstants:
+                       potential, group=None) -> BatchConstants:
     """Precompute everything that depends only on the initial conditions
     (qi, pi at the sampling precision: float64 under comp32). Reads one
-    scalar (the weight scale) back to the host."""
-    n = qi.shape[0]
+    scalar (the weight scale) back to the host. Under a process `group`
+    the rows are this rank's shard of the batch: the weights take the
+    batch's size and the weight scale its mean over every rank, so the
+    ranks' sums add."""
+    n = qi.shape[0] * world_of(group)
     logw = -(float(np.log(n)) + log_prob
              + params.dim * float(np.log(2.0 * np.pi * hbar)))
-    log_scale = torch.mean(logw)
+    log_scale = (torch.mean(logw) if group is None
+                 else group_sum([torch.sum(logw)], group)[0] / n)
     logw_norm = (logw - log_scale).to(qi.dtype)
     # comp32 keeps the center split as float32 + residual; these one-time
     # constants take the full-precision center
@@ -640,6 +648,58 @@ def _sqrt_norm(norm2, err2=None):
     return norm, err2 / (2.0 * norm)
 
 
+def _ring_block_count(n_loc, block):
+    """Blocks per shard of the ring pair sum, all of one size: a shard no
+    larger than `block` is one block; otherwise `block` divides it, or the
+    largest divisor of n_loc near `block` is used. One whole-shard block
+    would form an (n_loc, n_loc) pair intermediate, so a shard with no
+    usable divisor raises."""
+    if n_loc % block == 0:
+        return n_loc // block
+    if n_loc <= block:
+        return 1
+    b = _divisor_block(n_loc, block)
+    if b < block // 4:
+        raise ValueError(
+            f"block={block} does not divide the per-rank shard ({n_loc}) "
+            "and no usable divisor exists; choose a block that divides "
+            "ntraj / world")
+    return n_loc // b
+
+
+def _pair_sum_ring(block_term, params, arrays, group, block):
+    """sum_ij Re term(i, j) over ALL ordered pairs of a batch whose rows
+    are sharded over a process group: each rank keeps its shard and a
+    visiting copy; for `world` rotations it adds the (local x visiting)
+    block sums over every ordered block pair, then passes the visiting
+    arrays one rank on (`ring_shift`). After the last rotation every
+    global ordered pair was visited once; the accumulator is summed over
+    the group and read on the host once. Blocks divide the shard
+    (`_ring_block_count`)."""
+    n_loc = arrays[0].shape[0]
+    blk = n_loc // _ring_block_count(n_loc, block)
+    starts = _block_starts(n_loc, blk)
+    total = torch.zeros((), dtype=torch.float64, device=arrays[0].device)
+    visiting = arrays
+    for rotation in range(group.world):
+        for i in starts:
+            local = _block(arrays, i, blk)
+            for j in starts:
+                total = total + block_term(params, *local,
+                                           *_block(visiting, j, blk)).real
+        if rotation + 1 < group.world:
+            visiting = ring_shift(visiting, group)
+    return float(group_sum([total], group)[0])
+
+
+def _pair_sum(block_term, params, arrays, block, group, hermitian=True):
+    """The pair sum of a single process (`blocked_pair_sum`), or the ring
+    over the ranks of `group` (every ordered pair)."""
+    if group is not None:
+        return _pair_sum_ring(block_term, params, arrays, group, block)
+    return blocked_pair_sum(block_term, params, arrays, block, hermitian)
+
+
 def _hk_norm_block_term(ov, qi, pi, vi, qj, pj, vj):
     return torch.einsum("i,ij,j->", vi.conj(), overlap_matrix(ov, qi, pi, qj,
                                                               pj), vj)
@@ -659,23 +719,35 @@ def _hk_norm_log_block_term(ov, qi, pi, lri, lii, qj, pj, lrj, lij):
                                         linalg.complex_dtype(rd)))
 
 
-def pairwise_norm(ov: OverlapParams, q, p, v, block=None):
+def _no_sampled_ring(sample_pairs, group):
+    if sample_pairs is not None and group is not None:
+        raise ValueError(
+            "subsampled norm (sample_pairs / norm_samples): single-process "
+            "route only — the ring over a process group is already "
+            "O(n^2 / world) per rank; run it without sample_pairs")
+
+
+def pairwise_norm(ov: OverlapParams, q, p, v, block=None, group=None):
     """|psi| = sqrt(sum_ij v_i^* <g_i|g_j> v_j) from linear coefficients,
-    by blocked accumulation over the Hermitian upper triangle. O(n^2):
-    an opt-in convergence diagnostic."""
+    by blocked accumulation over the Hermitian upper triangle, or under a
+    process `group` (q, p, v this rank's shard) by the ring over every
+    ordered pair (`_pair_sum_ring`). O(n^2): an opt-in convergence
+    diagnostic."""
     if block is None:
         block = pair_block(q.shape[0], HK_PAIR_BYTES, q.device)
-    return _sqrt_norm(blocked_pair_sum(_hk_norm_block_term, ov, (q, p, v),
-                                       block))
+    return _sqrt_norm(_pair_sum(_hk_norm_block_term, ov, (q, p, v), block,
+                                group))
 
 
 def pairwise_norm_log(ov: OverlapParams, q, p, log_v, block=None,
-                      sample_pairs=None, key=0):
-    """|psi| from log-coefficients — the range-safe pairwise norm.
+                      sample_pairs=None, key=0, group=None):
+    """|psi| from log-coefficients — the range-safe pairwise norm (under a
+    process `group`, the ring as in `pairwise_norm`).
 
-    With `sample_pairs`: the subsampled estimate (`subsampled_pair_sum`,
-    at the largest block that divides n) as (norm, stderr), the stderr
-    propagated through the square root."""
+    With `sample_pairs` (a single process only): the subsampled estimate
+    (`subsampled_pair_sum`, at the largest block that divides n) as
+    (norm, stderr), the stderr propagated through the square root."""
+    _no_sampled_ring(sample_pairs, group)
     n = q.shape[0]
     if block is None:
         block = pair_block(n, HK_PAIR_BYTES, q.device)
@@ -684,8 +756,8 @@ def pairwise_norm_log(ov: OverlapParams, q, p, log_v, block=None,
         return _sqrt_norm(*subsampled_pair_sum(
             _hk_norm_log_block_term, ov, arrays, _divisor_block(n, block),
             sample_pairs=sample_pairs, key=key))
-    return _sqrt_norm(blocked_pair_sum(_hk_norm_log_block_term, ov, arrays,
-                                       block))
+    return _sqrt_norm(_pair_sum(_hk_norm_log_block_term, ov, arrays, block,
+                                group))
 
 
 # ---------------------------------------------------------------------------
@@ -822,10 +894,17 @@ class HermanKlukPropagator:
         self.Gamma_t = Gamma_t
         self.device = torch.device(device)
         self.state = None
+        self.group = None
         self.last_energies = np.zeros(0)
         # sub-batch size of the time loop (0: the whole batch at once)
         self.micro_batch = 0
         self.sampling_method = "pseudo"
+
+    @property
+    def n_local(self):
+        """The trajectories this process propagates: the batch, or this
+        rank's shard of it under a group."""
+        return self.state.q.shape[0]
 
     @property
     def compensated(self):
@@ -839,7 +918,7 @@ class HermanKlukPropagator:
 
     def initial_conditions(self, q0, p0, Gamma_0, potential, ntraj=5000,
                            generator=None, normals=None,
-                           sampling_method="pseudo"):
+                           sampling_method="pseudo", group=None):
         """Sample initial phase-space points and initialise the state.
 
         Parameters
@@ -856,6 +935,12 @@ class HermanKlukPropagator:
         sampling_method : "pseudo" | "antithetic" | "sobol", the draw of
             the standard normals (`sampling.standard_normals`); with
             "antithetic" the error bars count each +-pair as one sample
+        group : a `parallel.Group` whose ranks share this batch, or None.
+            ntraj is rounded up to a multiple of its size (of twice its
+            size under "antithetic": +-pairs must not straddle shards);
+            every rank draws the whole batch from the same generator (or
+            takes the whole `normals`) and keeps its own rows. `ntraj`
+            stays the batch's size; the state holds this rank's rows.
 
         The draws are made at float64 in every mode and the points cast to
         the trajectory dtype (float64 under comp32, whose state splits
@@ -869,6 +954,11 @@ class HermanKlukPropagator:
                                          self.device)
         self.sampling = sampling
         self.sampling_method = sampling_method
+        self.group = group
+        if group is not None:
+            ntraj = pad_to_multiple(
+                ntraj, group.world * (2 if sampling_method == "antithetic"
+                                      else 1))
         self.params = self._make_params(Gamma_0, q0, p0, sampling)
         logger.info("== Initial Conditions ==")
         logger.info(f"number of dimensions   :  {self.params.dim}")
@@ -882,6 +972,8 @@ class HermanKlukPropagator:
         qi, pi, log_prob = sample_initial_conditions(sampling, ntraj,
                                                      normals=normals)
         log_sampling_statistics(sampling, qi, pi)
+        a, b = shard_rows(ntraj, group)
+        qi, pi, log_prob = qi[a:b], pi[a:b], log_prob[a:b]
         if not self.compensated:
             qi, pi = qi.to(self.traj_dtype), pi.to(self.traj_dtype)
         hess = potential.local_expansion(qi[:1])[2]
@@ -911,7 +1003,8 @@ class HermanKlukPropagator:
 
     def _make_batch_constants(self, qi, pi, log_prob, potential):
         """The per-batch constants of the sampled initial conditions."""
-        return hk_batch_constants(self.params, qi, pi, log_prob, potential)
+        return hk_batch_constants(self.params, qi, pi, log_prob, potential,
+                                  self.group)
 
     def _make_trackers(self, state):
         """The branch-cut tracking state at the initial conditions."""
@@ -928,10 +1021,11 @@ class HermanKlukPropagator:
                 *_moments(cauto_qp, kic_qp, m2_mode))
 
     def _micro_k(self, m2_mode):
-        """The number of sub-batches of the time loop: ntraj / micro_batch
-        when `micro_batch` is set, smaller than the batch and divides it;
-        else 1 (with a warning where it does not divide)."""
-        m, n = int(self.micro_batch or 0), self.ntraj
+        """The number of sub-batches of the time loop: rows / micro_batch
+        when `micro_batch` is set, smaller than this process's rows (its
+        shard under a group) and divides them; else 1 (with a warning
+        where it does not divide)."""
+        m, n = int(self.micro_batch or 0), self.n_local
         if m <= 0 or n <= m:
             return 1
         if self.integrator == "exact":
@@ -1008,7 +1102,8 @@ class HermanKlukPropagator:
                     "MorsePotential (diagonal-monodromy state) or a "
                     "constant-Hessian molecular harmonic potential; use "
                     "integrator='rk4' for this potential")
-            pack, carry = build_morse_map(self.state, potential, dt)
+            pack, carry = build_morse_map(self.state, potential, dt,
+                                          self.group)
             cache = self._morse = _MorseCache(dt, potential, self.state,
                                               pack, carry)
 
@@ -1042,7 +1137,7 @@ class HermanKlukPropagator:
         else:
             segments = [chunk] * (nt // chunk) + ([nt % chunk]
                                                    if nt % chunk else [])
-        k, n = self._micro_k(m2_mode), self.ntraj
+        k, n = self._micro_k(m2_mode), self.n_local
         rows = [(s * n // k, (s + 1) * n // k) for s in range(k)]
         bcs = ([self.bc] if k == 1
                else [_batch_rows(self.bc, a, b) for a, b in rows])
@@ -1071,6 +1166,9 @@ class HermanKlukPropagator:
             state, tracker = (parts[0] if k == 1 else
                               tuple(_cat_batches(list(x))
                                     for x in zip(*parts)))
+            if self.group is not None:
+                self._reduce_segment(slice(done, done + seg), cauto, kic,
+                                     energies, m2)
             done += seg
             if progress is not None and chunk:
                 progress(done, nt, complex(torch.sum(cauto[:, done - 1]))
@@ -1084,6 +1182,19 @@ class HermanKlukPropagator:
                                                    else m2[:, 0])
         return (cauto.sum(dim=0), kic.sum(dim=0), energies.mean(dim=0),
                 None if m2 is None else m2.sum(dim=1))
+
+    def _reduce_segment(self, steps, cauto, kic, energies, m2):
+        """Replace one segment's columns (`steps`) of the per-rank sums
+        and moments by their sums over the group, and of the per-rank mean
+        energies by their group mean (equal shards), in one all-reduce."""
+        parts = [cauto[:, steps], kic[:, steps], energies[:, steps]]
+        if m2 is not None:
+            parts.append(m2[:, :, steps])
+        parts = group_sum(parts, self.group)
+        cauto[:, steps], kic[:, steps] = parts[0], parts[1]
+        energies[:, steps] = parts[2] / self.group.world
+        if m2 is not None:
+            m2[:, :, steps] = parts[3]
 
     def propagate(self, potential, dt, nt, energy0_es=0.0, check_energy=True,
                   chunk=None, progress=None, error_bars=False,
@@ -1150,6 +1261,11 @@ class HermanKlukPropagator:
     def _phase(self, energy0_es):
         return np.exp(1j / hbar * self.t * energy0_es)
 
+    def _batch_sum(self, x):
+        """A 0-d sum over this process's rows as a host complex, summed
+        over the group's ranks under a group."""
+        return complex(group_sum([x], self.group)[0])
+
     def semiclassical_prefactor(self):
         """The sign-aligned HK prefactor C(t) at the current state, (n,)
         complex; advances the tracker to the state first (a no-op when it
@@ -1159,22 +1275,26 @@ class HermanKlukPropagator:
         return self.tracker.sqrt()
 
     def autocorrelation(self, energy0_es=0.0):
-        """C(t) at the current state."""
+        """C(t) at the current state (of the whole batch under a group)."""
         c = self.semiclassical_prefactor()
         cauto = torch.sum(hk_autocorr_qp(self.params, self.bc, self.state, c))
-        return complex(cauto) * self.bc.weight_scale * self._phase(energy0_es)
+        return (self._batch_sum(cauto) * self.bc.weight_scale
+                * self._phase(energy0_es))
 
     def ic_correlation(self, potential, energy0_es=0.0):
-        """k~ic(t) at the current state."""
+        """k~ic(t) at the current state (of the whole batch under a
+        group)."""
         c = self.semiclassical_prefactor()
         _, kic = hk_observables(self.params, self.bc, self.state, c,
                                 potential)
-        return complex(kic) * self.bc.weight_scale * self._phase(energy0_es)
+        return (self._batch_sum(kic) * self.bc.weight_scale
+                * self._phase(energy0_es))
 
     def coefficients(self):
         """The linear coefficients v_i, weight scale included; they
         over/underflow where the true magnitude does (`log_coefficients`
-        is exact at any mode count)."""
+        is exact at any mode count). Under a group: this rank's rows, as
+        for every per-trajectory accessor."""
         v = hk_coefficients(self.params, self.bc, self.state,
                             self.semiclassical_prefactor())
         return v * self.bc.weight_scale
@@ -1190,22 +1310,34 @@ class HermanKlukPropagator:
     def norm(self, sample_pairs=None, key=0, block=None):
         """|psi| of the frozen-Gaussian wavefunction (O(n^2), diagnostic),
         from log-coefficients; `block` defaults to `pair_block`'s rule.
-        With `sample_pairs`: the subsampled estimate (norm, stderr)."""
+        With `sample_pairs`: the subsampled estimate (norm, stderr), on a
+        single process only. Under a group the ring over every ordered
+        pair of the batch (`_pair_sum_ring`), a collective: every rank
+        calls it."""
         return pairwise_norm_log(self.params.csott, self.state.q,
                                  self.state.p, self._log_coefficients(),
                                  block=block, sample_pairs=sample_pairs,
-                                 key=key)
+                                 key=key, group=self.group)
+
+    def _batch_grid(self, psi, zmax):
+        """The host grid values psi exp(zmax) of this process's rows,
+        summed over the group's ranks under a group."""
+        psi = (psi.cpu().numpy().astype(np.complex128)
+               * np.exp(zmax.cpu().numpy().astype(np.float64)))
+        if self.group is None:
+            return psi
+        return group_sum([torch.as_tensor(psi, device=self.device)],
+                         self.group)[0].cpu().numpy()
 
     def wavefunction(self, x):
         """psi(x, t) on a grid x (nx, d), complex numpy (nx,), from
-        log-coefficients with the exponent shift recombined on the host."""
+        log-coefficients with the exponent shift recombined on the host
+        (of the whole batch under a group)."""
         x = torch.as_tensor(np.asarray(x), dtype=torch.float64,
                             device=self.device)
-        psi, zmax = wavefunction_log(self.params.wf, self.state.q,
-                                     self.state.p, self._log_coefficients(),
-                                     x)
-        return (psi.cpu().numpy().astype(np.complex128)
-                * np.exp(zmax.cpu().numpy().astype(np.float64)))
+        return self._batch_grid(*wavefunction_log(
+            self.params.wf, self.state.q, self.state.p,
+            self._log_coefficients(), x))
 
     def initial_positions_and_momenta(self):
         return self.bc.qi, self.bc.pi

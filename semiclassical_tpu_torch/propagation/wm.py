@@ -62,8 +62,8 @@ from semiclassical_tpu_torch.ops import wm_diag as _wm_diag_ops
 from semiclassical_tpu_torch.propagation.hk import (BatchConstants, HKParams,
                                                     HermanKlukPropagator,
                                                     _divisor_block, _moments,
-                                                    _sqrt_norm,
-                                                    blocked_pair_sum,
+                                                    _no_sampled_ring,
+                                                    _pair_sum, _sqrt_norm,
                                                     hk_batch_constants,
                                                     hk_prefactor_det,
                                                     pair_block,
@@ -402,11 +402,12 @@ def _nac_terms(potential, x):
 
 
 def wm_batch_constants(params: WMParams, qi, pi, log_prob,
-                       potential) -> WMBatchConstants:
+                       potential, group=None) -> WMBatchConstants:
     """The HK batch constants plus eps, PIq, the initial-point NAC terms
     and z0: the difference p0 - pi at the sampling precision, the (d, d)
-    contractions at the pack's dtype."""
-    base = hk_batch_constants(params.hk, qi, pi, log_prob, potential)
+    contractions at the pack's dtype. Under a process `group` the weights
+    are the batch's, as in `hk_batch_constants`."""
+    base = hk_batch_constants(params.hk, qi, pi, log_prob, potential, group)
     t = params.dtype
     dp0 = _center_minus(params.hk.p0, params.hk.p0c, pi).to(t)
     eps = -(0.5 / hbar**2) * torch.einsum("na,ab,nb->n", dp0, params.iGi0,
@@ -881,13 +882,18 @@ def wm_norm_arrays(params: WMParams, bc: WMBatchConstants, state: TrajState,
 
 
 def wm_norm(params: WMParams, bc: WMBatchConstants, state: TrajState,
-            derived: WMDerived, log_v, block=None, sample_pairs=None, key=0):
+            derived: WMDerived, log_v, block=None, sample_pairs=None, key=0,
+            group=None):
     """|psi| of the WM wavefunction: O(n^2) with an r x r inverse per
     pair, each entry of the pair sum assembled as ONE exponent (log v_m^*
     + log v_n + the pair-overlap exponent - 1/2 Log det), over the full
     ordered block-pair grid (the pair exponent is not assembled
-    symmetrically). `block` defaults to `pair_block` at `wm_pair_bytes`;
-    with `sample_pairs` the subsampled estimate (norm, stderr)."""
+    symmetrically); under a process `group` (the arguments this rank's
+    rows) by the ring over the same ordered pairs (`hk._pair_sum_ring`),
+    with K3 on every block pair of every rotation. `block` defaults to
+    `pair_block` at `wm_pair_bytes`; with `sample_pairs` (a single process
+    only) the subsampled estimate (norm, stderr)."""
+    _no_sampled_ring(sample_pairs, group)
     pack, arrays = wm_norm_arrays(params, bc, state, derived, log_v)
     n = state.q.shape[0]
     if block is None:
@@ -897,8 +903,8 @@ def wm_norm(params: WMParams, bc: WMBatchConstants, state: TrajState,
         return _sqrt_norm(*subsampled_pair_sum(
             _wm_norm_block_term, pack, arrays, _divisor_block(n, block),
             sample_pairs=sample_pairs, key=key, hermitian=False))
-    return _sqrt_norm(blocked_pair_sum(_wm_norm_block_term, pack, arrays,
-                                       block, hermitian=False))
+    return _sqrt_norm(_pair_sum(_wm_norm_block_term, pack, arrays, block,
+                                group, hermitian=False))
 
 
 # ---------------------------------------------------------------------------
@@ -945,7 +951,8 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
             self.beta, self.device, self.dtype)
 
     def _make_batch_constants(self, qi, pi, log_prob, potential):
-        return wm_batch_constants(self.params, qi, pi, log_prob, potential)
+        return wm_batch_constants(self.params, qi, pi, log_prob, potential,
+                                  self.group)
 
     def _make_trackers(self, state):
         if self.params.scan_diag and state.diag_monodromy:
@@ -1000,7 +1007,8 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
         cauto = torch.sum(wm_autocorr_qp(
             self.params, self.bc, self.state, derived, c,
             self.tracker.detA.signs, self.tracker.detM.signs))
-        return complex(cauto) * self.bc.weight_scale * self._phase(energy0_es)
+        return (self._batch_sum(cauto) * self.bc.weight_scale
+                * self._phase(energy0_es))
 
     def ic_correlation(self, potential, energy0_es=0.0):
         c = self.semiclassical_prefactor()
@@ -1008,7 +1016,8 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
         _, kic = wm_observables(self.params, self.bc, self.state, derived, c,
                                 self.tracker.detA.signs,
                                 self.tracker.detM.signs, potential)
-        return complex(kic) * self.bc.weight_scale * self._phase(energy0_es)
+        return (self._batch_sum(kic) * self.bc.weight_scale
+                * self._phase(energy0_es))
 
     def coefficients(self):
         """Linear-scale coefficients; they underflow where the true
@@ -1032,14 +1041,13 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
         log_v, derived = self._log_coefficients_and_derived()
         x = torch.as_tensor(np.asarray(x), dtype=torch.float64,
                             device=self.device)
-        psi, zmax = wm_wavefunction(self.params, self.bc, self.state,
-                                    derived, log_v, x)
-        return (psi.cpu().numpy().astype(np.complex128)
-                * np.exp(zmax.cpu().numpy().astype(np.float64)))
+        return self._batch_grid(*wm_wavefunction(
+            self.params, self.bc, self.state, derived, log_v, x))
 
     def norm(self, sample_pairs=None, key=0, block=None):
         """|psi| (O(n^2) with K3 on every block pair's (bi bj, r, r) pair
         matrices); see `wm_norm`."""
         log_v, derived = self._log_coefficients_and_derived()
         return wm_norm(self.params, self.bc, self.state, derived, log_v,
-                       block=block, sample_pairs=sample_pairs, key=key)
+                       block=block, sample_pairs=sample_pairs, key=key,
+                       group=self.group)
