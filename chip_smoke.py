@@ -256,6 +256,25 @@ G. the scale-out layer (`semiclassical_tpu_torch.parallel`), on this one
              forced-overwrite warning, the npz counts 20,000 trajectories
              and equals the mean of the two ranks' batches run alone in
              this process within 1e-12, and those differ;
+B. the flagship benches of `bench_torch.py` (the JAX package's bench.py
+   configurations), after the coumarin phases:
+   bench   — `bench_torch.run_benches` in this process at the card
+             defaults (HK AS60 1,048,576 x 500 comp32, WM AS60 524,288 x
+             500 comp32, sGDML coumarin 32,768 x 100 mixed with taylor
+             every 32; 10 more steps of each traced): every value finite
+             and > 0, ntraj and nt as asked, |C(0) - 1| < 1e-3 on each
+             curve, K5 launched at (524,288, 60) float32 on every WM step
+             and never at float64, K4 at (32,768, 45, 45) complex64 on
+             every coumarin step and never at complex128 (the shapes
+             recorded by wrapping the two wrappers); the three JSON lines
+             printed in bench.py's order; then the first 98,304 rows of the
+             HK draw 200 steps at f64 and at comp32, within comp32's 6e-4 /
+             1.5e-3; K5 on the WM bench's own planes and K4 at (32,768, 45,
+             45) complex64 against their plain versions, timed beside the
+             bound (and K4 beside torch.linalg.det);
+   pod bench — `scripts/torch_pod_bench.py` HK as a subprocess under a
+             one-rank NCCL group at 131,072 x 100: its line (nchips 1,
+             ntraj, nt, rates > 0, the card's name);
 12. the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -517,20 +536,22 @@ def median_ms(fn, *args, loops=10, calls=20):
     return samples
 
 
-def in_turns(kernel, plain, library, *args, others=None, plain_windows=None):
+def in_turns(kernel, plain, library, *args, others=None, plain_windows=None,
+             library_windows=None):
     """Median per-call ms of the kernel, the plain version, the library
     call (None: not timed) and any `others` (name: callable), timed in
     turns: plain, library, others, kernel, kernel, others reversed,
     library, plain. `plain_windows` = (loops, calls) times the plain
-    version in fewer and shorter windows than the rest."""
+    version in fewer and shorter windows than the rest, `library_windows`
+    the library call."""
     import numpy as np
     fns = {"plain": plain, "library": library, **(others or {}),
            "kernel": kernel}
+    short = {"plain": plain_windows, "library": library_windows}
     t = {name: [] for name in fns}
     for name in list(fns) + list(reversed(fns)):
         if fns[name] is not None:
-            loops, calls = (plain_windows if name == "plain" and plain_windows
-                            else (10, 20))
+            loops, calls = short.get(name) or (10, 20)
             t[name] += median_ms(fns[name], *args, loops=loops, calls=calls)
     med = {name: float(np.median(v)) if v else None for name, v in t.items()}
     return {"ms": med["kernel"], "plain_ms": med["plain"],
@@ -2552,6 +2573,240 @@ def wm_norm_mixed_phase(cli, ops, smi, norm_shape):
                      {"K3": out["mixed"][2]}, {"K3": nb * nb})
 
 
+# the bench phase: bench_torch's defaults on the card, the rows of the HK
+# draw held at f64 beside comp32, and the pod bench's size
+BENCH_DEFAULTS = {"hk": (1048576, 500), "wm": (524288, 500),
+                  "gdml": (32768, 100)}
+BENCH_C0_GATE = 1e-3
+BENCH_F64_ROWS, BENCH_F64_STEPS = 98304, 200
+POD_NTRAJ, POD_NT = 131072, 100
+
+
+def recording(module, name, key, shapes):
+    """Wrap `module.name` (a kernel's wrapper) so that each call on CUDA
+    tensors adds one to shapes[(key, shape of its first argument, dtype)];
+    returns the restore function."""
+    fn = getattr(module, name)
+
+    def wrapper(*args):
+        x = args[0]
+        if x.device.type == "cuda":
+            shapes[(key, tuple(x.shape), str(x.dtype).removeprefix(
+                "torch."))] += 1
+        return fn(*args)
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, fn)
+
+
+def bench_line_checks(name, result, smi):
+    """One bench's line and curves: finite values > 0, ntraj and nt as
+    asked, the card's name, |C(0) - 1| below BENCH_C0_GATE."""
+    import numpy as np
+
+    line = result.line
+    ntraj, nt = BENCH_DEFAULTS[name]
+    cauto, kic = result.curves
+    check(line["config"]["ntraj"] == ntraj and line["config"]["nt"] == nt,
+          f"bench {name}: ntraj / nt {line['config']['ntraj']} / "
+          f"{line['config']['nt']}, asked {ntraj} / {nt}")
+    phases = line["phases"]
+    values = [line["value"], line["peak_gb"], *line["trace"].values(),
+              *(phases[k] for k in ("sample", "warmup", "scan"))]
+    check(all(math.isfinite(v) and v > 0 for v in values)
+          and math.isfinite(phases["reduce"]) and phases["reduce"] >= 0,
+          f"bench {name}: a value is not finite and > 0: {line}")
+    check(line["device"] == smi, f"bench {name}: device {line['device']}")
+    check(cauto.shape == kic.shape == (nt,) and np.isfinite(cauto).all()
+          and np.isfinite(kic).all(), f"bench {name}: curves not finite")
+    c0 = abs(cauto[0] - 1)
+    print(f"bench {name}: |C(0) - 1| = {c0:.3e} (limit {BENCH_C0_GATE:g}); "
+          f"{line['value']:,.1f} traj-steps/s; scan "
+          f"{line['phases']['scan']:.3f} s; peak {line['peak_gb']} GB; "
+          f"trace {json.dumps(line['trace'])}", flush=True)
+    check(c0 < BENCH_C0_GATE, f"bench {name}: |C(0) - 1| = {c0}")
+
+
+def bench_f64_rows(bench_torch):
+    """The first BENCH_F64_ROWS rows of the HK bench's draw (the same
+    generator and seed) BENCH_F64_STEPS steps at f64 and at comp32: the
+    curves within comp32's gates of the f64 ones."""
+    import numpy as np
+    import torch
+
+    from semiclassical_tpu_torch.sampling import (SamplingParams,
+                                                  standard_normals)
+
+    omega, _, _, _, dQ = bench_torch.as60_model()
+    G = np.diag(omega)
+    ntraj = BENCH_DEFAULTS["hk"][0]
+    g = torch.Generator(device="cuda").manual_seed(bench_torch.SEED)
+    x = standard_normals(SamplingParams.create(dQ, 0 * dQ, G, G, "cuda"),
+                         ntraj, "pseudo", g)[:BENCH_F64_ROWS].clone()
+    curves = {}
+    for mode in ("float64", "comp32"):
+        prop, pot = bench_torch.as60_setup(
+            BENCH_F64_ROWS, "cuda", "HK", *bench_torch.HK_MODES[mode],
+            normals=x)
+        curves[mode] = prop.propagate(pot, bench_torch.AS60_DT,
+                                      BENCH_F64_STEPS, check_energy=False)
+        del prop
+    gate_c, gate_k = PRECISION_GATES["comp32"]
+    errs = [curve_gap(a, b) for a, b in zip(curves["comp32"],
+                                            curves["float64"])]
+    print(f"bench hk: the first {BENCH_F64_ROWS} rows of the draw, "
+          f"{BENCH_F64_STEPS} steps, comp32 against f64: C(t) {errs[0]:.3e} "
+          f"(limit {gate_c:g}), k~ic(t) {errs[1]:.3e} (limit {gate_k:g})",
+          flush=True)
+    check(errs[0] <= gate_c and errs[1] <= gate_k,
+          f"bench hk: comp32 rows vs f64 {errs}")
+
+
+def bench_k5_row(wm_diag, planes, pack):
+    """K5 on the WM bench's own planes ((524,288, 60) float32) against its
+    plain version, per output row, and timed in turns beside the bound."""
+    import torch
+
+    n, d = planes[0].shape
+    scal_k, det_k = wm_diag.wm_diag_derived(*planes, pack)
+    scal_p, det_p = wm_diag.wm_diag_derived_plain(*planes, pack)
+
+    def row_err(got, ref, dims):
+        scale = ref.abs().amax(dim=dims)
+        return float(((got - ref).abs().amax(dim=dims)
+                      / torch.where(scale > 0, scale, 1.0)).max())
+
+    err = max(row_err(scal_k, scal_p, 0), row_err(det_k, det_p, (1, 2)))
+    print(f"K5 bench ({n}, {d}) {pack.dtype}: max error kernel-plain per "
+          f"output row {err:.3e} (limit 1e-5)", flush=True)
+    check(err <= 1e-5, f"K5 at the WM bench's planes: {err}")
+    del scal_k, det_k, scal_p, det_p
+    timed = in_turns(wm_diag.wm_diag_derived, wm_diag.wm_diag_derived_plain,
+                     None, *planes, pack, plain_windows=(3, 5))
+    b = bound((14 * n * d + wm_diag.N_SCAL * n + 17 * d) * 4,
+              K5_FLOPS * n * d, True)
+    print(timing_line("K5", f"({n}, {d}) float32, the WM bench's planes",
+                      timed, *b, "none"), flush=True)
+
+
+def bench_k4_row(det_block, n, r=45):
+    """K4 at the coumarin bench's shape (n, 45, 45) complex64 against its
+    plain version and torch.linalg.det, timed in turns beside the bound."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 14)
+    A = well_conditioned(n, r, torch.complex64, g)
+    got = det_block.batched_det_block(A)
+    plain = det_block.batched_det_lu_plain(A)
+    ref = torch.linalg.det(A.to(torch.complex128))
+    e_kp, e_ko = max_rel(got, plain), max_rel(got, ref)
+    print(f"K4 bench ({n}, {r}, {r}) complex64: max rel err kernel-plain "
+          f"{e_kp:.3e} (limit 1e-5), kernel-oracle {e_ko:.3e} (limit 1e-4)",
+          flush=True)
+    check(bool(torch.isfinite(got).all()) and e_kp <= 1e-5 and e_ko <= 1e-4,
+          f"K4 at ({n}, {r}, {r}) complex64: {e_kp}, {e_ko}")
+    timed = in_turns(det_block.batched_det_block,
+                     det_block.batched_det_lu_plain, torch.linalg.det, A,
+                     plain_windows=(2, 1), library_windows=(3, 5))
+    b = bound(n * (r * r + 1) * 8, lu_flops(n, r), True)
+    print(timing_line("K4", f"({n}, {r}, {r}) complex64, the coumarin "
+                      "bench's prefactor", timed, *b, "torch.linalg.det"),
+          flush=True)
+
+
+def bench_phase(ops, smi):
+    """bench_torch's three benches in this process at the card defaults,
+    through `run_benches` (the path `python3 bench_torch.py` runs), with
+    the kernels' counts set to 0 just before and read just after; then the
+    f64 rows and the K4 / K5 rows at the benches' shapes."""
+    import collections
+
+    import torch
+
+    import bench_torch
+    from semiclassical_tpu_torch.propagation import wm
+
+    shapes = collections.Counter()
+    kept = {}
+
+    def on_result(name, result):
+        bench_line_checks(name, result, smi)
+        if name == "wm":
+            prop = result.prop
+            planes, _ = wm.wm_diag_inputs(prop.params, prop.bc, prop.state,
+                                          result.potential)
+            kept["k5"] = (planes, prop.params.diag_pack)
+
+    restore = [
+        recording(ops["wm_diag"], "wm_diag_derived", "K5", shapes),
+        recording(ops["det_block"], "batched_det_block", "K4", shapes)]
+    torch.cuda.empty_cache()
+    reset_counts(ops)
+    try:
+        results = bench_torch.run_benches("cuda", trace=10,
+                                          on_result=on_result)
+    finally:
+        for undo in restore:
+            undo()
+    counts, by_dtype = read_counts(ops), read_counts_by_dtype(ops)
+    errors = [r for r in results.values()
+              if not isinstance(r, bench_torch.BenchResult)]
+    check(not errors, f"bench: {errors}")
+    for name in bench_torch.PRINT_ORDER:
+        print(json.dumps(results[name].line), flush=True)
+    lines = {name: r.line for name, r in results.items()}
+    nt_wm, nt_gdml = BENCH_DEFAULTS["wm"][1], BENCH_DEFAULTS["gdml"][1]
+    n_wm, n_gdml = BENCH_DEFAULTS["wm"][0], BENCH_DEFAULTS["gdml"][0]
+    micro = lines["gdml"]["config"]["micro_batch"] or n_gdml
+    k5_rows = shapes[("K5", (n_wm, 60), "float32")]
+    k4_rows = shapes[("K4", (micro, 45, 45), "complex64")]
+    print(f"bench launches in the phase: {json.dumps(counts)}; by dtype "
+          f"{json.dumps(by_dtype)}; by shape "
+          f"{json.dumps({str(k): v for k, v in shapes.items()})}",
+          flush=True)
+    scan_launches = lambda name, k, t: (
+        lines[name]["launches_by_dtype"].get(k, {}).get(t, 0))
+    check(scan_launches("wm", "K5", "float32") >= nt_wm
+          and k5_rows >= nt_wm and by_dtype["K5"]["float64"] == 0,
+          f"bench wm: K5 {k5_rows} times at ({n_wm}, 60) float32 for "
+          f"{nt_wm} steps, float64 {by_dtype['K5']['float64']}")
+    subs = n_gdml // micro
+    check(scan_launches("gdml", "K4", "complex64") >= subs * nt_gdml
+          and k4_rows >= subs * nt_gdml
+          and by_dtype["K4"]["complex128"] == 0,
+          f"bench gdml: K4 {k4_rows} times at ({micro}, 45, 45) complex64 "
+          f"for {nt_gdml} steps, complex128 {by_dtype['K4']['complex128']}")
+    del results
+    torch.cuda.empty_cache()
+    bench_f64_rows(bench_torch)
+    bench_k5_row(ops["wm_diag"], *kept.pop("k5"))
+    torch.cuda.empty_cache()
+    bench_k4_row(ops["det_block"], micro)
+    torch.cuda.empty_cache()
+
+
+def pod_bench_phase(smi):
+    """scripts/torch_pod_bench.py, HK, as a subprocess under a one-rank
+    NCCL group at POD_NTRAJ x POD_NT: its line."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "torch_pod_bench.py"),
+         *group_args(), "--ntraj-per-chip", str(POD_NTRAJ), "--nt",
+         str(POD_NT)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    check(out.returncode == 0, f"pod bench exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"pod bench: {json.dumps(line)}", flush=True)
+    check(line["bench"] == "pod_flagship" and line["propagator"] == "HK"
+          and line["nchips"] == 1 and line["ntraj"] == POD_NTRAJ
+          and line["nt"] == POD_NT, f"pod bench line {line}")
+    check(all(math.isfinite(line[k]) and line[k] > 0 for k in
+              ("traj_steps_per_s", "traj_steps_per_s_per_chip", "wall_s")),
+          f"pod bench rates {line}")
+    check(line["device"] == smi, f"pod bench device {line['device']}")
+
+
 def main():
     import torch
 
@@ -2683,6 +2938,8 @@ def main():
     check(wm_c_launches["K3"] >= 2 * wm_c["nrep"],
           f"WM coumarin: K3 launched {wm_c_launches['K3']} times for "
           f"{wm_c['nrep']} batches")
+    phase("bench", bench_phase, ops, smi)
+    phase("pod bench", pod_bench_phase, smi)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -145,16 +145,24 @@ def test_rates_equal(tmp_path):
 
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import semiclassical_tpu_torch as p
 for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):
     importlib.import_module(m.name)
+import bench_torch
+spec = importlib.util.spec_from_file_location(
+    "torch_pod_bench", "scripts/torch_pod_bench.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
-             or k == "semiclassical_tpu" or k.startswith("semiclassical_tpu."))
+             or k == "semiclassical_tpu" or k.startswith("semiclassical_tpu.")
+             or k in ("bench", "__graft_entry__"))
 assert not bad, bad
 print("ok")
 """
+# the port's entry points outside the package
+ENTRY_POINTS = (REPO / "bench_torch.py",
+                REPO / "scripts" / "torch_pod_bench.py")
 
 
 def test_port_imports_no_jax():
@@ -171,3 +179,10 @@ def test_port_imports_no_jax():
     assert files
     for path in files:
         assert not forbidden.search(path.read_text()), path
+    # the entry points also import nothing of bench.py or __graft_entry__
+    outside = re.compile(r"^\s*(import|from)\s+(bench|__graft_entry__)\b",
+                         re.M)
+    for path in ENTRY_POINTS:
+        text = path.read_text()
+        assert not forbidden.search(text), path
+        assert not outside.search(text), path

@@ -317,6 +317,22 @@ def job_checkpoint_other_world(group, path):
     return {"message": np.asarray("")}
 
 
+def job_pod_bench(group, ntraj_per_chip=32, nt=10, propagator="HK"):
+    """scripts/torch_pod_bench.py's run on this rank: its line (JSON) and
+    curves; the batch is ntraj_per_chip times the group's size."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts"
+    spec = importlib.util.spec_from_file_location(
+        "torch_pod_bench", path / "torch_pod_bench.py")
+    pod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pod)
+    line, (c, k) = pod.run(group, "cpu", propagator, ntraj_per_chip, nt)
+    return {"c": c, "k": k, "nchips": np.asarray(line["nchips"]),
+            "ntraj": np.asarray(line["ntraj"]),
+            "line": np.asarray(json.dumps(line))}
+
+
 JOBS = {name[len("job_"):]: fn for name, fn in globals().items()
         if name.startswith("job_")}
 
