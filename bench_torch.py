@@ -7,6 +7,7 @@ one process, on one NVIDIA GPU.
     python3 bench_torch.py                  # on the card, full size
     python3 bench_torch.py --device cpu     # on the CPU, bench.py's CPU sizes
     python3 bench_torch.py --trace 10       # + 10 steps under torch.profiler
+    python3 bench_torch.py --eager          # every step launched from the host
 
 It prints one JSON line per bench in the order wm, gdml, hk (the headline
 prints last, for last-line parsers), each
@@ -14,7 +15,8 @@ prints last, for last-line parsers), each
     {"metric": "<name>_traj_steps_per_sec_per_chip", "value": N,
      "unit": "traj-steps/s/chip", "config": {...}, "phases": {...},
      "device": "<card name>, <power limit>", "peak_gb": x,
-     "launches": {"K1": n, ..., "K5": n}, "launches_by_dtype": {...}}
+     "launches": {"K1": n, ..., "K5": n}, "launches_by_dtype": {...},
+     "loop": "graph" | "eager", "graph": {...}}
 
 1. `hk_as60` — Herman-Kluk on the 60-mode anharmonic AS model (the JAX
    package's flagship, `__graft_entry__.py`'s model), comp32 trajectories
@@ -35,7 +37,14 @@ each phase end): `sample` (model, potential, propagator, draw), `warmup`
 batch drawn again from a generator at the same seed), `scan` (the timed
 `nt` steps) and `reduce` (C(t) and k~ic(t) checked finite). `launches`
 counts the kernel launches of the scan phase (`ops.*.LAUNCHES`), `peak_gb`
-is `torch.cuda.max_memory_allocated` over the bench.
+is `torch.cuda.max_memory_allocated` over the bench. On the card the scan
+runs as the port runs it, in blocks of steps captured as CUDA graphs and
+replayed (`propagation.graph`; the batch drawn anew drops the warm-up's
+graphs, so the scan's first blocks run eagerly and capture): "graph" counts
+the scan's replays, captures (with their capture plus instantiate
+seconds) and eager blocks. `--eager` runs every bench under
+`graph.eager()`, every launch of every step from the host ("loop":
+"eager").
 
 Environment, as bench.py reads it: BENCH_ONLY (hk | wm | gdml), BENCH_DTYPE
 (hk: comp32 | mixed | float32 | float64), BENCH_NTRAJ, BENCH_NT,
@@ -53,6 +62,7 @@ and the script exits 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -255,10 +265,15 @@ def gdml_setup(ntraj, device, normals=None, hess_dtype="float32",
 def trace_steps(prop, pot, dt, steps, energy0_es):
     """{busy share, kernels per step, device ms per step} of `steps` more
     steps under torch.profiler: the kernels' summed durations over the
-    traced wall."""
+    traced wall. Two untraced runs of `steps` steps come first (the first
+    block of a length runs eagerly, the second captures it), so the traced
+    steps replay."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):
+        prop.propagate(pot, dt, steps, energy0_es=energy0_es,
+                       check_energy=False)
     torch.cuda.synchronize(prop.device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -279,29 +294,36 @@ def trace_steps(prop, pot, dt, steps, energy0_es):
 def timed_run(timer, prop, pot, redraw, dt, nt, energy0_es, micro=None,
               trace=0):
     """The warm-up, the timed scan and the reduce of one bench on `timer`:
-    (C(t), k~ic(t), launches per kernel, launches by dtype, trace or
-    None). `redraw()` draws the batch anew from its seed after the
-    warm-up, so the scan starts from a fresh draw."""
+    (C(t), k~ic(t), launches per kernel, launches by dtype, trace or None,
+    the scan's loop counters). `redraw()` draws the batch anew from its
+    seed after the warm-up, so the scan starts from a fresh draw."""
+    from semiclassical_tpu_torch.propagation import graph
+
     with timer.phase("warmup"):
         prop.propagate(pot, dt, min(WARMUP_STEPS, nt), energy0_es=energy0_es,
                        check_energy=False, micro_batch=micro)
         redraw()
     before = launch_counts()
+    loop = dict(graph.STATS)
     with timer.phase("scan"):
         cauto, kic = prop.propagate(pot, dt, nt, energy0_es=energy0_es,
                                     check_energy=False, micro_batch=micro)
     totals, by_dtype = launches_between(before, launch_counts())
+    loop = {k: graph.STATS[k] - loop[k] for k in loop}
+    loop["capture_s"] = round(loop["capture_s"], 3)
     with timer.phase("reduce"):
         if not (np.isfinite(cauto).all() and np.isfinite(kic).all()):
             raise FloatingPointError("C(t) or k~ic(t) is not finite")
     traced = None
     if trace and prop.device.type == "cuda":
         traced = trace_steps(prop, pot, dt, trace, energy0_es)
-    return cauto, kic, totals, by_dtype, traced
+    return cauto, kic, totals, by_dtype, traced, loop
 
 
 def _line(metric, timer, ntraj, nt, config, device, launches, by_dtype,
-          traced):
+          traced, loop):
+    from semiclassical_tpu_torch.propagation import graph
+
     value = timer.throughput(ntraj * nt)
     line = {"metric": metric, "value": round(value, 1),
             "unit": "traj-steps/s/chip", "config": config,
@@ -309,7 +331,9 @@ def _line(metric, timer, ntraj, nt, config, device, launches, by_dtype,
             "device": device_line(device),
             "peak_gb": (round(torch.cuda.max_memory_allocated(device) / 1e9,
                               3) if device.type == "cuda" else None),
-            "launches": launches, "launches_by_dtype": by_dtype}
+            "launches": launches, "launches_by_dtype": by_dtype,
+            "loop": "graph" if graph.captures(device) else "eager",
+            "graph": loop}
     if traced is not None:
         line["trace"] = traced
     return line
@@ -340,7 +364,7 @@ def bench_hk(device, trace=0):
     with timer.phase("sample"):
         prop, pot = as60_setup(ntraj, device, "HK", dtype, traj_dtype)
     omega, _, _, _, dQ = as60_model()
-    cauto, kic, launches, by_dtype, traced = timed_run(
+    cauto, kic, launches, by_dtype, traced, loop = timed_run(
         timer, prop, pot,
         lambda: draw(prop, pot, dQ, np.diag(omega), ntraj),
         AS60_DT, nt, 0.0, trace=trace)
@@ -348,7 +372,7 @@ def bench_hk(device, trace=0):
         "ntraj": ntraj, "nt": nt, "dim": AS60_DIM, "dtype": dtype_name,
         "device": str(device), "wall_s": round(timer.phases["scan"], 3),
         "warmup_s": round(timer.phases["warmup"], 1)},
-        device, launches, by_dtype, traced)
+        device, launches, by_dtype, traced, loop)
     return BenchResult(line, (cauto, kic), prop, pot)
 
 
@@ -367,7 +391,7 @@ def bench_wm(device, trace=0):
         prop, pot = as60_setup(ntraj, device, "WM", dtype, traj_dtype)
     omega, _, _, _, dQ = as60_model()
     en0 = float(np.sum(0.5 * omega))
-    cauto, kic, launches, by_dtype, traced = timed_run(
+    cauto, kic, launches, by_dtype, traced, loop = timed_run(
         timer, prop, pot,
         lambda: draw(prop, pot, dQ, np.diag(omega), ntraj),
         AS60_DT, nt, en0, micro, trace)
@@ -375,7 +399,7 @@ def bench_wm(device, trace=0):
         "ntraj": ntraj, "nt": nt, "dim": AS60_DIM,
         "dtype": "comp32" if card else "float64", "micro_batch": micro,
         "device": str(device), "wall_s": round(timer.phases["scan"], 3)},
-        device, launches, by_dtype, traced)
+        device, launches, by_dtype, traced, loop)
     return BenchResult(line, (cauto, kic), prop, pot)
 
 
@@ -390,7 +414,7 @@ def bench_gdml(device, trace=0):
     timer = _start(device)
     with timer.phase("sample"):
         prop, pot, x0, Gamma0, data = gdml_setup(ntraj, device)
-    cauto, kic, launches, by_dtype, traced = timed_run(
+    cauto, kic, launches, by_dtype, traced, loop = timed_run(
         timer, prop, pot, lambda: draw(prop, pot, x0, Gamma0, ntraj),
         GDML_DT, nt, 0.0, micro, trace)
     line = _line("gdml_coumarin_traj_steps_per_sec_per_chip", timer, ntraj,
@@ -402,7 +426,7 @@ def bench_gdml(device, trace=0):
                      "device": str(device),
                      "wall_s": round(timer.phases["scan"], 3),
                      "fixtures": os.path.relpath(data, REPO)},
-                 device, launches, by_dtype, traced)
+                 device, launches, by_dtype, traced, loop)
     return BenchResult(line, (cauto, kic), prop, pot)
 
 
@@ -447,10 +471,16 @@ def main(argv=None):
                     help="after each scan, trace STEPS more steps under "
                          "torch.profiler (on the card) and add their busy "
                          "share, kernels and device ms a step to the line")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every bench under graph.eager(): every launch "
+                         "of every step from the host, no CUDA graph")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    results = run_benches(device, os.environ.get("BENCH_ONLY", ""),
-                          args.trace)
+    from semiclassical_tpu_torch.propagation import graph
+
+    with graph.eager() if args.eager else contextlib.nullcontext():
+        results = run_benches(device, os.environ.get("BENCH_ONLY", ""),
+                              args.trace)
     for name in PRINT_ORDER:
         if name in results:
             r = results[name]

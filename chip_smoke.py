@@ -265,8 +265,10 @@ B. the flagship benches of `bench_torch.py` (the JAX package's bench.py
              and > 0, ntraj and nt as asked, |C(0) - 1| < 1e-3 on each
              curve, K5 launched at (524,288, 60) float32 on every WM step
              and never at float64, K4 at (32,768, 45, 45) complex64 on
-             every coumarin step and never at complex128 (the shapes
-             recorded by wrapping the two wrappers); the three JSON lines
+             every coumarin step and never at complex128 (the scan's
+             launches counted with the graphs' replays; every call of the
+             two wrappers, recorded by wrapping them, at that shape); the
+             three JSON lines
              printed in bench.py's order; then the first 98,304 rows of the
              HK draw 200 steps at f64 and at comp32, within comp32's 6e-4 /
              1.5e-3; K5 on the WM bench's own planes and K4 at (32,768, 45,
@@ -275,6 +277,23 @@ B. the flagship benches of `bench_torch.py` (the JAX package's bench.py
    pod bench — `scripts/torch_pod_bench.py` HK as a subprocess under a
              one-rank NCCL group at 131,072 x 100: its line (nchips 1,
              ntraj, nt, rates > 0, the card's name);
+C. the compiled time loop (`propagation.graph`): every phase above runs
+   the port's loop as it runs by default on the card, each scan segment as
+   replays of captured CUDA graphs, and its launch checks count the
+   replays' launches; then
+   graph   — the first batch of each path in memory, drawn twice at the
+             same seed, one run through the graphs and one under
+             `graph.eager()` (every launch from the host): HK / WM
+             methylium 10,000 x 500 (f64; HK exact; WM comp32), HK / WM AS
+             98,304 x 100 (f64 with and without error bars; WM exact; HK
+             exact comp32; HK and WM comp32), HK AS `hessian_eval` taylor
+             every 8 x 96, WM AS `micro_batch` 8192 x 40, HK / WM coumarin
+             2048 x 96 (taylor every 8), in segments of 100: C(t) and
+             k~ic(t) of the two within GRAPH_GATE (1e-13) of the eager
+             run's largest modulus (the difference printed), the launches
+             of every kernel by dtype equal, the graphs replayed, and each
+             run's ms a step (its whole `propagate`: the graph run's eager
+             first blocks and captures included, their seconds printed);
 12. the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -282,6 +301,7 @@ TF32 stays off: the script fails if float32 matmuls would run in TF32
 (checked at the start and again before the precision phases).
 """
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -2217,11 +2237,15 @@ def check_tf32():
 def trace_busy(prop, potential, dt, steps):
     """(busy share, kernels per step, device ms per step) of `steps` steps
     of `prop` under torch.profiler: the kernels' summed durations over the
-    traced wall."""
+    traced wall. Two untraced runs of `steps` steps come first: the first
+    block of a length runs eagerly and the second captures it, so the
+    traced steps are replays."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):
+        prop._run(potential, dt, steps)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2575,6 +2599,125 @@ def wm_norm_mixed_phase(cli, ops, smi, norm_shape):
 
 # the bench phase: bench_torch's defaults on the card, the rows of the HK
 # draw held at f64 beside comp32, and the pod bench's size
+GRAPH_GATE = 1e-13
+# the graph phase's paths: (label, example, file, propagator, precision,
+# steps, keys of the dynamics task, keys of its potential); `error_bars`
+# and `micro_batch` go to `propagate`
+GRAPH_PATHS = [
+    ("HK methylium", "methylium", "semi.json", "HK", "f64", 500, {}, {}),
+    ("WM methylium", "methylium", "semi.json", "WM", "f64", 500, {}, {}),
+    ("HK methylium exact", "methylium", "semi.json", "HK", "f64", 500,
+     {"integrator": "exact"}, {}),
+    ("WM methylium comp32", "methylium", "semi.json", "WM", "comp32", 500,
+     {}, {}),
+    ("HK AS error bars", "as", "semi.json", "HK", "f64", 100,
+     {"error_bars": True}, {}),
+    ("WM AS", "as", "semi_wm.json", "WM", "f64", 100, {}, {}),
+    ("WM AS exact", "as", "semi_wm.json", "WM", "f64", 100,
+     {"integrator": "exact"}, {}),
+    ("HK AS comp32", "as", "semi.json", "HK", "comp32", 100, {}, {}),
+    ("WM AS comp32", "as", "semi_wm.json", "WM", "comp32", 100, {}, {}),
+    ("HK AS exact comp32", "as", "semi.json", "HK", "comp32", 100,
+     {"integrator": "exact"}, {}),
+    ("HK AS taylor", "as", "semi.json", "HK", "f64", 96, {},
+     {"hessian_eval": "taylor", "taylor_every": 8}),
+    ("WM AS micro_batch 8192", "as", "semi_wm.json", "WM", "f64", 40,
+     {"micro_batch": 8192}, {}),
+    ("HK coumarin", "coumarin", "semi.json", "HK", "f64", 96, {}, {}),
+    ("WM coumarin", "coumarin", "semi_wm.json", "WM", "f64", 96, {}, {}),
+]
+
+
+def graph_task(example, file, model, potential_keys):
+    """The dynamics task of examples/`example`/`file` with its paths made
+    absolute (the AS model at `model`), `potential_keys` set on its
+    potential."""
+    if example == "as":
+        config = as_config(file, model, potential_keys)
+    elif example == "coumarin":
+        config = coumarin_task(file)
+    else:
+        with open(EXAMPLE.parent / file) as f:
+            config = json.load(f)
+    task = next(t for t in config["semi"] if t["task"] == "dynamics")
+    for key in ("ground", "excited", "coupling"):
+        if key in task["potential"] and example == "methylium":
+            task["potential"][key] = str(
+                (EXAMPLE.parent / task["potential"][key]).resolve())
+    task["potential"].update(potential_keys)
+    return task
+
+
+def graph_path(cli, ops, smi, model, label, example, file, name, precision,
+               nsteps, keys, potential_keys):
+    """One path of the graph phase: its first batch drawn twice at seed
+    SEED, run through the graphs and under `graph.eager()`; returns the
+    two runs' largest relative differences of C(t) and k~ic(t)."""
+    import numpy as np
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.propagation import (
+        HermanKlukPropagator, WaltonManolopoulosPropagator, graph)
+
+    keys = dict(keys)
+    run_keys = {k: keys.pop(k) for k in ("error_bars", "micro_batch")
+                if k in keys}
+    task = dict(graph_task(example, file, model, potential_keys), **keys)
+    cls, args = ((WaltonManolopoulosPropagator, (CELL_WIDTH, CELL_WIDTH))
+                 if name == "WM" else (HermanKlukPropagator, ()))
+    dt = task["time_step_fs"] / units.autime_to_fs
+    runs = {}
+    for mode in ("graph", "eager"):
+        prop, potential = first_batch(cli, task, cls, *args,
+                                      precision=precision,
+                                      with_potential=True)
+        reset_counts(ops)
+        stats = dict(graph.STATS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with graph.eager() if mode == "eager" else contextlib.nullcontext():
+            out = prop.propagate(potential, dt, nsteps, chunk=100,
+                                 **run_keys)
+        torch.cuda.synchronize()
+        runs[mode] = dict(
+            out=out, ms=1e3 * (time.perf_counter() - t0) / nsteps,
+            launches=read_counts_by_dtype(ops), ntraj=prop.ntraj,
+            stats={k: graph.STATS[k] - stats[k] for k in stats})
+        del prop
+        torch.cuda.empty_cache()
+    got, ref = runs["graph"], runs["eager"]
+    errs = [float(np.abs(g - r).max() / np.abs(r).max())
+            for g, r in zip(got["out"][:2], ref["out"][:2])]
+    st = got["stats"]
+    print(f"graph {label} {got['ntraj']} x {nsteps} at {precision}: max |C "
+          f"- C_eager| / max |C_eager| {errs[0]:.3e}, k~ic {errs[1]:.3e} "
+          f"(gate {GRAPH_GATE:g}); graph {got['ms']:.4f} ms a step "
+          f"({st['replays']} replays, {st['captures']} captures in "
+          f"{st['capture_s']:.3f} s, {st['eager_blocks']} eager blocks), "
+          f"eager {ref['ms']:.4f} ms a step ({ref['stats']['eager_blocks']} "
+          f"blocks); launches {json.dumps(got['launches'])} [{smi}]",
+          flush=True)
+    check(all(e <= GRAPH_GATE for e in errs),
+          f"graph {label}: graph vs eager {errs} > {GRAPH_GATE}")
+    check(got["launches"] == ref["launches"],
+          f"graph {label}: launches {got['launches']} under graphs, "
+          f"{ref['launches']} eager")
+    check(st["replays"] > 0 and ref["stats"]["replays"] == 0,
+          f"graph {label}: replays {st['replays']} under graphs, "
+          f"{ref['stats']['replays']} eager")
+    return errs
+
+
+def graph_phase(cli, ops, smi, model):
+    """Every path of GRAPH_PATHS through the graphs and eagerly."""
+    worst = max(max(graph_path(cli, ops, smi, model, *path))
+                for path in GRAPH_PATHS)
+    print(f"graph: {len(GRAPH_PATHS)} paths, graph vs eager at most "
+          f"{worst:.3e} of the largest modulus (gate {GRAPH_GATE:g})",
+          flush=True)
+
+
 BENCH_DEFAULTS = {"hk": (1048576, 500), "wm": (524288, 500),
                   "gdml": (32768, 100)}
 BENCH_C0_GATE = 1e-3
@@ -2584,8 +2727,9 @@ POD_NTRAJ, POD_NT = 131072, 100
 
 def recording(module, name, key, shapes):
     """Wrap `module.name` (a kernel's wrapper) so that each call on CUDA
-    tensors adds one to shapes[(key, shape of its first argument, dtype)];
-    returns the restore function."""
+    tensors adds one to shapes[(key, shape of its first argument, dtype)]
+    (a block's calls in its eager run and its capture; its replays call no
+    wrapper); returns the restore function."""
     fn = getattr(module, name)
 
     def wrapper(*args):
@@ -2759,24 +2903,30 @@ def bench_phase(ops, smi):
     nt_wm, nt_gdml = BENCH_DEFAULTS["wm"][1], BENCH_DEFAULTS["gdml"][1]
     n_wm, n_gdml = BENCH_DEFAULTS["wm"][0], BENCH_DEFAULTS["gdml"][0]
     micro = lines["gdml"]["config"]["micro_batch"] or n_gdml
-    k5_rows = shapes[("K5", (n_wm, 60), "float32")]
-    k4_rows = shapes[("K4", (micro, 45, 45), "complex64")]
+    # the wrappers run in the eager blocks and the captures; a replay
+    # launches what its capture recorded, so every launch of a kernel was
+    # at a shape its wrapper saw
+    k5_shape, k4_shape = (("K5", (n_wm, 60), "float32"),
+                          ("K4", (micro, 45, 45), "complex64"))
+    seen = lambda kernel: {k for k in shapes if k[0] == kernel}
     print(f"bench launches in the phase: {json.dumps(counts)}; by dtype "
           f"{json.dumps(by_dtype)}; by shape "
           f"{json.dumps({str(k): v for k, v in shapes.items()})}",
           flush=True)
     scan_launches = lambda name, k, t: (
         lines[name]["launches_by_dtype"].get(k, {}).get(t, 0))
-    check(scan_launches("wm", "K5", "float32") >= nt_wm
-          and k5_rows >= nt_wm and by_dtype["K5"]["float64"] == 0,
-          f"bench wm: K5 {k5_rows} times at ({n_wm}, 60) float32 for "
-          f"{nt_wm} steps, float64 {by_dtype['K5']['float64']}")
+    k5_scan = scan_launches("wm", "K5", "float32")
+    check(k5_scan >= nt_wm and seen("K5") == {k5_shape}
+          and by_dtype["K5"]["float64"] == 0,
+          f"bench wm: K5 {k5_scan} times in the scan for {nt_wm} steps, at "
+          f"the shapes {seen('K5')}, float64 {by_dtype['K5']['float64']}")
     subs = n_gdml // micro
-    check(scan_launches("gdml", "K4", "complex64") >= subs * nt_gdml
-          and k4_rows >= subs * nt_gdml
+    k4_scan = scan_launches("gdml", "K4", "complex64")
+    check(k4_scan >= subs * nt_gdml and seen("K4") == {k4_shape}
           and by_dtype["K4"]["complex128"] == 0,
-          f"bench gdml: K4 {k4_rows} times at ({micro}, 45, 45) complex64 "
-          f"for {nt_gdml} steps, complex128 {by_dtype['K4']['complex128']}")
+          f"bench gdml: K4 {k4_scan} times in the scan for {nt_gdml} steps, "
+          f"at the shapes {seen('K4')}, complex128 "
+          f"{by_dtype['K4']['complex128']}")
     del results
     torch.cuda.empty_cache()
     bench_f64_rows(bench_torch)
@@ -2938,6 +3088,8 @@ def main():
     check(wm_c_launches["K3"] >= 2 * wm_c["nrep"],
           f"WM coumarin: K3 launched {wm_c_launches['K3']} times for "
           f"{wm_c['nrep']} batches")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("graph", graph_phase, cli, ops, smi, write_as_model(tmp))
     phase("bench", bench_phase, ops, smi)
     phase("pod bench", pod_bench_phase, smi)
     print(f"chip_smoke: all phases passed in "

@@ -44,18 +44,36 @@ counts their routed rows). With `--hessian-eval step|taylor` (and
 potential's reduced-cost Hessian at f64 (keys "HK taylor every 8", "WM
 step", ..., the windows in turns with the "stage" ones; the taylor window
 restarts at the head of every timed or traced run, so make `--window` and
-`--steps` multiples of N).
+`--steps` multiples of N). With `--micro-batch N` a WM propagator also runs
+with `micro_batch` N (key "WM micro_batch N").
+
+Every run goes through the time loop as the port runs it: on the card its
+blocks are captured CUDA graphs (`propagation.graph`), replayed. With
+`--eager` each run also runs under `graph.eager()` on a copy of the same
+batch (keys "<run> eager"), timed in turns with its graph run (graph,
+eager, eager, graph), and "graph_vs_eager" gives the largest difference of
+their states (q and S, each of its own largest modulus) after the same
+steps. Each run's entry has "replays_per_step", "eager_blocks",
+"captures" and "capture_s" (capture plus instantiate, host clock) of its
+traced steps and its first two blocks, and "peak_gb": the memory the
+first two blocks (the eager warm-up, the capture and the first replay)
+allocated above what was allocated before them. `--blocks 5,10,20,...`
+times the graph runs of the first propagator at each block length B (key
+"block_sweep": ms per step and capture seconds per B).
 
 Prints one JSON object, and writes it to `--out` if given.
 
     python scripts/torch_step_profile.py [--example as|coumarin|methylium]
-        [--ntraj N] [--steps 48] [--window 200] [--error-bars]
+        [--ntraj N] [--steps 40] [--window 200] [--error-bars]
         [--integrator rk4|exact] [--precision mixed|comp32|f32]
         [--hessian-eval step|taylor] [--taylor-every N]
+        [--micro-batch N] [--eager] [--blocks B1,B2,...]
         [--out profile.json]
 """
 
 import argparse
+import contextlib
+import copy
 import dataclasses
 import json
 import pathlib
@@ -92,25 +110,62 @@ def _propagator(name, G, q0, potential, ntraj, seed, integrator="rk4",
     return prop
 
 
-def _window_ms(prop, potential, dt, steps, m2_mode=False):
+def _mode(eager):
+    from semiclassical_tpu_torch.propagation import graph
+
+    return graph.eager() if eager else contextlib.nullcontext()
+
+
+def _window_ms(prop, potential, dt, steps, m2_mode=False, eager=False):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prop._run(potential, dt, steps, m2_mode=m2_mode)
+    with _mode(eager):
+        prop._run(potential, dt, steps, m2_mode=m2_mode)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
-def _trace(prop, potential, dt, steps, m2_mode=False):
+def _stats_delta(before):
+    from semiclassical_tpu_torch.propagation import graph
+
+    return {k: graph.STATS[k] - before[k] for k in before}
+
+
+def _first_blocks(prop, potential, dt, m2_mode=False, eager=False):
+    """Two blocks of the loop from the propagator's current state (the
+    eager warm-up, then the capture and its first replay): the loop's
+    counters and the memory allocated above what was allocated before."""
+    from semiclassical_tpu_torch.propagation import graph
+
+    every = int(getattr(potential, "taylor_every", 1) or 1)
+    block = graph.block_lengths(graph.BLOCK_STEPS * every, every)[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(graph.STATS)
+    with _mode(eager):
+        prop._run(potential, dt, 2 * block, m2_mode=m2_mode)
+    torch.cuda.synchronize()
+    out = _stats_delta(before)
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return out
+
+
+def _trace(prop, potential, dt, steps, m2_mode=False, eager=False):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from semiclassical_tpu_torch.propagation import graph
+
     torch.cuda.synchronize()
+    before = dict(graph.STATS)
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, _mode(eager):
         t0 = time.perf_counter()
         prop._run(potential, dt, steps, m2_mode=m2_mode)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    loop = _stats_delta(before)
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
@@ -126,7 +181,20 @@ def _trace(prop, potential, dt, steps, m2_mode=False):
         "busy_share_traced": busy_us / 1e6 / wall if kernels else None,
         "top_kernels_ms_per_step": [(name[:90], us / 1e3 / steps)
                                     for name, us in top],
+        "replays_per_step": loop["replays"] / steps,
+        "traced_loop": loop,
     }
+
+
+def _graph_vs_eager(prop, twin):
+    """The largest differences of two propagators' q and S, each of the
+    reference's largest modulus."""
+    out = {}
+    for name in ("q", "S"):
+        a = getattr(prop.state, name).double()
+        b = getattr(twin.state, name).double()
+        out[name] = float((a - b).abs().max() / b.abs().max())
+    return out
 
 
 def _as_potential(cli):
@@ -161,7 +229,7 @@ def main(argv=None):
     parser.add_argument("--example", choices=("as", "coumarin", "methylium"),
                         default="as")
     parser.add_argument("--ntraj", type=int, default=None)
-    parser.add_argument("--steps", type=int, default=48)
+    parser.add_argument("--steps", type=int, default=40)
     parser.add_argument("--window", type=int, default=200)
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--error-bars", action="store_true")
@@ -172,6 +240,9 @@ def main(argv=None):
     parser.add_argument("--hessian-eval", choices=("step", "taylor"),
                         default=None)
     parser.add_argument("--taylor-every", type=int, default=1)
+    parser.add_argument("--micro-batch", type=int, default=0)
+    parser.add_argument("--eager", action="store_true")
+    parser.add_argument("--blocks", default="")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     if args.integrator == "exact" and args.example == "coumarin":
@@ -189,6 +260,7 @@ def main(argv=None):
         return 1
     from semiclassical_tpu_torch import cli, units
     from semiclassical_tpu_torch.ops import det, det_block, gj, wm_diag
+    from semiclassical_tpu_torch.propagation import graph
 
     if args.ntraj is None:
         args.ntraj = {"as": 98304, "coumarin": 2048,
@@ -210,8 +282,14 @@ def main(argv=None):
     # (label, propagator, second moments of the error bars)
     runs = [(name, name, False) for name in props]
     if args.error_bars:
-        runs = [run for name in props for run in
-                ((name, name, False), (f"{name} error_bars", name, True))]
+        # a twin propagator each: a loop's graphs belong to one error-bar
+        # mode
+        for name in ("HK", "WM"):
+            props[f"{name} error_bars"] = copy.deepcopy(props[name])
+            potentials[f"{name} error_bars"] = potential
+        runs = [run for name in ("HK", "WM") for run in
+                ((name, name, False),
+                 (f"{name} error_bars", f"{name} error_bars", True))]
     if args.integrator == "exact":
         for name in ("HK", "WM"):
             props[f"{name} exact"] = _propagator(name, G, q0, potential,
@@ -242,15 +320,32 @@ def main(argv=None):
                                        args.seed)
             potentials[label] = reduced
             runs.append((label, label, False))
-    for name, prop in props.items():
-        prop._run(potentials[name], dt, 20)           # warm-up
-    windows = {label: [] for label, _, _ in runs}
-    for label, name, m2 in runs + runs[::-1]:
-        windows[label].append(_window_ms(props[name], potentials[name], dt,
-                                         args.window, m2))
+    if args.micro_batch:
+        label = f"WM micro_batch {args.micro_batch}"
+        props[label] = _propagator("WM", G, q0, potential, args.ntraj,
+                                   args.seed)
+        props[label].micro_batch = args.micro_batch
+        potentials[label] = potential
+        runs.append((label, label, False))
+    # (label, propagator, second moments, eager)
+    runs = [(*run, False) for run in runs]
+    if args.eager:
+        for label, name, m2, _ in list(runs):
+            props[f"{name} eager"] = copy.deepcopy(props[name])
+            potentials[f"{name} eager"] = potentials[name]
+            runs.insert(runs.index((label, name, m2, False)) + 1,
+                        (f"{label} eager", f"{name} eager", m2, True))
     result = {"device": smi, "example": args.example,
               "ntraj": args.ntraj, "dim": int(q0.shape[0]),
-              "window_steps": args.window, "traced_steps": args.steps}
+              "window_steps": args.window, "traced_steps": args.steps,
+              "block_steps": graph.BLOCK_STEPS}
+    first = {label: _first_blocks(props[name], potentials[name], dt, m2,
+                                  eager)
+             for label, name, m2, eager in runs}
+    windows = {label: [] for label, *_ in runs}
+    for label, name, m2, eager in runs + runs[::-1]:
+        windows[label].append(_window_ms(props[name], potentials[name], dt,
+                                         args.window, m2, eager))
 
     def counts():
         by_dtype = {"K1": det.LAUNCHES_BY_DTYPE,
@@ -261,9 +356,10 @@ def main(argv=None):
         return {f"{k} {dtype}": n for k, counts in by_dtype.items()
                 for dtype, n in counts.items()}
 
-    for label, name, m2 in runs:
+    for label, name, m2, eager in runs:
         before = counts()
-        trace = _trace(props[name], potentials[name], dt, args.steps, m2)
+        trace = _trace(props[name], potentials[name], dt, args.steps, m2,
+                       eager)
         after = counts()
         ms = windows[label]
         state = props[name].state
@@ -274,8 +370,26 @@ def main(argv=None):
             dtypes={k: str(getattr(state, k).dtype).removeprefix("torch.")
                     for k in ("q", "Z", "S")},
             launches_per_step={k: (after[k] - before[k]) / args.steps
-                               for k in after if after[k] > before[k]})
+                               for k in after if after[k] > before[k]},
+            first_blocks=first[label])
         result[label] = trace
+    for label, name, _, eager in runs:
+        if eager:
+            result[label]["graph_vs_eager"] = _graph_vs_eager(
+                props[name.removesuffix(" eager")], props[name])
+    if args.blocks:
+        label, name, m2, _ = runs[0]
+        sweep = {}
+        for block in (int(b) for b in args.blocks.split(",")):
+            graph.BLOCK_STEPS = block
+            before = dict(graph.STATS)
+            props[name]._run(potentials[name], dt, 2 * block, m2_mode=m2)
+            steps = block * max(1, args.window // block)
+            ms = [_window_ms(props[name], potentials[name], dt, steps, m2)
+                  for _ in range(2)]
+            sweep[block] = dict(ms_per_step_windows=ms,
+                                **_stats_delta(before))
+        result["block_sweep"] = {"run": label, **sweep}
     for label, key in (("HK exact", "exact_rk4_routed"),
                        (f"HK exact {args.precision}",
                         f"exact_rk4_routed_{args.precision}")):

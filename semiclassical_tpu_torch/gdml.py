@@ -34,6 +34,8 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["GDMLParams", "gdml_forward"]
 
+_NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
+
 
 @dataclass(frozen=True)
 class GDMLParams:
@@ -178,7 +180,7 @@ def gdml_forward(params: GDMLParams, r: torch.Tensor, order: int = 2,
     AJ = torch.matmul(cast(A), jac)                            # (B, M, 3N)
     JJ = torch.matmul(jac.transpose(1, 2), jac)                # (B, 3N, 3N)
 
-    q_h = torch.tensor(q, dtype=ht, device=r.device)
+    q_h = float(_NP_FLOAT[ht](q))    # q rounded to ht, as a host scalar
     w1 = exp_fac_h * XA_h * (q_h / x_dists_h)
     hess = torch.matmul((w1[:, :, None] * XJ).transpose(1, 2), XJ)
     hess = hess - torch.sum(exp_fac_h * XA_h, dim=1)[:, None, None] * JJ

@@ -47,6 +47,7 @@ every scan segment, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -333,6 +334,16 @@ def _chain_step(state, inv_m, hs, dt):
     return torch.cat([acc_a + h6 * ka, acc_b + h6 * kb], dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _seeds(dtype, device):
+    """The seeds (1, 0) and (0, 1) of `_diag_step`, each (2, 1, 1), made
+    once per dtype and device (by the first step, which the time loop
+    runs eagerly): a step makes no tensor from host values, so a captured
+    step holds no host-to-device copy."""
+    eye = torch.eye(2, dtype=dtype, device=device)
+    return eye[:, 0].view(2, 1, 1), eye[:, 1].view(2, 1, 1)
+
+
 def _diag_step(Z, inv_m, hs, dt):
     """The RK4 step of the diagonal monodromy planes Z (4, n, d) under the
     stage Hessian diagonals `hs` (four (n, d) tensors): the per-mode 2x2
@@ -341,8 +352,7 @@ def _diag_step(Z, inv_m, hs, dt):
     (Mqq, Mpq) and (Mqp, Mpp). Everything runs at Z's dtype."""
     u = inv_m[None, None, :]
     h6, h3, h2, dt = _rk4_weights(dt, Z.dtype)
-    a = torch.tensor([1.0, 0.0], dtype=Z.dtype, device=Z.device).view(2, 1, 1)
-    b = torch.tensor([0.0, 1.0], dtype=Z.dtype, device=Z.device).view(2, 1, 1)
+    a, b = _seeds(Z.dtype, Z.device)
     ka = u * b
     kb = -hs[0] * a
     acc_a = a + h6 * ka

@@ -18,7 +18,8 @@ the RK4 stepper is replaced by a map with no time-discretization error:
 * the only evolving quantity is the phase th (n, d), advanced by the
   constant wE dt (reduced mod 2 pi at build time) through a Neumaier
   two-sum and wrapped to [-pi, pi] (`morse_map_advance`), plus the time
-  since the setup, kept as a float64 Python float;
+  since the setup, a float64 device scalar (so a captured step advances
+  it on the card);
 * q, p, the four diagonal monodromy planes and S are evaluated fresh from
   the constants at every step (`morse_map_state`); the monodromy factorises
   as M(t) = Jhat(th) . shear(t) . Jhat(th0)^{-1} and is composed with the
@@ -134,7 +135,7 @@ class MorseMapCarry:
 
     th: torch.Tensor      # (n, d) work dtype
     thc: torch.Tensor     # (n, d) work dtype
-    t_rel: float
+    t_rel: torch.Tensor   # () float64
     sub: TrajState | None = None
 
 
@@ -285,7 +286,9 @@ def build_morse_map(state: TrajState, potential, dt, group=None):
         e_bound_sum=torch.sum(torch.where(bad_row, 0.0, e_row)),
         m0=Z if n_moved else None, sub_idx=sub_idx, mono_dtype=Z.dtype,
         compensated=state.compensated)
-    return pack, MorseMapCarry(th=th_hi, thc=th_lo, t_rel=0.0, sub=sub)
+    return pack, MorseMapCarry(
+        th=th_hi, thc=th_lo,
+        t_rel=torch.zeros((), dtype=f64, device=th_hi.device), sub=sub)
 
 
 def morse_map_state(pack: MorseMapPack, carry: MorseMapCarry) -> TrajState:
@@ -309,7 +312,7 @@ def morse_map_state(pack: MorseMapPack, carry: MorseMapCarry) -> TrajState:
     j22 = sn * (pack.c22a * r + pack.c22b * cs * r2)
     # shear entry b = eps wpE t: a two-product of the (hi, lo) rate and the
     # float64 time split at the work dtype
-    t_hi, t_lo = _split_float(carry.t_rel, th.dtype)
+    t_hi, t_lo = _split_hi_lo(carry.t_rel, th.dtype)
     b = pack.bco_hi * t_hi + (pack.bco_hi * t_lo + pack.bco_lo * t_hi)
     m11 = pack.j011 + b * pack.j021
     m12 = pack.j012 + b * pack.j022

@@ -1,0 +1,329 @@
+# coding: utf-8
+"""The compiled time loop: each scan segment as replays of CUDA graphs.
+
+The counterpart of the JAX package's `_hk_scan_jit` / `_wm_scan_jit` /
+`_hk_scan_micro_jit`, which make a scan segment (and every sub-batch of a
+micro-batched one) ONE dispatch. The port keeps the step code eager and
+records it instead: a *block* of B steps (the observables, the sign
+trackers, the RK4 step or the exact map, and the kernels K1, K2, K4 and K5
+they launch) is captured once as a `torch.cuda.CUDAGraph` and replayed for
+every later block of the same length, so the host issues one replay where
+the eager loop issued every launch of every step.
+
+* **Static buffers.** The state, the trackers and the integrator's carry
+  of the whole batch live in buffers allocated once (`SegmentGraph.static`);
+  a block reads them and ends by copying its results back into them, and
+  writes each step's observables into static slots of its own, which the
+  caller copies into their columns after the block. Sub-batches of
+  `micro_batch` are blocks over views of the same buffers.
+* **Warm-up.** The first block of each (sub-batch, length) runs eagerly as
+  real work; the second captures that block and replays it. A capture
+  never runs the work itself, so the eager block computes every value
+  that the step code caches lazily (casts kept in a potential, the
+  kernel library's build) before any capture reads it.
+* **Memory and stream.** Every graph of the process on a device
+  allocates from one private pool (`torch.cuda.graph(pool=...)`) and is
+  captured on one side stream, where its warm-up block ran; the graphs
+  replay on the current stream, one after another, so they share one
+  step's temporaries: a sub-batch keeps what `micro_batch` is for.
+* **Capture mode.** Captures run in CUDA's "relaxed" mode: cuBLAS may
+  pick, for the addresses a capture allocates, a kernel whose module the
+  eager block did not need, and loading it (CUDA loads modules lazily) is
+  a call the default mode refuses inside a capture. On the H100 a long
+  process met that at a WM methylium capture, in cuBLAS; it passed in
+  relaxed mode and with eager module loading. A read of the host still
+  fails a capture (it synchronises the capturing stream), and the CPU
+  tests hold every block body free of them.
+* **Launch counts.** The kernel wrappers count launches on the host
+  (`ops.*.LAUNCHES`, `LAUNCHES_BY_DTYPE`), which a replay does not run. A
+  capture records each counter's change, takes it back (the capture ran
+  nothing), and every replay adds it.
+* **Eager.** On a CPU tensor, and on the card inside `eager()` (the
+  counterpart of `jax.disable_jit`), every block runs eagerly through the
+  same body. Nothing falls back: a failed capture or replay raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import sys
+import time
+
+import torch
+
+__all__ = ["BLOCK_STEPS", "STATS", "SegmentGraph", "eager", "captures",
+           "block_lengths", "read_launches", "add_launches", "clone_tree",
+           "copy_tree", "signature"]
+
+# The block length B away from a taylor_every window. Measured on an H100
+# at the most host-bound path, HK methylium at 10,000 trajectories
+# (`scripts/torch_step_profile.py --blocks`, PERF.md): B = 5, 10, 20 and 40
+# replay at 0.54, 0.53-0.54, 0.54 and 0.56 ms a step, and capture plus
+# instantiate in 0.03, 0.04, 0.12 and 0.23 s; 10 is as fast as any and
+# cheap to capture, and divides the CLI's default segments of 100 and 500
+# steps, so those segments have no tail.
+BLOCK_STEPS = 10
+
+# What the loops of this process did, for measurements (host counters,
+# like the kernels' LAUNCHES): blocks run eagerly (warm-ups, the CPU,
+# `eager()`), graphs captured, their capture plus instantiate seconds
+# (host clock), and replays.
+STATS = {"eager_blocks": 0, "captures": 0, "capture_s": 0.0, "replays": 0}
+
+_EAGER_DEPTH = 0
+_SIDE = {}      # device index -> (capture stream, graph memory pool)
+
+_COUNTER_MODULES = ("semiclassical_tpu_torch.ops.det",
+                    "semiclassical_tpu_torch.ops.det_block",
+                    "semiclassical_tpu_torch.ops.gj",
+                    "semiclassical_tpu_torch.ops.wm_diag")
+_COUNTERS = ("LAUNCHES", "LAUNCHES_BY_DTYPE")
+
+
+@contextlib.contextmanager
+def eager():
+    """Run the time loop's blocks eagerly on the card: every launch of
+    every step from the host, as PyTorch runs by default (the counterpart
+    of `jax.disable_jit`). For tests, comparisons and profiles."""
+    global _EAGER_DEPTH
+    _EAGER_DEPTH += 1
+    try:
+        yield
+    finally:
+        _EAGER_DEPTH -= 1
+
+
+def captures(device) -> bool:
+    """True where the loop captures its blocks: a CUDA device, outside
+    `eager()`."""
+    return torch.device(device).type == "cuda" and _EAGER_DEPTH == 0
+
+
+def block_lengths(steps, window=1):
+    """The block lengths of a segment of `steps` steps: blocks of B =
+    BLOCK_STEPS (under a taylor_every `window`, the least multiple of it
+    not below BLOCK_STEPS, so every block starts at a window head and spans
+    whole windows), then the remainder as a block of its own length."""
+    block = window * -(-BLOCK_STEPS // window)
+    return [block] * (steps // block) + ([steps % block] if steps % block
+                                         else [])
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch counters
+# ---------------------------------------------------------------------------
+
+def _flatten(out, key, value):
+    if isinstance(value, dict):
+        for k, v in value.items():
+            _flatten(out, (*key, k), v)
+    else:
+        out[key] = value
+
+
+def read_launches():
+    """Every launch counter of the kernel wrappers as {(module, counter,
+    *keys): count}: `LAUNCHES` and `LAUNCHES_BY_DTYPE` of `ops.det`,
+    `ops.det_block`, `ops.gj` and `ops.wm_diag` (those imported)."""
+    out = {}
+    for name in _COUNTER_MODULES:
+        module = sys.modules.get(name)
+        if module is not None:
+            for counter in _COUNTERS:
+                _flatten(out, (name, counter), getattr(module, counter))
+    return out
+
+
+def add_launches(delta, sign=1):
+    """Add `sign` times the counts of `delta` (a `read_launches`
+    difference) to the counters, in place."""
+    for (name, counter, *keys), n in delta.items():
+        module = sys.modules[name]
+        if not keys:
+            setattr(module, counter, getattr(module, counter) + sign * n)
+            continue
+        table = getattr(module, counter)
+        for k in keys[:-1]:
+            table = table[k]
+        table[keys[-1]] += sign * n
+
+
+def _launch_delta(before, after):
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+# ---------------------------------------------------------------------------
+# trees of tensors (TrajState, trackers, carries)
+# ---------------------------------------------------------------------------
+
+def _map(fn, obj):
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _map(fn, getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple):
+        return tuple(_map(fn, x) for x in obj)
+    return obj
+
+
+def _leaves(obj, out=None):
+    out = [] if out is None else out
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            _leaves(getattr(obj, f.name), out)
+    elif isinstance(obj, tuple):
+        for x in obj:
+            _leaves(x, out)
+    return out
+
+
+def clone_tree(obj):
+    """A copy of every tensor of a tree of dataclasses and tuples (other
+    leaves kept)."""
+    return _map(torch.clone, obj)
+
+
+def copy_tree(dst, src):
+    """Copy the tensors of `src` into those of `dst`, a tree of the same
+    structure (a tensor copied onto itself is left alone)."""
+    dst, src = _leaves(dst), _leaves(src)
+    if len(dst) != len(src):
+        raise ValueError(f"copy_tree: {len(src)} tensors into {len(dst)}")
+    for d, s in zip(dst, src):
+        if d is not s:
+            d.copy_(s)
+
+
+def signature(obj):
+    """The shapes and dtypes of a tree's tensors."""
+    return tuple((tuple(x.shape), x.dtype) for x in _leaves(obj))
+
+
+# ---------------------------------------------------------------------------
+# the graphs of one time loop
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Block:
+    body: object          # () -> None: the steps, on the static buffers
+    slots: object         # the block's static observable slots
+    warm: bool = False    # the eager warm-up ran
+    graph: object = None  # the captured graph
+    launches: dict = dataclasses.field(default_factory=dict)
+
+
+class SegmentGraph:
+    """The blocks of one propagator's time loop under one context (the
+    potential, dt, the integrator's constants, the batch constants, the
+    error-bar mode, the sub-batches, the state's shapes and dtypes:
+    `key`), over the static buffers `static` of the whole batch.
+
+    `run(name, make)` runs the block `name` (a sub-batch and a length):
+    `make()` gives (body, slots) the first time, `body()` the steps on
+    the static buffers and `slots` the tensors it writes its observables
+    into; the first call runs it eagerly, the second captures and
+    replays it, later ones replay it. With `capture` False (a CPU device,
+    or `eager()`) every call runs the body."""
+
+    def __init__(self, key, static, device, capture=None):
+        self.key = key
+        self.static = static
+        self.capture = captures(device) if capture is None else capture
+        cuda = self.capture and torch.device(device).type == "cuda"
+        self.stream, self.pool = _side(device) if cuda else (None, None)
+        self.blocks = {}
+        self.stepper = None   # the owner's step functions the blocks call
+
+    def matches(self, key):
+        """True when `key` names this loop's context: objects compared by
+        identity, values by equality."""
+        return len(key) == len(self.key) and all(
+            a is b or (not _is_object(a) and a == b)
+            for a, b in zip(key, self.key))
+
+    def load(self, tree):
+        """Copy `tree` (state, trackers, carry) into the static buffers."""
+        copy_tree(self.static, tree)
+
+    def read(self):
+        """A copy of the static buffers, detached from later blocks."""
+        return clone_tree(self.static)
+
+    def run(self, name, make):
+        block = self.blocks.get(name)
+        if block is None:
+            block = self.blocks[name] = _Block(*make())
+        if not self.capture:
+            block.body()
+            STATS["eager_blocks"] += 1
+        elif not block.warm:
+            self._warm_up(block)
+        else:
+            if block.graph is None:
+                self._capture(block)
+            self._replay(block)
+        return block.slots
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        if self.stream is None:
+            yield
+            return
+        current = torch.cuda.current_stream()
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            yield
+        current.wait_stream(self.stream)
+
+    def _warm_up(self, block):
+        with self._on_stream():
+            block.body()
+        block.warm = True
+        STATS["eager_blocks"] += 1
+
+    def _capture(self, block):
+        before = read_launches()
+        t0 = time.perf_counter()
+        try:
+            block.graph = self._record(block.body)
+        finally:
+            # the capture launched nothing: its counts return with each
+            # replay (and not at all when it failed)
+            block.launches = _launch_delta(before, read_launches())
+            add_launches(block.launches, -1)
+        STATS["capture_s"] += time.perf_counter() - t0
+        STATS["captures"] += 1
+
+    def _record(self, body):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="relaxed"):
+            body()
+        return graph
+
+    def _replay(self, block):
+        block.graph.replay()
+        add_launches(block.launches)
+        STATS["replays"] += 1
+
+
+def _side(device):
+    """The capture stream and the graph memory pool of a CUDA device, one
+    of each per process."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SIDE:
+        _SIDE[index] = (torch.cuda.Stream(index),
+                        torch.cuda.graph_pool_handle())
+    return _SIDE[index]
+
+
+def _is_object(x):
+    return not isinstance(x, (int, float, str, bool, tuple, type(None),
+                              torch.dtype))

@@ -20,10 +20,13 @@ The port of `semiclassical_tpu.propagation.hk` on two paths:
 * everything that depends only on the initial phase-space points (the
   overlap <qi,pi|phi(0)>, the Monte-Carlo log-weights, the initial-point
   NAC factor of k~ic) is computed once per batch;
-* `propagate` runs the time loop in Python, in scan segments of `chunk`
-  steps (a `taylor_every` window of an sGDML potential restarts at each,
-  as in the JAX package), with every per-step result written into
-  preallocated device tensors — no host synchronisation per step. C(t),
+* `propagate` runs the time loop in scan segments of `chunk` steps (a
+  `taylor_every` window of an sGDML potential restarts at each, as in the
+  JAX package), each in blocks of steps that the card runs as replays of
+  captured CUDA graphs (`graph`, the counterpart of the JAX package's
+  jitted scans; eager on the CPU and under `graph.eager()`), with every
+  per-step result written into preallocated device tensors — no host
+  synchronisation per step. C(t),
   k~ic(t) and the batch-mean energies come to the host once per call,
   where the energy-conservation guard and the separable phases apply.
   With `error_bars` every step also writes the second moments
@@ -78,6 +81,7 @@ from semiclassical_tpu_torch.parallel.group import (group_sum,
                                                     pad_to_multiple,
                                                     ring_shift, shard_rows,
                                                     world_of)
+from semiclassical_tpu_torch.propagation import graph
 from semiclassical_tpu_torch.propagation.eom import (const_step_map,
                                                      make_taylor_window,
                                                      rk4_step)
@@ -785,27 +789,6 @@ def _batch_rows(obj, a, b):
     return dataclasses.replace(obj, **fields)
 
 
-def _cat_batches(parts):
-    """The inverse of `_batch_rows` over consecutive sub-batches."""
-    first = parts[0]
-    if isinstance(first, TrajState):
-        dim = 1 if first.diag_monodromy else 0
-        cat = lambda name: (None if getattr(first, name) is None else
-                            torch.cat([getattr(x, name) for x in parts]))
-        return TrajState(q=cat("q"), p=cat("p"),
-                         Z=torch.cat([x.Z for x in parts], dim=dim),
-                         S=cat("S"), qc=cat("qc"), pc=cat("pc"))
-    fields = {}
-    for f in dataclasses.fields(first):
-        v = getattr(first, f.name)
-        if isinstance(v, torch.Tensor):
-            v = torch.cat([getattr(x, f.name) for x in parts])
-        elif dataclasses.is_dataclass(v):
-            v = _cat_batches([getattr(x, f.name) for x in parts])
-        fields[f.name] = v
-    return dataclasses.replace(first, **fields)
-
-
 @dataclass
 class _MorseCache:
     """The exact Morse map of a propagator: its constants, its carry, and
@@ -1044,16 +1027,19 @@ class HermanKlukPropagator:
         return n // m
 
     def _invalidate_map(self):
-        """Drop the exact maps' cached constants (a new batch, a restored
-        checkpoint)."""
+        """Drop the exact maps' cached constants and the time loop's graphs
+        (a new batch, a restored checkpoint)."""
         self._hmap = None     # (dt, potential, HarmonicMap)
         self._morse = None    # _MorseCache
+        self._loop = None     # graph.SegmentGraph
 
     def _stepper(self, potential, dt):
-        """(fresh, advance) of the time loop: `fresh(state)` gives the
-        state and carry at the head of a scan segment, `advance(state,
-        carry)` one step as (new state, mean energy at the step start,
-        new carry)."""
+        """(fresh, advance, window) of the time loop: `fresh(state, carry)`
+        gives the state and carry at the head of a scan segment (`carry`
+        the previous segment's, None at the first), `advance(state, carry)`
+        one step as (new state, mean energy at the step start, new carry).
+        `window` is the taylor_every window, whose carry restarts at the
+        head of every block (1 elsewhere: the carry persists)."""
         if self.integrator == "exact":
             return self._exact_stepper(potential, dt)
         every = int(getattr(potential, "taylor_every", 1) or 1)
@@ -1062,7 +1048,8 @@ class HermanKlukPropagator:
                 raise ValueError(
                     "taylor_every > 1 requires hessian_eval='taylor'")
             window0, window_step = make_taylor_window(potential, dt, every)
-            return (lambda state: (state, window0(state))), window_step
+            return ((lambda state, carry: (state, window0(state))),
+                    window_step, every)
         step_map = None
         if not self.state.diag_monodromy:
             hess = potential.local_expansion(self.state.q[:1])[2]
@@ -1073,14 +1060,15 @@ class HermanKlukPropagator:
         def advance(state, carry):
             return (*rk4_step(state, potential, dt, step_map), carry)
 
-        return (lambda state: (state, None)), advance
+        return (lambda state, carry: (state, None)), advance, 1
 
     def _exact_stepper(self, potential, dt):
-        """The exact map's (fresh, advance). The harmonic map is kept per
-        (dt, potential); the Morse map's constants and carry persist across
-        segments and calls while dt, the potential object and the state
-        object stay those it advanced (objects compared by retained
-        identity, so a replaced state or potential rebuilds it)."""
+        """The exact map's (fresh, advance, window). The harmonic map is
+        kept per (dt, potential); the Morse map's constants and carry
+        persist across segments and calls while dt, the potential object
+        and the state object stay those it advanced (objects compared by
+        retained identity, so a replaced state or potential rebuilds
+        it)."""
         dt = float(dt)
         if supports_exact_harmonic(potential):
             if (self._hmap is None or self._hmap[0] != dt
@@ -1092,7 +1080,7 @@ class HermanKlukPropagator:
             def advance(state, carry):
                 return (*harmonic_step(hmap, state, potential), carry)
 
-            return (lambda state: (state, None)), advance
+            return (lambda state, carry: (state, None)), advance, 1
         cache = self._morse
         if (cache is None or cache.dt != dt or cache.potential is not potential
                 or cache.state is not self.state):
@@ -1107,31 +1095,105 @@ class HermanKlukPropagator:
             cache = self._morse = _MorseCache(dt, potential, self.state,
                                               pack, carry)
 
-        def fresh(state):
-            return morse_map_state(cache.pack, cache.carry), cache.carry
+        def fresh(state, carry):
+            carry = cache.carry if carry is None else carry
+            return morse_map_state(cache.pack, carry), carry
 
         def advance(state, carry):
             carry, energy = morse_map_advance(cache.pack, carry, dt,
                                               potential)
-            cache.carry = carry
             return morse_map_state(cache.pack, carry), energy, carry
 
-        return fresh, advance
+        return fresh, advance, 1
+
+    def _segment_graph(self, potential, dt, m2_mode, rows):
+        """The time loop's `graph.SegmentGraph` for this call, its static
+        buffers loaded with the state, the trackers and the carry at the
+        head of the first segment: the cached loop while its context holds
+        (the potential, dt, the exact maps' constants, the batch constants,
+        the error-bar mode, the sub-batches, the state's and trackers'
+        shapes and dtypes), else a new one, which keeps the stepper its
+        graphs read."""
+        stepper = self._stepper(potential, dt)
+        key = (potential, float(dt), m2_mode, tuple(rows), self.bc,
+               None if self._hmap is None else self._hmap[2], self._morse,
+               graph.signature((self.state, self.tracker)))
+        loop = self._loop
+        if loop is None or not loop.matches(key):
+            loop = None
+            self._loop = None      # the old graphs go before the new ones
+        fresh, _, window = stepper if loop is None else loop.stepper
+        state, carry = ((self.state, None) if window > 1
+                        else fresh(self.state, None))
+        head = (state, self.tracker, carry)
+        if loop is not None:
+            loop.load(head)
+            return loop
+        loop = self._loop = graph.SegmentGraph(key, graph.clone_tree(head),
+                                               self.device)
+        loop.stepper = stepper
+        return loop
+
+    def _block(self, loop, rows, length, potential, bc, m2_mode):
+        """(body, slots) of one block: `length` steps of the sub-batch
+        `rows` (a, b) on views of the loop's static buffers, the first
+        restarting a taylor_every window; each step's (C_auto, k~ic),
+        mean energy and second moments go into the slots, the state, the
+        trackers and a persisting carry back into the buffers."""
+        fresh, advance, window = loop.stepper
+        state, tracker, carry = loop.static
+        if rows != (0, self.n_local):
+            state, tracker = (_batch_rows(state, *rows),
+                              _batch_rows(tracker, *rows))
+        slots = (torch.empty(2, length, dtype=self.cdtype,
+                             device=self.device),
+                 torch.empty(length, dtype=state.q.dtype, device=self.device),
+                 torch.empty(2, length, dtype=torch.float64,
+                             device=self.device) if m2_mode else None)
+
+        def body():
+            st, tr, cr = state, tracker, carry
+            if window > 1:
+                st, cr = fresh(st, None)
+            sums, energies, moments = ([], []), [], ([], [])
+            for _ in range(length):
+                tr, c, k, m2c, m2k = self._observe(st, tr, potential, bc,
+                                                    m2_mode)
+                st, energy, cr = advance(st, cr)
+                sums[0].append(c)
+                sums[1].append(k)
+                energies.append(energy)
+                if m2_mode:
+                    moments[0].append(m2c)
+                    moments[1].append(m2k)
+            slots[0].copy_(torch.stack(sums[0] + sums[1]).view(2, length))
+            slots[1].copy_(torch.stack(energies))
+            if m2_mode:
+                slots[2].copy_(torch.stack(moments[0] + moments[1]).view(
+                    2, length))
+            graph.copy_tree((state, tracker, carry),
+                            (st, tr, cr if window == 1 else None))
+
+        return body, slots
 
     def _run(self, potential, dt, nt, chunk=None, progress=None,
              m2_mode=False):
         """The time loop: `nt` steps from the current state, in scan
         segments of at most `chunk` steps, each segment sub-batch by
-        sub-batch under `micro_batch`. Returns the device tensors (cauto,
-        kic, energies) of length nt and the second moments (2, nt) (None
-        unless `m2_mode`); sub-batch sums and moments add, energies
-        average.
+        sub-batch under `micro_batch`, each sub-batch's segment in blocks
+        of `graph.block_lengths` — on the card captured CUDA graphs,
+        replayed (`graph.SegmentGraph`), elsewhere and under
+        `graph.eager()` the same blocks run eagerly. Returns the device
+        tensors (cauto, kic, energies) of length nt and the second moments
+        (2, nt) (None unless `m2_mode`); sub-batch sums and moments add,
+        energies average.
 
         A `taylor_every` window (`eom.make_taylor_window`) restarts at the
         head of every segment, as the JAX package's scans do, so `chunk`
-        is part of the result there; `progress`, if given, is called at
-        the end of every segment (one host read per segment)."""
-        fresh, advance = self._stepper(potential, dt)
+        is part of the result there; `self.state` and the trackers are
+        materialised from the static buffers at the end of every segment,
+        where the group reduces and `progress`, if given, is called (one
+        host read per segment)."""
         if chunk is None or chunk >= nt:
             segments = [nt]
         else:
@@ -1141,42 +1203,40 @@ class HermanKlukPropagator:
         rows = [(s * n // k, (s + 1) * n // k) for s in range(k)]
         bcs = ([self.bc] if k == 1
                else [_batch_rows(self.bc, a, b) for a, b in rows])
-        cauto = torch.empty(k, nt, dtype=self.cdtype, device=self.device)
-        kic = torch.empty(k, nt, dtype=self.cdtype, device=self.device)
+        loop = self._segment_graph(potential, dt, m2_mode, rows)
+        window = loop.stepper[2]
+        sums = torch.empty(2, k, nt, dtype=self.cdtype, device=self.device)
         energies = torch.empty(k, nt, dtype=self.state.q.dtype,
                                device=self.device)
         m2 = (torch.empty(2, k, nt, dtype=torch.float64, device=self.device)
               if m2_mode else None)
-        state, tracker = self.state, self.tracker
         done = 0
         for seg in segments:
-            parts = []
-            for s, (a, b) in enumerate(rows):
-                st, tr = ((state, tracker) if k == 1 else
-                          (_batch_rows(state, a, b),
-                           _batch_rows(tracker, a, b)))
-                st, carry = fresh(st)
-                for i in range(done, done + seg):
-                    tr, cauto[s, i], kic[s, i], m2c, m2k = self._observe(
-                        st, tr, potential, bcs[s], m2_mode)
+            for s, ab in enumerate(rows):
+                i = done
+                for length in graph.block_lengths(seg, window):
+                    obs, energy, moments = loop.run(
+                        (s, length),
+                        lambda: self._block(loop, ab, length, potential,
+                                            bcs[s], m2_mode))
+                    sums[:, s, i:i + length] = obs
+                    energies[s, i:i + length] = energy
                     if m2_mode:
-                        m2[0, s, i], m2[1, s, i] = m2c, m2k
-                    st, energies[s, i], carry = advance(st, carry)
-                parts.append((st, tr))
-            state, tracker = (parts[0] if k == 1 else
-                              tuple(_cat_batches(list(x))
-                                    for x in zip(*parts)))
+                        m2[:, s, i:i + length] = moments
+                    i += length
             if self.group is not None:
-                self._reduce_segment(slice(done, done + seg), cauto, kic,
-                                     energies, m2)
+                self._reduce_segment(slice(done, done + seg), sums[0],
+                                     sums[1], energies, m2)
             done += seg
+            self.state, self.tracker, carry = loop.read()
+            if self._morse is not None:
+                # the map's carry advanced with the state
+                self._morse.state, self._morse.carry = self.state, carry
             if progress is not None and chunk:
-                progress(done, nt, complex(torch.sum(cauto[:, done - 1]))
+                progress(done, nt, complex(torch.sum(sums[0, :, done - 1]))
                          * self.bc.weight_scale)
-        self.state, self.tracker = state, tracker
-        if self._morse is not None:
-            self._morse.state = state    # the map's carry advanced with it
         self.t += nt * float(dt)
+        cauto, kic = sums
         if k == 1:
             return cauto[0], kic[0], energies[0], (None if m2 is None
                                                    else m2[:, 0])

@@ -64,7 +64,7 @@ TINY = {"BENCH_NTRAJ": "32", "BENCH_NT": "6", "BENCH_WM_NTRAJ": "32",
 # bench.py's top-level keys (`_result`) without vs_baseline, and the keys
 # bench_torch adds
 LINE_KEYS = {"metric", "value", "unit", "config", "phases", "device",
-             "peak_gb", "launches", "launches_by_dtype"}
+             "peak_gb", "launches", "launches_by_dtype", "loop", "graph"}
 CONFIG_KEYS = {
     "wm": {"ntraj", "nt", "dim", "dtype", "micro_batch", "device", "wall_s"},
     "gdml": {"ntraj", "nt", "n_cartesian", "hessian_eval", "taylor_every",
@@ -246,6 +246,9 @@ def test_bench_cli_on_the_cpu():
         assert line["unit"] == "traj-steps/s/chip" and line["value"] > 0
         assert line["device"] == "cpu" and line["peak_gb"] is None
         assert line["launches"] == dict.fromkeys(bench_torch.KERNELS, 0)
+        # the CPU runs the loop's blocks eagerly: no capture, no replay
+        assert line["loop"] == "eager" and line["graph"]["eager_blocks"] > 0
+        assert line["graph"]["captures"] == line["graph"]["replays"] == 0
         key = {"wm": "BENCH_WM_", "gdml": "BENCH_GDML_", "hk": "BENCH_"}[name]
         assert line["config"]["ntraj"] == int(TINY[key + "NTRAJ"])
         assert line["config"]["nt"] == int(TINY[key + "NT"])
