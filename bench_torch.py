@@ -33,18 +33,21 @@ prints last, for last-line parsers), each
 
 Each bench times its phases on `profiling.PhaseTimer` (the card synced at
 each phase end): `sample` (model, potential, propagator, draw), `warmup`
-(a few steps, which build the kernels and warm the allocator, then the
-batch drawn again from a generator at the same seed), `scan` (the timed
-`nt` steps) and `reduce` (C(t) and k~ic(t) checked finite). `launches`
-counts the kernel launches of the scan phase (`ops.*.LAUNCHES`), `peak_gb`
-is `torch.cuda.max_memory_allocated` over the bench. On the card the scan
+(`warm_up`: the full `nt` steps with the bench's `micro_batch`, as
+bench.py's compile run, which builds the kernels, warms the allocator and
+captures the time loop's blocks, then the batch drawn again from a
+generator at the same seed), `scan` (the timed `nt` steps) and `reduce`
+(C(t) and k~ic(t) checked finite). `launches` counts the kernel launches
+of the scan phase (`ops.*.LAUNCHES`), `peak_gb` is
+`torch.cuda.max_memory_allocated` over the bench. On the card the scan
 runs as the port runs it, in blocks of steps captured as CUDA graphs and
-replayed (`propagation.graph`; the batch drawn anew drops the warm-up's
-graphs, so the scan's first blocks run eagerly and capture): "graph" counts
-the scan's replays, captures (with their capture plus instantiate
-seconds) and eager blocks. `--eager` runs every bench under
-`graph.eager()`, every launch of every step from the host ("loop":
-"eager").
+replayed (`propagation.graph`); the batch drawn anew runs through the
+loop the warm-up captured, which the process keeps, so the scan only
+replays: "graph" counts the scan's replays, captures (with their capture
+plus instantiate seconds) and eager blocks, and shows 0 captures and 0
+eager blocks. The loop is dropped (`graph.clear`) after each bench.
+`--eager` runs every bench under `graph.eager()`, every launch of every
+step from the host ("loop": "eager").
 
 Environment, as bench.py reads it: BENCH_ONLY (hk | wm | gdml), BENCH_DTYPE
 (hk: comp32 | mixed | float32 | float64), BENCH_NTRAJ, BENCH_NT,
@@ -78,7 +81,6 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 SEED = 0
-WARMUP_STEPS = 4
 AS60_DIM = 60
 AS60_DT = 0.25         # a.u.; stable for the stiffest 3000 cm^-1 mode
 GDML_DT = 0.1          # a.u.
@@ -291,17 +293,34 @@ def trace_steps(prop, pot, dt, steps, energy0_es):
             "ms_per_step": round(1e3 * wall / steps, 4)}
 
 
+def warm_up(prop, pot, dt, nt, energy0_es, micro=None):
+    """The warm-up of a bench, as bench.py's compile run: the full `nt`
+    steps with the bench's `micro_batch`. On the card that captures every
+    block length the scan runs twice or more (a block runs eagerly at its
+    first call and is captured at its second); a length the scan runs only
+    once (the tail of `nt`, or `nt` below one block) runs once more here,
+    so the scan replays every block."""
+    from semiclassical_tpu_torch.propagation import graph
+
+    kw = dict(energy0_es=energy0_es, check_energy=False, micro_batch=micro)
+    prop.propagate(pot, dt, nt, **kw)
+    lengths = graph.block_lengths(
+        nt, int(getattr(pot, "taylor_every", 1) or 1))
+    for length in sorted({n for n in lengths if lengths.count(n) == 1}):
+        prop.propagate(pot, dt, length, **kw)
+
+
 def timed_run(timer, prop, pot, redraw, dt, nt, energy0_es, micro=None,
               trace=0):
     """The warm-up, the timed scan and the reduce of one bench on `timer`:
     (C(t), k~ic(t), launches per kernel, launches by dtype, trace or None,
     the scan's loop counters). `redraw()` draws the batch anew from its
-    seed after the warm-up, so the scan starts from a fresh draw."""
+    seed after the warm-up, so the scan starts from a fresh draw, through
+    the warm-up's loop."""
     from semiclassical_tpu_torch.propagation import graph
 
     with timer.phase("warmup"):
-        prop.propagate(pot, dt, min(WARMUP_STEPS, nt), energy0_es=energy0_es,
-                       check_energy=False, micro_batch=micro)
+        warm_up(prop, pot, dt, nt, energy0_es, micro)
         redraw()
     before = launch_counts()
     loop = dict(graph.STATS)
@@ -437,7 +456,10 @@ def run_benches(device, only="", trace=0, on_result=None):
     """Run the benches in EXEC_ORDER (only `only` if given) and return
     {name: BenchResult, or the error line of a bench that raised}.
     `on_result(name, result)` sees each result while its propagator is
-    alive; the propagator is dropped before the next bench starts."""
+    alive; the propagator and the time loop the process keeps for it are
+    dropped before the next bench starts."""
+    from semiclassical_tpu_torch.propagation import graph
+
     if only and only not in BENCHES:
         raise ValueError(f"unknown bench {only!r} (expected one of "
                          f"{sorted(BENCHES)})")
@@ -457,6 +479,7 @@ def run_benches(device, only="", trace=0, on_result=None):
             results[name] = {"metric": f"{name}_bench_error",
                              "error": repr(exc)}
         result = None
+        graph.clear(device)
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()

@@ -94,8 +94,10 @@ K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
              port's `cli.main(["dynamics", ...])` and
              `cli.main(["rates", ...])` on cuda: finite correlations,
              |C(0) - 1| < 1e-3, the rate at its maximum within 3% of
-             tests/data/methylium_reference_rate_10k.npz, and K1 launched on
-             every step of the run;
+             tests/data/methylium_reference_rate_10k.npz, K1 launched on
+             every step of the run, and the five batches through one time
+             loop: one capture and one eager block per block length for
+             the run (every methylium run through the CLI is held so);
 6. WM methylium — the same example in memory with propagator "WM" and
              cell_width 1e4 at the same seed and size: the same gates, the
              rate at its maximum within 1e-3 of the HK phase's own, and K1
@@ -149,7 +151,8 @@ K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
 8c. micro_batch — the WM AS example at 98,304 x 100 steps with
              `micro_batch` 8192 against the whole batch at the same seed:
              C(t) and k~ic(t) within 1e-12 of their largest modulus; both
-             walls and K5's launches printed;
+             walls and K5's launches printed; the 12 sub-batches share the
+             graphs: at most 2 captures;
 8d. HK AS norm — examples/as_model/semi_norm.json as shipped (131,072 x
              2000 steps, `calc_norm_every` 500): four norm lines, each
              finite and > 0, with each norm's wall; in memory, the same
@@ -263,7 +266,9 @@ B. the flagship benches of `bench_torch.py` (the JAX package's bench.py
              500 comp32, sGDML coumarin 32,768 x 100 mixed with taylor
              every 32; 10 more steps of each traced): every value finite
              and > 0, ntraj and nt as asked, |C(0) - 1| < 1e-3 on each
-             curve, K5 launched at (524,288, 60) float32 on every WM step
+             curve, each scan through the warm-up's kept loop (0 captures,
+             0 eager blocks, replays only), the coumarin bench again under
+             `graph.eager()` within 1e-13 of the graph run's curves, K5 launched at (524,288, 60) float32 on every WM step
              and never at float64, K4 at (32,768, 45, 45) complex64 on
              every coumarin step and never at complex128 (the scan's
              launches counted with the graphs' replays; every call of the
@@ -274,6 +279,13 @@ B. the flagship benches of `bench_torch.py` (the JAX package's bench.py
              1.5e-3; K5 on the WM bench's own planes and K4 at (32,768, 45,
              45) complex64 against their plain versions, timed beside the
              bound (and K4 beside torch.linalg.det);
+   vr      — `scripts/torch_vr_flagship_bench.py` (the JAX package's
+             scripts/vr_flagship_bench.py) at its defaults in this process:
+             pseudo, sobol and antithetic sampling x 6 keys of 65,536 x 100
+             on the AS60 model, HK comp32; its three lines; the 18 batches
+             through one time loop (captures and eager blocks one per
+             block length), finite variances, |C(0) - 1| < 1e-3 on every
+             batch;
    pod bench — `scripts/torch_pod_bench.py` HK as a subprocess under a
              one-rank NCCL group at 131,072 x 100: its line (nchips 1,
              ntraj, nt, rates > 0, the card's name);
@@ -294,6 +306,11 @@ C. the compiled time loop (`propagation.graph`): every phase above runs
              of every kernel by dtype equal, the graphs replayed, and each
              run's ms a step (its whole `propagate`: the graph run's eager
              first blocks and captures included, their seconds printed);
+             then the kept loop: HK AS exact 98,304 x 100, the first
+             batch's draw and the same draw with its rows permuted (as many
+             RK4-routed rows elsewhere) through one loop, the second with
+             no capture and no eager block, each within 1e-13 of itself
+             under `graph.eager()` on a fresh loop, launches equal;
 12. the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1011,8 +1028,10 @@ def read_counts_by_dtype(ops):
             "K5": dict(ops["wm_diag"].LAUNCHES_BY_DTYPE)}
 
 
-# the launches by dtype of the last dynamics command `run_path` ran
+# the launches by dtype, and the time loop's counters (`graph.STATS`), of
+# the last dynamics command `run_path` ran
 LAST_BY_DTYPE = {}
+LAST_LOOP = {}
 
 
 def run_path(cli, ops, config, dynamics_keys, tmp, precision="f64",
@@ -1024,9 +1043,12 @@ def run_path(cli, ops, config, dynamics_keys, tmp, precision="f64",
     just before the dynamics command and read just after (the counts by
     dtype into LAST_BY_DTYPE). Returns (the npz as a dict, the launches,
     the dynamics task, the dynamics command's wall seconds, the port's log
-    lines of the dynamics command)."""
+    lines of the dynamics command); the command's time loop counters
+    (`graph.STATS`) go into LAST_LOOP."""
     import numpy as np
     import torch
+
+    from semiclassical_tpu_torch.propagation import graph
 
     npz = str(pathlib.Path(tmp) / "correlations.npz")
     for task in config["semi"]:
@@ -1042,6 +1064,7 @@ def run_path(cli, ops, config, dynamics_keys, tmp, precision="f64",
         json.dump(config, f, indent=1)
 
     reset_counts(ops)
+    stats = dict(graph.STATS)
     t0 = time.perf_counter()
     with LogLines() as log:
         rc = cli.main(["dynamics", cfg, "--device", "cuda", "--precision",
@@ -1051,6 +1074,8 @@ def run_path(cli, ops, config, dynamics_keys, tmp, precision="f64",
     launches = read_counts(ops)
     LAST_BY_DTYPE.clear()
     LAST_BY_DTYPE.update(read_counts_by_dtype(ops))
+    LAST_LOOP.clear()
+    LAST_LOOP.update({k: graph.STATS[k] - stats[k] for k in stats})
     check(rc == 0, f"dynamics returned {rc}")
     for command in ("rates", "spectrum"):
         check(cli.main([command, cfg]) == 0, f"{command} failed")
@@ -1114,11 +1139,36 @@ def methylium_run(cli, ops, smi, label, precision="f64", extra_args=(),
           f"{json.dumps(launches)}", flush=True)
     imax = gate_rates(f"{label} methylium", data, REFERENCE_RATE, ntraj,
                       nsteps, 1e-3)
+    kept_loop_check(f"{label} methylium", nsteps, 100, nrep)
     check(launches["K1"] >= nsteps * nrep,
           f"{label}: K1 launched {launches['K1']} times for {nsteps} x "
           f"{nrep} steps")
     data.update(imax=imax, nsteps=nsteps, nrep=nrep, wall=wall, task=task)
     return data, launches
+
+
+def block_lengths_of(nsteps, chunk, window=1):
+    """The distinct block lengths of a run of `nsteps` steps in segments of
+    `chunk` (`graph.block_lengths` of each segment)."""
+    from semiclassical_tpu_torch.propagation import graph
+
+    segments = [chunk] * (nsteps // chunk) + ([nsteps % chunk]
+                                              if nsteps % chunk else [])
+    return {n for seg in segments for n in graph.block_lengths(seg, window)}
+
+
+def kept_loop_check(label, nsteps, chunk, nrep):
+    """The last dynamics command's time loop (LAST_LOOP) over its `nrep`
+    batches: one capture and one eager block per block length for the whole
+    run, every batch after the first replaying its graphs."""
+    lengths = block_lengths_of(nsteps, chunk)
+    print(f"{label}: time loop over {nrep} batches: {LAST_LOOP['captures']}"
+          f" captures in {LAST_LOOP['capture_s']:.3f} s, "
+          f"{LAST_LOOP['eager_blocks']} eager blocks, "
+          f"{LAST_LOOP['replays']} replays; {len(lengths)} block length(s) "
+          f"{sorted(lengths)}", flush=True)
+    check(LAST_LOOP["captures"] == LAST_LOOP["eager_blocks"] == len(lengths),
+          f"{label}: {LAST_LOOP} for the block lengths {sorted(lengths)}")
 
 
 def wm_vs_hk(label, wm, hk, gate):
@@ -1269,13 +1319,14 @@ def micro_phase(cli, ops, smi, model):
     against the whole batch at the same seed."""
     import numpy as np
 
-    runs = {}
+    runs, loops = {}, {}
     for micro in (0, 8192):
         with tempfile.TemporaryDirectory() as tmp:
             data, launches, _, wall, _ = run_path(
                 cli, ops, as_config("semi_wm.json", model, num_steps=100,
                                     micro_batch=micro), {}, tmp)
         runs[micro] = (data, launches, wall)
+        loops[micro] = dict(LAST_LOOP)
     errs = [float(np.abs(runs[8192][0][k] - runs[0][0][k]).max()
                   / np.abs(runs[0][0][k]).max())
             for k in ("autocorrelation", "ic_correlation")]
@@ -1283,9 +1334,16 @@ def micro_phase(cli, ops, smi, model):
           f"{runs[0][2]:.3f} s whole ({runs[0][1]['K5']} K5 launches), "
           f"{runs[8192][2]:.3f} s in sub-batches of 8192 "
           f"({runs[8192][1]['K5']} K5 launches) [{smi}]; max |C - C_whole| /"
-          f" max |C_whole| {errs[0]:.3e}, k~ic {errs[1]:.3e} (gate 1e-12)",
+          f" max |C_whole| {errs[0]:.3e}, k~ic {errs[1]:.3e} (gate 1e-12); "
+          f"time loop in sub-batches: {loops[8192]['captures']} captures in "
+          f"{loops[8192]['capture_s']:.3f} s, {loops[8192]['eager_blocks']} "
+          f"eager blocks, {loops[8192]['replays']} replays (whole batch: "
+          f"{loops[0]['captures']} in {loops[0]['capture_s']:.3f} s)",
           flush=True)
     check(max(errs) <= 1e-12, f"micro_batch vs whole batch: {errs}")
+    check(loops[8192]["captures"] <= 2,
+          f"micro_batch: {loops[8192]['captures']} captures; the sub-batches "
+          "share one graph per block length")
     return runs[0]
 
 
@@ -2709,13 +2767,98 @@ def graph_path(cli, ops, smi, model, label, example, file, name, precision,
     return errs
 
 
+def kept_loop_path(cli, ops, smi, model, nsteps=100):
+    """HK AS exact, two batches through one time loop: the first batch's
+    draw, then the same normals with the rows permuted (as many RK4-routed
+    rows, at other rows and with other values), which replays the first
+    batch's graphs with no capture and no eager block; each batch against
+    itself under `graph.eager()` on a fresh loop: C(t) and k~ic(t) within
+    GRAPH_GATE of the largest modulus, the launches by dtype equal.
+    Returns the largest difference."""
+    import numpy as np
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.propagation import (HermanKlukPropagator,
+                                                     graph)
+    from semiclassical_tpu_torch.sampling import (SamplingParams,
+                                                  standard_normals)
+
+    task = dict(graph_task("as", "semi.json", model, {}), integrator="exact")
+    potential, q0, p0, G, _, _, _ = cli._build_potential(task, "cuda")
+    dt = task["time_step_fs"] / units.autime_to_fs
+    n = task["batch_size"]
+    gen = torch.Generator(device="cuda").manual_seed(
+        cli._repetition_seed(SEED, 0))
+    x = standard_normals(SamplingParams.create(q0, p0, G, G, "cuda"), n,
+                         "pseudo", gen)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(SEED))
+    draws = {"first": x, "permuted": x[perm.to(x.device)]}
+
+    def run(normals):
+        prop = HermanKlukPropagator(G, G, "cuda", integrator="exact")
+        prop.initial_conditions(q0, p0, G, potential, ntraj=n,
+                                normals=normals)
+        reset_counts(ops)
+        stats = dict(graph.STATS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prop.propagate(potential, dt, nsteps, chunk=100)
+        torch.cuda.synchronize()
+        return dict(out=out, ms=1e3 * (time.perf_counter() - t0) / nsteps,
+                    launches=read_counts_by_dtype(ops),
+                    routed=int(prop._morse.pack.sub_idx.numel()),
+                    stats={k: graph.STATS[k] - stats[k] for k in stats},
+                    loop=graph.live("cuda"))
+
+    graph.clear()
+    kept = {name: run(normals) for name, normals in draws.items()}
+    eager = {}
+    for name, normals in draws.items():
+        graph.clear()
+        with graph.eager():
+            eager[name] = run(normals)
+    graph.clear()
+    worst = 0.0
+    for name in draws:
+        got, ref = kept[name], eager[name]
+        errs = [float(np.abs(g - r).max() / np.abs(r).max())
+                for g, r in zip(got["out"], ref["out"])]
+        worst = max(worst, *errs)
+        st = got["stats"]
+        print(f"graph kept loop, HK AS exact {n} x {nsteps}, {name} batch "
+              f"({got['routed']} rows RK4-routed): max |C - C_eager| / max "
+              f"|C_eager| {errs[0]:.3e}, k~ic {errs[1]:.3e} (gate "
+              f"{GRAPH_GATE:g}); {got['ms']:.4f} ms a step ({st['replays']} "
+              f"replays, {st['captures']} captures in {st['capture_s']:.3f} "
+              f"s, {st['eager_blocks']} eager blocks), eager "
+              f"{ref['ms']:.4f} ms a step [{smi}]", flush=True)
+        check(max(errs) <= GRAPH_GATE,
+              f"graph kept loop {name}: graph vs eager {errs}")
+        check(got["launches"] == ref["launches"],
+              f"graph kept loop {name}: launches {got['launches']} under "
+              f"graphs, {ref['launches']} eager")
+    first, second = kept["first"], kept["permuted"]
+    check(second["loop"] is first["loop"]
+          and second["stats"]["captures"] == 0
+          and second["stats"]["eager_blocks"] == 0
+          and second["stats"]["replays"] > 0
+          and second["routed"] == first["routed"],
+          f"graph kept loop: the second batch {second['stats']} "
+          f"({second['routed']} routed rows, {first['routed']} in the first)"
+          " did not only replay the first batch's graphs")
+    return worst
+
+
 def graph_phase(cli, ops, smi, model):
-    """Every path of GRAPH_PATHS through the graphs and eagerly."""
+    """Every path of GRAPH_PATHS through the graphs and eagerly, then two
+    batches through one kept loop."""
     worst = max(max(graph_path(cli, ops, smi, model, *path))
                 for path in GRAPH_PATHS)
-    print(f"graph: {len(GRAPH_PATHS)} paths, graph vs eager at most "
-          f"{worst:.3e} of the largest modulus (gate {GRAPH_GATE:g})",
-          flush=True)
+    worst = max(worst, kept_loop_path(cli, ops, smi, model))
+    print(f"graph: {len(GRAPH_PATHS)} paths and a kept loop, graph vs eager "
+          f"at most {worst:.3e} of the largest modulus (gate "
+          f"{GRAPH_GATE:g})", flush=True)
 
 
 BENCH_DEFAULTS = {"hk": (1048576, 500), "wm": (524288, 500),
@@ -2769,6 +2912,33 @@ def bench_line_checks(name, result, smi):
           f"{line['phases']['scan']:.3f} s; peak {line['peak_gb']} GB; "
           f"trace {json.dumps(line['trace'])}", flush=True)
     check(c0 < BENCH_C0_GATE, f"bench {name}: |C(0) - 1| = {c0}")
+    loop = line["graph"]
+    print(f"bench {name}: the scan's time loop: {loop['replays']} replays, "
+          f"{loop['captures']} captures, {loop['eager_blocks']} eager blocks "
+          f"(warm-up {phases['warmup']:.3f} s)", flush=True)
+    check(loop["captures"] == loop["eager_blocks"] == 0
+          and loop["replays"] > 0,
+          f"bench {name}: the scan captured or ran eagerly: {loop}")
+
+
+def bench_gdml_eager(bench_torch, curves):
+    """The gdml_coumarin bench again under `graph.eager()`: its curves
+    within GRAPH_GATE of the graph run's (the bench whose scan a capture
+    used to slow)."""
+    import numpy as np
+
+    from semiclassical_tpu_torch.propagation import graph
+
+    with graph.eager():
+        result = bench_torch.bench_gdml("cuda")
+    graph.clear()
+    errs = [float(np.abs(g - r).max() / np.abs(r).max())
+            for g, r in zip(curves, result.curves)]
+    print(f"bench gdml: graph run against graph.eager(): max |C - C_eager| /"
+          f" max |C_eager| {errs[0]:.3e}, k~ic {errs[1]:.3e} (gate "
+          f"{GRAPH_GATE:g}); eager scan {result.line['phases']['scan']:.3f} s,"
+          f" {result.line['value']:,.1f} traj-steps/s", flush=True)
+    check(max(errs) <= GRAPH_GATE, f"bench gdml: graph vs eager {errs}")
 
 
 def bench_f64_rows(bench_torch):
@@ -2927,13 +3097,67 @@ def bench_phase(ops, smi):
           f"bench gdml: K4 {k4_scan} times in the scan for {nt_gdml} steps, "
           f"at the shapes {seen('K4')}, complex128 "
           f"{by_dtype['K4']['complex128']}")
+    gdml_curves = results["gdml"].curves
     del results
     torch.cuda.empty_cache()
+    bench_gdml_eager(bench_torch, gdml_curves)
     bench_f64_rows(bench_torch)
     bench_k5_row(ops["wm_diag"], *kept.pop("k5"))
     torch.cuda.empty_cache()
     bench_k4_row(ops["det_block"], micro)
     torch.cuda.empty_cache()
+
+
+VR_C0_GATE = 1e-3
+
+
+def vr_phase(ops, smi):
+    """scripts/torch_vr_flagship_bench.py at its defaults in this process
+    (3 methods x 6 keys of 65,536 x 100 on the AS60 model, HK comp32): its
+    lines; every batch through one time loop, so the study captures once
+    per block length and runs one eager block per length; finite
+    variances; |C(0) - 1| below VR_C0_GATE on every batch."""
+    import importlib.util
+
+    import numpy as np
+
+    from semiclassical_tpu_torch.propagation import graph
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_vr_flagship_bench",
+        ROOT / "scripts" / "torch_vr_flagship_bench.py")
+    vr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vr)
+    graph.clear()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    out = vr.run(device="cuda")
+    wall = time.perf_counter() - t0
+    graph.clear()
+    launches = read_counts(ops)
+    lines = [line for line, _ in out]
+    for line in lines:
+        print(f"vr: {json.dumps(line)}", flush=True)
+    nt = lines[0]["nt"]
+    lengths = block_lengths_of(nt, nt)
+    total = {k: sum(line["graph"][k] for line in lines)
+             for k in ("captures", "eager_blocks", "replays", "capture_s")}
+    batches = sum(line["keys"] for line in lines)
+    c0 = max(float(np.abs(cs[:, 0] - 1).max()) for _, (cs, _) in out)
+    print(f"vr: {batches} batches in {wall:.1f} s, one time loop: "
+          f"{total['captures']} captures in {total['capture_s']:.3f} s, "
+          f"{total['eager_blocks']} eager blocks, {total['replays']} replays "
+          f"for {len(lengths)} block length(s); max |C(0) - 1| {c0:.3e} "
+          f"(limit {VR_C0_GATE:g}); launches {json.dumps(launches)} [{smi}]",
+          flush=True)
+    check(total["captures"] == total["eager_blocks"] == len(lengths),
+          f"vr: {total} over {batches} batches, block lengths "
+          f"{sorted(lengths)}")
+    check(all(np.isfinite(line[k]) and line[k] > 0 for line in lines
+              for k in ("var_C", "var_kic")), f"vr: variances {lines}")
+    check(all(line["device"] == smi for line in lines),
+          f"vr: device {lines[0]['device']}")
+    check(c0 < VR_C0_GATE, f"vr: |C(0) - 1| = {c0}")
 
 
 def pod_bench_phase(smi):
@@ -3091,6 +3315,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase("graph", graph_phase, cli, ops, smi, write_as_model(tmp))
     phase("bench", bench_phase, ops, smi)
+    phase("vr", vr_phase, ops, smi)
     phase("pod bench", pod_bench_phase, smi)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -21,8 +21,9 @@ segment's sums).
         --process-id k
 
 On the card the run is comp32 with float32 algebra, on the CPU float64.
-Each rank warms up (a few steps, then the batch drawn anew at the same
-seed) and times the scan; rank 0 prints one JSON line with the keys of
+Each rank warms up (`bench_torch.warm_up`: the full `nt` steps, which
+capture the time loop's blocks on the card, then the batch drawn anew at
+the same seed, which runs through the kept loop) and times the scan; rank 0 prints one JSON line with the keys of
 the JAX package's `scripts/pod_bench.py` and the card's name and power
 limit.
 """
@@ -61,8 +62,7 @@ def run(group, device, propagator="HK", ntraj_per_chip=524288, nt=500):
         prop, pot = bench_torch.as60_setup(ntraj, device, propagator, dtype,
                                            traj_dtype, group=group)
     with timer.phase("warmup"):
-        prop.propagate(pot, bench_torch.AS60_DT,
-                       min(bench_torch.WARMUP_STEPS, nt), check_energy=False)
+        bench_torch.warm_up(prop, pot, bench_torch.AS60_DT, nt, 0.0)
         bench_torch.draw(prop, pot, dQ, np.diag(omega), ntraj, group=group)
         barrier(group)
     with timer.phase("scan"):

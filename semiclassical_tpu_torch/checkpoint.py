@@ -157,9 +157,10 @@ def _restore(data, prefix, obj, device):
 def load_propagator_state(filename, propagator):
     """Restore a snapshot into an initialised propagator of the same kind
     and batch size (call `initial_conditions` first; the sampled values
-    are overwritten). The exact maps are rebuilt from the restored state
-    at the next step. Returns the `partial` dict stored at save time
-    (possibly empty)."""
+    are overwritten). The exact Morse map is rebuilt from the restored
+    state at the next step, and the time loop that the process keeps
+    (`propagation.graph`) loads the restored values there. Returns the
+    `partial` dict stored at save time (possibly empty)."""
     with np.load(filename) as data:
         data = {key: data[key] for key in data.files}
     group = propagator.group

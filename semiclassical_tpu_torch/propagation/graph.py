@@ -10,14 +10,29 @@ they launch) is captured once as a `torch.cuda.CUDAGraph` and replayed for
 every later block of the same length, so the host issues one replay where
 the eager loop issued every launch of every step.
 
-* **Static buffers.** The state, the trackers and the integrator's carry
-  of the whole batch live in buffers allocated once (`SegmentGraph.static`);
-  a block reads them and ends by copying its results back into them, and
+* **One loop per device, held by the process.** The counterpart of the
+  JAX package's jit cache: the live `SegmentGraph` of each device sits in
+  this module (`live`), keyed by value on everything a block bakes in (the
+  propagator's class, integrator and precision, dt, the error-bar mode,
+  the sub-batch layout, the host scalars of the parameter pack and the
+  shapes, dtypes and structure of every tensor a block reads) and by
+  identity on the potential, the one object that lives the whole run. A
+  new batch, a new propagator, a new draw or a restored checkpoint of the
+  same key runs through the kept loop and its graphs; another key drops
+  the live loop before the new one is built (`segment_graph`), so the old
+  graphs never sit beside the new ones. `clear` drops it by hand.
+* **Static buffers.** Everything a block reads lives in buffers allocated
+  once (`SegmentGraph.static`): the state, the trackers and the
+  integrator's carry, which the block advances and copies back, and the
+  per-batch inputs (the parameter pack, the batch constants, the exact
+  Morse map's pack), which the owner loads before each run. A block
   writes each step's observables into static slots of its own, which the
   caller copies into their columns after the block. Sub-batches of
-  `micro_batch` are blocks over views of the same buffers.
-* **Warm-up.** The first block of each (sub-batch, length) runs eagerly as
-  real work; the second captures that block and replays it. A capture
+  `micro_batch` run one after another through the same buffers, of one
+  sub-batch's rows, so they share the graphs, as `lax.map` shares one
+  compiled body.
+* **Warm-up.** The first block of each length runs eagerly as real
+  work; the second captures that block and replays it. A capture
   never runs the work itself, so the eager block computes every value
   that the step code caches lazily (casts kept in a potential, the
   kernel library's build) before any capture reads it.
@@ -25,7 +40,7 @@ the eager loop issued every launch of every step.
   allocates from one private pool (`torch.cuda.graph(pool=...)`) and is
   captured on one side stream, where its warm-up block ran; the graphs
   replay on the current stream, one after another, so they share one
-  step's temporaries: a sub-batch keeps what `micro_batch` is for.
+  step's temporaries.
 * **Capture mode.** Captures run in CUDA's "relaxed" mode: cuBLAS may
   pick, for the addresses a capture allocates, a kernel whose module the
   eager block did not need, and loading it (CUDA loads modules lazily) is
@@ -40,7 +55,8 @@ the eager loop issued every launch of every step.
   nothing), and every replay adds it.
 * **Eager.** On a CPU tensor, and on the card inside `eager()` (the
   counterpart of `jax.disable_jit`), every block runs eagerly through the
-  same body. Nothing falls back: a failed capture or replay raises.
+  same body; a kept loop's graphs stay for the calls after. Nothing falls
+  back: a failed capture or replay raises.
 """
 
 from __future__ import annotations
@@ -53,8 +69,9 @@ import time
 import torch
 
 __all__ = ["BLOCK_STEPS", "STATS", "SegmentGraph", "eager", "captures",
-           "block_lengths", "read_launches", "add_launches", "clone_tree",
-           "copy_tree", "signature"]
+           "block_lengths", "segment_graph", "live", "clear",
+           "read_launches", "add_launches", "clone_tree", "copy_tree",
+           "signature"]
 
 # The block length B away from a taylor_every window. Measured on an H100
 # at the most host-bound path, HK methylium at 10,000 trajectories
@@ -73,6 +90,7 @@ STATS = {"eager_blocks": 0, "captures": 0, "capture_s": 0.0, "replays": 0}
 
 _EAGER_DEPTH = 0
 _SIDE = {}      # device index -> (capture stream, graph memory pool)
+_LOOPS = {}     # device ("cpu" or a CUDA index) -> its live SegmentGraph
 
 _COUNTER_MODULES = ("semiclassical_tpu_torch.ops.det",
                     "semiclassical_tpu_torch.ops.det_block",
@@ -201,8 +219,17 @@ def copy_tree(dst, src):
 
 
 def signature(obj):
-    """The shapes and dtypes of a tree's tensors."""
-    return tuple((tuple(x.shape), x.dtype) for x in _leaves(obj))
+    """The structure of a tree as a hashable value: the shape and dtype of
+    each tensor, None for an absent field, and every other leaf (a host
+    scalar that the step code bakes into a graph) by value."""
+    if isinstance(obj, torch.Tensor):
+        return (tuple(obj.shape), obj.dtype)
+    if dataclasses.is_dataclass(obj):
+        return (type(obj).__name__, *(signature(getattr(obj, f.name))
+                                      for f in dataclasses.fields(obj)))
+    if isinstance(obj, tuple):
+        return tuple(signature(x) for x in obj)
+    return obj
 
 
 # ---------------------------------------------------------------------------
@@ -219,24 +246,26 @@ class _Block:
 
 
 class SegmentGraph:
-    """The blocks of one propagator's time loop under one context (the
-    potential, dt, the integrator's constants, the batch constants, the
-    error-bar mode, the sub-batches, the state's shapes and dtypes:
-    `key`), over the static buffers `static` of the whole batch.
+    """The blocks of a time loop under one context `key` (see
+    `segment_graph`), over the static buffers `static`.
 
-    `run(name, make)` runs the block `name` (a sub-batch and a length):
-    `make()` gives (body, slots) the first time, `body()` the steps on
-    the static buffers and `slots` the tensors it writes its observables
-    into; the first call runs it eagerly, the second captures and
-    replays it, later ones replay it. With `capture` False (a CPU device,
-    or `eager()`) every call runs the body."""
+    `run(name, make)` runs the block `name` (its length): `make()` gives
+    (body, slots) the first time, `body()` the steps on the static
+    buffers and `slots` the tensors it writes its observables into; the
+    first call runs it eagerly, the second captures and replays it, later
+    ones replay it. Where `captures(device)` is false at the call (a CPU
+    device, or inside `eager()`) the call runs the body and leaves the
+    block's graph for later calls; `capture` True or False fixes the
+    choice instead."""
 
     def __init__(self, key, static, device, capture=None):
         self.key = key
         self.static = static
-        self.capture = captures(device) if capture is None else capture
-        cuda = self.capture and torch.device(device).type == "cuda"
-        self.stream, self.pool = _side(device) if cuda else (None, None)
+        self.device = torch.device(device)
+        self.capture = capture
+        self.stream, self.pool = (_side(self.device)
+                                  if self.device.type == "cuda"
+                                  else (None, None))
         self.blocks = {}
         self.stepper = None   # the owner's step functions the blocks call
 
@@ -247,19 +276,12 @@ class SegmentGraph:
             a is b or (not _is_object(a) and a == b)
             for a, b in zip(key, self.key))
 
-    def load(self, tree):
-        """Copy `tree` (state, trackers, carry) into the static buffers."""
-        copy_tree(self.static, tree)
-
-    def read(self):
-        """A copy of the static buffers, detached from later blocks."""
-        return clone_tree(self.static)
-
     def run(self, name, make):
         block = self.blocks.get(name)
         if block is None:
             block = self.blocks[name] = _Block(*make())
-        if not self.capture:
+        if not (captures(self.device) if self.capture is None
+                else self.capture):
             block.body()
             STATS["eager_blocks"] += 1
         elif not block.warm:
@@ -311,6 +333,48 @@ class SegmentGraph:
         block.graph.replay()
         add_launches(block.launches)
         STATS["replays"] += 1
+
+
+def _device_key(device):
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def segment_graph(key, device, build):
+    """(the time loop of `device` for the context `key`, True if it is
+    new). The device's live loop serves while its key matches `key`
+    (objects compared by identity, values by equality), whatever
+    propagator, batch or sub-batch calls it; otherwise the live loop is
+    dropped, and with it its graphs and buffers, before `build()` gives
+    the new loop's (static buffers, stepper), and the new loop becomes
+    the device's live one."""
+    index = _device_key(device)
+    loop = _LOOPS.get(index)
+    if loop is not None and loop.matches(key):
+        return loop, False
+    loop = _LOOPS.pop(index, None)
+    del loop                       # the old graphs go before the new ones
+    static, stepper = build()
+    loop = _LOOPS[index] = SegmentGraph(key, static, device)
+    loop.stepper = stepper
+    return loop, True
+
+
+def live(device):
+    """The live time loop of `device`, or None."""
+    return _LOOPS.get(_device_key(device))
+
+
+def clear(device=None):
+    """Drop the live time loop of `device` (of every device when None):
+    its graphs, its static buffers and the potential its key holds. For
+    tests, and for a caller that wants the memory back between runs."""
+    if device is None:
+        _LOOPS.clear()
+    else:
+        _LOOPS.pop(_device_key(device), None)
 
 
 def _side(device):

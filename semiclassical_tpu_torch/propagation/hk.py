@@ -24,9 +24,10 @@ The port of `semiclassical_tpu.propagation.hk` on two paths:
   `taylor_every` window of an sGDML potential restarts at each, as in the
   JAX package), each in blocks of steps that the card runs as replays of
   captured CUDA graphs (`graph`, the counterpart of the JAX package's
-  jitted scans; eager on the CPU and under `graph.eager()`), with every
-  per-step result written into preallocated device tensors — no host
-  synchronisation per step. C(t),
+  jitted scans and of their cache: the process keeps one loop per card
+  across batches, propagators and sub-batches of the same key; eager on
+  the CPU and under `graph.eager()`), with every per-step result written
+  into preallocated device tensors — no host synchronisation per step. C(t),
   k~ic(t) and the batch-mean energies come to the host once per call,
   where the energy-conservation guard and the separable phases apply.
   With `error_bars` every step also writes the second moments
@@ -460,9 +461,15 @@ def hk_autocorr_qp(params: HKParams, bc: BatchConstants, state: TrajState,
                                              params.q0, params.p0)
     total_re = re_t + bc.obs_re
     total_im = (bc.obs_im - im_t) + state.S.to(re_t.dtype) / hbar
-    fac = params.csot0.fac.conjugate() * params.csoi0.fac
+    fac = _conj(params.csot0.fac) * params.csoi0.fac
     return fac * c_signed * linalg.complex_exp(total_re, total_im,
                                                c_signed.dtype)
+
+
+def _conj(fac):
+    """The conjugate of an overlap prefactor: a host complex, or the 0-d
+    device tensor of a time loop's pack (`_device_facs`)."""
+    return fac.conj() if isinstance(fac, torch.Tensor) else fac.conjugate()
 
 
 def hk_observables_qp(params: HKParams, bc: BatchConstants,
@@ -789,6 +796,31 @@ def _batch_rows(obj, a, b):
     return dataclasses.replace(obj, **fields)
 
 
+def _tree_rows(tree, a, b):
+    """`_batch_rows` of each entry of a tuple (None kept)."""
+    return tuple(None if x is None else _batch_rows(x, a, b) for x in tree)
+
+
+def _only(obj, keep):
+    """A dataclass with every field but those named in `keep` set to
+    None."""
+    return dataclasses.replace(obj, **{
+        f.name: None for f in dataclasses.fields(obj) if f.name not in keep})
+
+
+def _device_facs(params: HKParams):
+    """The HK pack as the time loop's blocks read it: csoi0 and csot0 with
+    their prefactor `fac` as a 0-d complex128 device tensor; csott and wf
+    (the norm's and the grid's, which no step reads) None."""
+    def fac(ov):
+        return dataclasses.replace(ov, fac=torch.tensor(
+            complex(ov.fac), dtype=torch.complex128,
+            device=ov.Gi_iGij_Gj.device))
+
+    return dataclasses.replace(params, csoi0=fac(params.csoi0),
+                               csot0=fac(params.csot0), csott=None, wf=None)
+
+
 @dataclass
 class _MorseCache:
     """The exact Morse map of a propagator: its constants, its carry, and
@@ -993,12 +1025,28 @@ class HermanKlukPropagator:
         """The branch-cut tracking state at the initial conditions."""
         return SignTracker.fresh(hk_prefactor_det(self.params, state))
 
-    def _observe(self, state, tracker, potential, bc, m2_mode=False):
+    def _loop_constants(self, bc):
+        """The batch constants as the time loop's blocks read them: the
+        fields `_observe` reads, every other one None (a block that read
+        one would fail), `log_weight_scale` among them: it is applied on
+        the host after the loop."""
+        return _only(bc, ("obs_re", "obs_im", "nacq"))
+
+    def _loop_params(self):
+        """The parameter pack as the time loop's blocks read it: the
+        overlap prefactors `fac` as 0-d device tensors, so that a pack of
+        another Gamma_0 loads into a kept loop instead of being baked into
+        its graphs."""
+        return _device_facs(self.params)
+
+    @staticmethod
+    def _observe(params, state, tracker, potential, bc, m2_mode=False):
         """One step's observables: the tracker advanced to `state`, the
         (C_auto, k~ic) batch sums as 0-d device tensors, and their second
-        moments (`second_moment`; None unless `m2_mode`)."""
-        tracker = tracker.update(hk_prefactor_det(self.params, state))
-        cauto_qp, kic_qp = hk_observables_qp(self.params, bc, state,
+        moments (`second_moment`; None unless `m2_mode`). Reads nothing of
+        a propagator: a kept loop's blocks run it for every batch."""
+        tracker = tracker.update(hk_prefactor_det(params, state))
+        cauto_qp, kic_qp = hk_observables_qp(params, bc, state,
                                              tracker.sqrt(), potential)
         return (tracker, torch.sum(cauto_qp), torch.sum(kic_qp),
                 *_moments(cauto_qp, kic_qp, m2_mode))
@@ -1027,29 +1075,46 @@ class HermanKlukPropagator:
         return n // m
 
     def _invalidate_map(self):
-        """Drop the exact maps' cached constants and the time loop's graphs
-        (a new batch, a restored checkpoint)."""
-        self._hmap = None     # (dt, potential, HarmonicMap)
+        """Drop the exact Morse map's cached constants and carry (a new
+        batch, a restored checkpoint). The time loop is not the
+        propagator's: the process holds it (`graph.segment_graph`), and
+        the next `_run` loads the new batch into it."""
         self._morse = None    # _MorseCache
-        self._loop = None     # graph.SegmentGraph
+
+    @property
+    def _loop(self):
+        """The time loop that the process holds for this device."""
+        return graph.live(self.device)
+
+    def _window(self, potential):
+        """The taylor_every window of the RK4 loop (1 elsewhere)."""
+        if self.integrator == "exact":
+            return 1
+        return int(getattr(potential, "taylor_every", 1) or 1)
 
     def _stepper(self, potential, dt):
-        """(fresh, advance, window) of the time loop: `fresh(state, carry)`
-        gives the state and carry at the head of a scan segment (`carry`
-        the previous segment's, None at the first), `advance(state, carry)`
-        one step as (new state, mean energy at the step start, new carry).
-        `window` is the taylor_every window, whose carry restarts at the
-        head of every block (1 elsewhere: the carry persists)."""
+        """(fresh, advance, window) of the time loop, from what the loop's
+        key holds (the potential, dt, the state's representation and
+        dtypes): `fresh(state, carry, pack)` gives the state and carry at
+        the head of a scan segment (`carry` the previous segment's, or the
+        batch's first), `advance(state, carry, pack)` one step as (new
+        state, mean energy at the step start, new carry); `pack` is the
+        exact Morse map's per-batch constants (None elsewhere, see
+        `_morse_map`). `window` is the taylor_every window, whose carry
+        restarts at the head of every block (1 elsewhere: the carry
+        persists). Nothing of the propagator is held: the loop keeps the
+        stepper for every batch it runs."""
         if self.integrator == "exact":
             return self._exact_stepper(potential, dt)
-        every = int(getattr(potential, "taylor_every", 1) or 1)
+        every = self._window(potential)
         if every > 1:
             if getattr(potential, "hessian_eval", "stage") != "taylor":
                 raise ValueError(
                     "taylor_every > 1 requires hessian_eval='taylor'")
             window0, window_step = make_taylor_window(potential, dt, every)
-            return ((lambda state, carry: (state, window0(state))),
-                    window_step, every)
+            return ((lambda state, carry, pack: (state, window0(state))),
+                    (lambda state, carry, pack: window_step(state, carry)),
+                    every)
         step_map = None
         if not self.state.diag_monodromy:
             hess = potential.local_expansion(self.state.q[:1])[2]
@@ -1057,30 +1122,42 @@ class HermanKlukPropagator:
                 step_map = const_step_map(hess, potential.masses(), dt,
                                           self.state.Z.dtype)
 
-        def advance(state, carry):
+        def advance(state, carry, pack):
             return (*rk4_step(state, potential, dt, step_map), carry)
 
-        return (lambda state, carry: (state, None)), advance, 1
+        return (lambda state, carry, pack: (state, None)), advance, 1
 
     def _exact_stepper(self, potential, dt):
-        """The exact map's (fresh, advance, window). The harmonic map is
-        kept per (dt, potential); the Morse map's constants and carry
-        persist across segments and calls while dt, the potential object
-        and the state object stay those it advanced (objects compared by
-        retained identity, so a replaced state or potential rebuilds
-        it)."""
+        """The exact map's (fresh, advance, window): the harmonic map of
+        (potential, dt) built here, or the Morse map, whose per-batch pack
+        and carry come from `_morse_map`."""
         dt = float(dt)
         if supports_exact_harmonic(potential):
-            if (self._hmap is None or self._hmap[0] != dt
-                    or self._hmap[1] is not potential):
-                self._hmap = (dt, potential,
-                              build_harmonic_map(potential, dt, self.state))
-            hmap = self._hmap[2]
+            hmap = build_harmonic_map(potential, dt, self.state)
 
-            def advance(state, carry):
+            def advance(state, carry, pack):
                 return (*harmonic_step(hmap, state, potential), carry)
 
-            return (lambda state, carry: (state, None)), advance, 1
+            return (lambda state, carry, pack: (state, None)), advance, 1
+
+        def fresh(state, carry, pack):
+            return morse_map_state(pack, carry), carry
+
+        def advance(state, carry, pack):
+            carry, energy = morse_map_advance(pack, carry, dt, potential)
+            return morse_map_state(pack, carry), energy, carry
+
+        return fresh, advance, 1
+
+    def _morse_map(self, potential, dt):
+        """(pack, carry) of the exact Morse map of this batch, or (None,
+        None) off that path. Its constants and carry persist across
+        segments and calls while dt, the potential object and the state
+        object stay those it advanced (objects compared by retained
+        identity, so a replaced state or potential rebuilds it)."""
+        if self.integrator != "exact" or supports_exact_harmonic(potential):
+            return None, None
+        dt = float(dt)
         cache = self._morse
         if (cache is None or cache.dt != dt or cache.potential is not potential
                 or cache.state is not self.state):
@@ -1094,57 +1171,54 @@ class HermanKlukPropagator:
                                           self.group)
             cache = self._morse = _MorseCache(dt, potential, self.state,
                                               pack, carry)
+        return cache.pack, cache.carry
 
-        def fresh(state, carry):
-            carry = cache.carry if carry is None else carry
-            return morse_map_state(cache.pack, carry), carry
+    def _segment_graph(self, potential, dt, m2_mode, k):
+        """(the device's time loop for this call, the head of the first
+        segment (state, trackers, carry) of the whole batch, the batch
+        constants as the blocks read them). The loop's static buffers
+        hold one sub-batch's rows (n / k): the carried head, then the
+        inputs (the parameter pack, the batch constants, the Morse map's
+        pack). The loop is the kept one while its key holds, whatever
+        propagator or batch ran it before: the class, integrator and
+        precision, the potential (by identity), dt, the error-bar mode,
+        the sub-batch count and the `graph.signature` of every static
+        tree (shapes, dtypes, structure and the packs' host scalars); a
+        new one otherwise, which keeps the stepper its blocks call. The
+        inputs are loaded here, and with one sub-batch the head too."""
+        pack, carry = self._morse_map(potential, dt)
+        state = self.state if pack is None else morse_map_state(pack, carry)
+        head = (state, self.tracker,
+                None if self._window(potential) > 1 else carry)
+        bc = self._loop_constants(self.bc)
+        m = self.n_local // k
+        inputs = (self._loop_params(),
+                  bc if k == 1 else _batch_rows(bc, 0, m), pack)
+        static = (*(head if k == 1 else _tree_rows(head, 0, m)), *inputs)
+        key = (potential, type(self), self.integrator, self.dtype,
+               self.traj_dtype, float(dt), m2_mode, k,
+               graph.signature(static))
+        loop, new = graph.segment_graph(
+            key, self.device, lambda: (graph.clone_tree(static),
+                                       self._stepper(potential, dt)))
+        if not new:
+            graph.copy_tree(loop.static[3:], inputs)
+            if k == 1:
+                graph.copy_tree(loop.static[:3], head)
+        return loop, head, bc
 
-        def advance(state, carry):
-            carry, energy = morse_map_advance(cache.pack, carry, dt,
-                                              potential)
-            return morse_map_state(cache.pack, carry), energy, carry
-
-        return fresh, advance, 1
-
-    def _segment_graph(self, potential, dt, m2_mode, rows):
-        """The time loop's `graph.SegmentGraph` for this call, its static
-        buffers loaded with the state, the trackers and the carry at the
-        head of the first segment: the cached loop while its context holds
-        (the potential, dt, the exact maps' constants, the batch constants,
-        the error-bar mode, the sub-batches, the state's and trackers'
-        shapes and dtypes), else a new one, which keeps the stepper its
-        graphs read."""
-        stepper = self._stepper(potential, dt)
-        key = (potential, float(dt), m2_mode, tuple(rows), self.bc,
-               None if self._hmap is None else self._hmap[2], self._morse,
-               graph.signature((self.state, self.tracker)))
-        loop = self._loop
-        if loop is None or not loop.matches(key):
-            loop = None
-            self._loop = None      # the old graphs go before the new ones
-        fresh, _, window = stepper if loop is None else loop.stepper
-        state, carry = ((self.state, None) if window > 1
-                        else fresh(self.state, None))
-        head = (state, self.tracker, carry)
-        if loop is not None:
-            loop.load(head)
-            return loop
-        loop = self._loop = graph.SegmentGraph(key, graph.clone_tree(head),
-                                               self.device)
-        loop.stepper = stepper
-        return loop
-
-    def _block(self, loop, rows, length, potential, bc, m2_mode):
-        """(body, slots) of one block: `length` steps of the sub-batch
-        `rows` (a, b) on views of the loop's static buffers, the first
-        restarting a taylor_every window; each step's (C_auto, k~ic),
-        mean energy and second moments go into the slots, the state, the
-        trackers and a persisting carry back into the buffers."""
+    def _block(self, loop, length, potential, m2_mode):
+        """(body, slots) of one block: `length` steps on the loop's static
+        buffers (one sub-batch's rows), the first restarting a
+        taylor_every window; each step's (C_auto, k~ic), mean energy and
+        second moments go into the slots, the state, the trackers and a
+        persisting carry back into the buffers. The body reads the
+        parameter pack, the batch constants and the Morse map's pack from
+        the buffers, never from this propagator: every batch the loop
+        runs goes through it."""
         fresh, advance, window = loop.stepper
-        state, tracker, carry = loop.static
-        if rows != (0, self.n_local):
-            state, tracker = (_batch_rows(state, *rows),
-                              _batch_rows(tracker, *rows))
+        observe = self._observe
+        state, tracker, carry, params, bc, pack = loop.static
         slots = (torch.empty(2, length, dtype=self.cdtype,
                              device=self.device),
                  torch.empty(length, dtype=state.q.dtype, device=self.device),
@@ -1154,12 +1228,12 @@ class HermanKlukPropagator:
         def body():
             st, tr, cr = state, tracker, carry
             if window > 1:
-                st, cr = fresh(st, None)
+                st, cr = fresh(st, None, pack)
             sums, energies, moments = ([], []), [], ([], [])
             for _ in range(length):
-                tr, c, k, m2c, m2k = self._observe(st, tr, potential, bc,
-                                                    m2_mode)
-                st, energy, cr = advance(st, cr)
+                tr, c, k, m2c, m2k = observe(params, st, tr, potential, bc,
+                                             m2_mode)
+                st, energy, cr = advance(st, cr, pack)
                 sums[0].append(c)
                 sums[1].append(k)
                 energies.append(energy)
@@ -1188,23 +1262,29 @@ class HermanKlukPropagator:
         (2, nt) (None unless `m2_mode`); sub-batch sums and moments add,
         energies average.
 
+        The sub-batches share the loop's blocks, one per length (the JAX
+        package's `lax.map` over one compiled body): before the first
+        block of a sub-batch in a segment its rows of the state, the
+        trackers and the batch constants are copied into the loop's
+        buffers, after its last block the state and the trackers back.
+
         A `taylor_every` window (`eom.make_taylor_window`) restarts at the
         head of every segment, as the JAX package's scans do, so `chunk`
         is part of the result there; `self.state` and the trackers are
-        materialised from the static buffers at the end of every segment,
-        where the group reduces and `progress`, if given, is called (one
-        host read per segment)."""
+        materialised at the end of every segment, where the group reduces
+        and `progress`, if given, is called (one host read per
+        segment)."""
         if chunk is None or chunk >= nt:
             segments = [nt]
         else:
             segments = [chunk] * (nt // chunk) + ([nt % chunk]
                                                    if nt % chunk else [])
-        k, n = self._micro_k(m2_mode), self.n_local
-        rows = [(s * n // k, (s + 1) * n // k) for s in range(k)]
-        bcs = ([self.bc] if k == 1
-               else [_batch_rows(self.bc, a, b) for a, b in rows])
-        loop = self._segment_graph(potential, dt, m2_mode, rows)
+        k = self._micro_k(m2_mode)
+        m = self.n_local // k
+        loop, head, bc = self._segment_graph(potential, dt, m2_mode, k)
         window = loop.stepper[2]
+        carried = loop.static[:3]
+        whole = carried if k == 1 else graph.clone_tree(head)
         sums = torch.empty(2, k, nt, dtype=self.cdtype, device=self.device)
         energies = torch.empty(k, nt, dtype=self.state.q.dtype,
                                device=self.device)
@@ -1212,23 +1292,28 @@ class HermanKlukPropagator:
               if m2_mode else None)
         done = 0
         for seg in segments:
-            for s, ab in enumerate(rows):
+            for s in range(k):
+                rows = (s * m, (s + 1) * m)
+                if k > 1:
+                    graph.copy_tree(carried, _tree_rows(whole, *rows))
+                    graph.copy_tree(loop.static[4], _batch_rows(bc, *rows))
                 i = done
                 for length in graph.block_lengths(seg, window):
                     obs, energy, moments = loop.run(
-                        (s, length),
-                        lambda: self._block(loop, ab, length, potential,
-                                            bcs[s], m2_mode))
+                        length, lambda: self._block(loop, length, potential,
+                                                    m2_mode))
                     sums[:, s, i:i + length] = obs
                     energies[s, i:i + length] = energy
                     if m2_mode:
                         m2[:, s, i:i + length] = moments
                     i += length
+                if k > 1:
+                    graph.copy_tree(_tree_rows(whole, *rows), carried)
             if self.group is not None:
                 self._reduce_segment(slice(done, done + seg), sums[0],
                                      sums[1], energies, m2)
             done += seg
-            self.state, self.tracker, carry = loop.read()
+            self.state, self.tracker, carry = graph.clone_tree(whole)
             if self._morse is not None:
                 # the map's carry advanced with the state
                 self._morse.state, self._morse.carry = self.state, carry

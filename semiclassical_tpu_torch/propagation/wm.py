@@ -61,8 +61,9 @@ from semiclassical_tpu_torch import linalg
 from semiclassical_tpu_torch.ops import wm_diag as _wm_diag_ops
 from semiclassical_tpu_torch.propagation.hk import (BatchConstants, HKParams,
                                                     HermanKlukPropagator,
+                                                    _device_facs,
                                                     _divisor_block, _moments,
-                                                    _no_sampled_ring,
+                                                    _no_sampled_ring, _only,
                                                     _pair_sum, _sqrt_norm,
                                                     hk_batch_constants,
                                                     hk_prefactor_det,
@@ -967,14 +968,25 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
                                                           state)),
             detA=SignTracker.fresh(detA), detM=SignTracker.fresh(detM))
 
-    def _observe(self, state, tracker, potential, bc, m2_mode=False):
+    def _loop_constants(self, bc):
+        """The batch constants as the time loop's blocks read them (see
+        `HermanKlukPropagator._loop_constants`)."""
+        return dataclasses.replace(
+            bc, base=_only(bc.base, ("qi", "pi", "logw_norm")))
+
+    def _loop_params(self):
+        return dataclasses.replace(self.params,
+                                   hk=_device_facs(self.params.hk))
+
+    @staticmethod
+    def _observe(params, state, tracker, potential, bc, m2_mode=False):
         prefactorC = tracker.prefactorC.update(
-            hk_prefactor_det(self.params.hk, state))
-        sd = wm_scan_derived(self.params, bc, state, potential)
+            hk_prefactor_det(params.hk, state))
+        sd = wm_scan_derived(params, bc, state, potential)
         detA = tracker.detA.update(sd.detA)
         detM = tracker.detM.update(sd.detM)
         cauto_qp, kic_qp = wm_scan_observables_qp(
-            self.params, bc, state, sd, prefactorC.sqrt(), detA.signs,
+            params, bc, state, sd, prefactorC.sqrt(), detA.signs,
             detM.signs)
         return (WMTrackers(prefactorC, detA, detM), torch.sum(cauto_qp),
                 torch.sum(kic_qp), *_moments(cauto_qp, kic_qp, m2_mode))

@@ -21,6 +21,11 @@
   `vs_baseline`), exit 0, no JAX imported; without CUDA and without
   `--device cpu` it stops with a message; a bench that raises prints its
   error line and the script exits 1.
+* The warm-up (`bench_torch.warm_up`) on a loop that captures (the CPU
+  stand-in `ReplayGraph`, whose replays run the recorded bodies): each
+  bench's scan then
+  shows 0 captures and 0 eager blocks, and its curves equal the eager
+  run's.
 * `torch_pod_bench.run` on a gloo group of 2 (tests/torch_group_workers.py)
   at 32 trajectories a rank x 10 steps: its line says nchips 2 and ntraj
   64, and its curves are within 1e-12 of one process's at 64.
@@ -45,6 +50,7 @@ from semiclassical_tpu.propagation import WaltonManolopoulosPropagator as JaxWM
 from semiclassical_tpu.pytree import replace as jax_replace
 
 import torch_group_workers as workers
+from test_torch_port_graph import ReplayGraph
 from test_torch_port_precision import MODES, SAME_MODE_TOL, jax_propagator
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -53,6 +59,7 @@ if str(REPO) not in sys.path:
 
 import bench_torch  # noqa: E402
 from __graft_entry__ import _as60_setup  # noqa: E402
+from semiclassical_tpu_torch.propagation import graph  # noqa: E402
 
 F64_TOL = 1e-8
 GDML_TOL = 1e-6
@@ -285,6 +292,31 @@ def test_run_benches_keeps_going_after_a_failure(monkeypatch):
     assert results["gdml"]["metric"] == "gdml_bench_error"
     assert isinstance(results["wm"], bench_torch.BenchResult)
     assert results["wm"].prop is None
+
+
+def test_warm_up_leaves_the_scan_only_replays(monkeypatch):
+    """Blocks of 4 steps: hk 6 steps (4 and a tail of 2, each once), wm 6
+    steps in two sub-batches, gdml 3 steps under taylor_every 32 (one
+    block of 3). After the warm-up and the redraw, each scan replays every
+    block: 0 captures, 0 eager blocks; the curves equal the eager run's."""
+    for key, value in dict(TINY, BENCH_WM_MICRO="16").items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(graph, "BLOCK_STEPS", 4)
+    eager = {name: bench_torch.BENCHES[name]("cpu").curves
+             for name in bench_torch.EXEC_ORDER}
+    monkeypatch.setattr(graph, "SegmentGraph", ReplayGraph)
+    graph.clear()
+    try:
+        for name in bench_torch.EXEC_ORDER:
+            result = bench_torch.BENCHES[name]("cpu")
+            counts = result.line["graph"]
+            assert counts["captures"] == counts["eager_blocks"] == 0, name
+            assert counts["replays"] > 0, name
+            for got, ref in zip(result.curves, eager[name], strict=True):
+                assert np.array_equal(got, ref), name
+            graph.clear()
+    finally:
+        graph.clear()
 
 
 def test_pod_bench_group_of_two_equals_one_process(tmp_path):

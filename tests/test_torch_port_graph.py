@@ -55,6 +55,14 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True)
+def no_live_loop():
+    """Each test starts and ends with no time loop held by the process."""
+    graph.clear()
+    yield
+    graph.clear()
+
+
 # --- the step loop the blocks replaced --------------------------------------
 
 def _cat_batches(parts):
@@ -84,6 +92,7 @@ def step_loop(prop, potential, dt, nt, chunk=None, progress=None,
     sub-batch by sub-batch, step by step, each result written into its
     column, the sub-batches concatenated at the segment's end."""
     fresh, advance, _ = prop._stepper(potential, dt)
+    pack, carry = prop._morse_map(potential, dt)
     if chunk is None or chunk >= nt:
         segments = [nt]
     else:
@@ -98,7 +107,7 @@ def step_loop(prop, potential, dt, nt, chunk=None, progress=None,
     energies = torch.empty(k, nt, dtype=prop.state.q.dtype)
     m2 = torch.empty(2, k, nt, dtype=torch.float64) if m2_mode else None
     state, tracker = prop.state, prop.tracker
-    carries = [None] * k
+    carries = [carry] * k
     done = 0
     for seg in segments:
         parts = []
@@ -106,13 +115,14 @@ def step_loop(prop, potential, dt, nt, chunk=None, progress=None,
             st, tr = ((state, tracker) if k == 1 else
                       (hk._batch_rows(state, a, b),
                        hk._batch_rows(tracker, a, b)))
-            st, carries[s] = fresh(st, carries[s])
+            st, carries[s] = fresh(st, carries[s], pack)
             for i in range(done, done + seg):
                 tr, cauto[s, i], kic[s, i], m2c, m2k = prop._observe(
-                    st, tr, potential, bcs[s], m2_mode)
+                    prop.params, st, tr, potential, bcs[s], m2_mode)
                 if m2_mode:
                     m2[0, s, i], m2[1, s, i] = m2c, m2k
-                st, energies[s, i], carries[s] = advance(st, carries[s])
+                st, energies[s, i], carries[s] = advance(st, carries[s],
+                                                         pack)
             parts.append((st, tr))
         state, tracker = (parts[0] if k == 1 else
                           tuple(_cat_batches(list(x)) for x in zip(*parts)))
@@ -537,9 +547,11 @@ def test_eager_context_and_capture_choice():
 
 
 def test_cache_holds_its_context_and_is_dropped(ref_data, tmp_path):
-    """One loop across calls with the same context; a new one for another
-    dt, potential or error-bar mode; none after initial_conditions, a
-    checkpoint restore or `_invalidate_map`."""
+    """The device's loop is the process's, kept by its key: across calls,
+    `initial_conditions`, a checkpoint restore, `_invalidate_map` and a new
+    propagator of the same key; dropped for another dt, potential,
+    error-bar mode, precision, batch shape or sub-batch layout, and by
+    `graph.clear`."""
     from semiclassical_tpu_torch.checkpoint import (load_propagator_state,
                                                     save_propagator_state)
 
@@ -547,27 +559,224 @@ def test_cache_holds_its_context_and_is_dropped(ref_data, tmp_path):
     prop = _propagator("HK", pot, q0, G)
     prop.propagate(pot, 2.0, 5)
     loop = prop._loop
+    assert loop is graph.live("cpu") and loop.key[0] is pot
     prop.propagate(pot, 2.0, 7, chunk=3)
     assert prop._loop is loop and len(loop.blocks) == 3
-    prop.propagate(pot, 2.0, 5, error_bars=True)
-    assert prop._loop is not loop
-    loop = prop._loop
-    prop.propagate(pot, 1.0, 5, error_bars=True)
-    assert prop._loop is not loop
-    loop = prop._loop
-    other = dataclasses.replace(pot)
-    prop.propagate(other, 1.0, 5, error_bars=True)
-    assert prop._loop is not loop and prop._loop.key[0] is other
     save_propagator_state(str(tmp_path / "ck.npz"), prop)
-    load_propagator_state(str(tmp_path / "ck.npz"), prop)
-    assert prop._loop is None
-    prop.propagate(pot, 2.0, 3)
-    prop._invalidate_map()
-    assert prop._loop is None
-    prop.propagate(pot, 2.0, 3)
-    prop.initial_conditions(q0, 0 * q0, G, pot, ntraj=8,
+    prop.initial_conditions(q0, 0 * q0, G, pot, ntraj=NTRAJ,
                             generator=torch.Generator().manual_seed(1))
-    assert prop._loop is None
+    prop.propagate(pot, 2.0, 5)
+    load_propagator_state(str(tmp_path / "ck.npz"), prop)
+    prop.propagate(pot, 2.0, 5)
+    prop._invalidate_map()
+    prop.propagate(pot, 2.0, 5)
+    other = _propagator("HK", pot, 1.1 * q0, G, seed=9)
+    other.propagate(pot, 2.0, 5)
+    assert prop._loop is loop and other._loop is loop
+    assert len(loop.blocks) == 3
+
+    def dropped(run):
+        before = graph.live("cpu")
+        run()
+        assert graph.live("cpu") is not before
+        return graph.live("cpu")
+
+    dropped(lambda: prop.propagate(pot, 2.0, 5, error_bars=True))
+    dropped(lambda: prop.propagate(pot, 1.0, 5, error_bars=True))
+    moved = dataclasses.replace(pot)
+    assert dropped(lambda: prop.propagate(moved, 1.0, 5)).key[0] is moved
+    dropped(lambda: _propagator("WM", pot, q0, G).propagate(pot, 2.0, 5))
+    dropped(lambda: _propagator("HK", pot, q0, G, precision="comp32")
+            .propagate(pot, 2.0, 5))
+    dropped(lambda: _propagator("HK", pot, q0, G, ntraj=16)
+            .propagate(pot, 2.0, 5))
+    dropped(lambda: prop.propagate(pot, 2.0, 5, micro_batch=8))
+    dropped(lambda: prop.propagate(pot, 2.0, 5, micro_batch=16))
+    graph.clear()
+    assert graph.live("cpu") is None and prop._loop is None
+
+
+class ReplayGraph(graph.SegmentGraph):
+    """A SegmentGraph that captures on the CPU: the capture records the
+    body's closure and runs nothing, a replay runs what was recorded, as a
+    CUDA graph replays what it captured (the addresses and the Python
+    values of its capture, whatever the caller holds now)."""
+
+    def __init__(self, key, static, device, capture=True):
+        super().__init__(key, static, device, capture)
+
+    def _record(self, body):
+        return types.SimpleNamespace(replay=body)
+
+
+@pytest.fixture
+def replays(monkeypatch):
+    """The process's loops made as ReplayGraphs."""
+    monkeypatch.setattr(graph, "SegmentGraph", ReplayGraph)
+    graph.clear()
+    yield
+    graph.clear()
+
+
+def _outputs(prop, pot, dt, nt, **kw):
+    """Everything a run gives: its curves (and stderr), the energies, the
+    state, the trackers."""
+    out = prop.propagate(pot, dt, nt, chunk=9, error_bars=True,
+                         check_energy=False, **kw)
+    return (*out, prop.last_energies,
+            *graph._leaves((prop.state, prop.tracker)))
+
+
+def _assert_equal(got, ref):
+    for g, r in zip(got, ref, strict=True):
+        if isinstance(g, torch.Tensor):
+            assert torch.equal(g, r)
+        else:
+            assert np.array_equal(g, r)
+
+
+def _normals(q0, G, ntraj, seed):
+    """(ntraj, 2 rank) standard normals from numpy at `seed`."""
+    from semiclassical_tpu_torch.sampling import SamplingParams
+
+    rank = SamplingParams.create(q0, 0 * q0, G, G, "cpu").rank
+    return torch.from_numpy(
+        np.random.default_rng(seed).standard_normal((ntraj, 2 * rank)))
+
+
+KEPT_CASES = [("dense", "HK"), ("dense", "WM"), ("diag", "HK"),
+              ("diag", "WM"), ("taylor", "HK"), ("harmonic", "WM")]
+
+
+@pytest.mark.parametrize("case, name", KEPT_CASES,
+                         ids=["-".join(c) for c in KEPT_CASES])
+def test_kept_loop_equals_a_fresh_loop(ref_data, monkeypatch, tmp_path,
+                                       replays, case, name):
+    """On loops that capture and replay (ReplayGraph, blocks of 4): a
+    later batch of the same propagator, a second propagator with another
+    q0 (and, for HK, another Gamma_0) of the same shapes, and a restored
+    checkpoint each run through the loop and the recorded blocks of an
+    earlier batch, and give C(t), k~ic(t), their stderr (the second
+    moments), the energies, the state and the trackers equal to those of
+    a fresh loop. A block that read the earlier batch's values through
+    its closure would differ. (WM's pack bakes in host scalars of
+    Gamma_0, its `auto_pref` and `m_scale`: another Gamma_0 is another
+    loop there.)"""
+    from semiclassical_tpu_torch.checkpoint import (load_propagator_state,
+                                                    save_propagator_state)
+
+    monkeypatch.setattr(graph, "BLOCK_STEPS", 4)
+    pot, q0, G, dt, integrator = _model(case, ref_data)
+    # segments of 9 in blocks of 4 (taylor_every 8: of 8) and 1: every
+    # block runs at least twice, so every one is recorded by the first run
+    nt, ntraj = 18, 16 if case == "taylor" else NTRAJ
+
+    def draw(prop, center, G0, seed):
+        prop.initial_conditions(center, 0 * center, G0, pot, ntraj=ntraj,
+                                normals=_normals(q0, G, ntraj, seed))
+        return prop
+
+    def new(center=q0, G0=G, seed=1):
+        return draw(_propagator(name, pot, q0, G, ntraj=ntraj,
+                                integrator=integrator), center, G0, seed)
+
+    def earlier_loop():
+        """A fresh loop that has run one batch, every block recorded."""
+        graph.clear()
+        _outputs(new(seed=1), pot, dt, nt)
+        loop = graph.live("cpu")
+        assert all(b.graph is not None for b in loop.blocks.values())
+        return loop, dict(loop.blocks)
+
+    first = new()
+    cases = {
+        "later batch": lambda: draw(first, q0, G, 2),
+        "second propagator": lambda: new(q0 + 0.03,
+                                         1.05 * G if name == "HK" else G, 3),
+    }
+    for label, make in cases.items():
+        loop, blocks = earlier_loop()
+        kept = _outputs(make(), pot, dt, nt)
+        assert graph.live("cpu") is loop and loop.blocks == blocks, label
+        graph.clear()
+        _assert_equal(kept, _outputs(make(), pot, dt, nt))
+
+    # the first propagator's batch after nt steps, checkpointed; its next
+    # nt steps through a fresh loop, and again from the checkpoint restored
+    # into a propagator whose batch ran through that loop since
+    ck = str(tmp_path / "ck.npz")
+    save_propagator_state(ck, first)
+    graph.clear()
+    tail = _outputs(first, pot, dt, nt)
+    loop, blocks = graph.live("cpu"), dict(graph.live("cpu").blocks)
+    other = new(seed=4)
+    _outputs(other, pot, dt, nt)
+    load_propagator_state(ck, other)
+    _assert_equal(_outputs(other, pot, dt, nt), tail)
+    assert graph.live("cpu") is loop and loop.blocks == blocks
+
+
+def _routed(prop, pot, rows):
+    """Push `rows` over EPS_EXACT: the exact Morse map routes them to its
+    RK4 side-channel."""
+    D = pot.D.cpu().numpy()
+    p = prop.state.p.clone()
+    for row in rows:
+        p[row, row % 5] = float(np.sqrt(2.1 * D[row % 5]))
+    prop.state = dataclasses.replace(prop.state, p=p)
+    return prop
+
+
+def test_exact_morse_batches_through_the_loop(replays, monkeypatch):
+    """The exact Morse map's pack and carry load into the kept loop: a
+    second batch with as many routed rows (other rows, other values) runs
+    through it, one with another count captures anew (its side-channel's
+    shapes are in the key, as a new shape recompiles a JAX scan); each
+    equal to a fresh loop's run."""
+    monkeypatch.setattr(graph, "BLOCK_STEPS", 4)
+    pot, q0, G = _morse()
+
+    def batch(seed, rows):
+        prop = _propagator("HK", pot, q0, G, seed=seed, integrator="exact")
+        return _routed(prop, pot, rows)
+
+    def outputs(prop, rows):
+        out = _outputs(prop, pot, 2.0, 18)
+        assert prop._morse.pack.sub_idx.tolist() == sorted(rows)
+        return out
+
+    outputs(batch(5, (3, 11)), (3, 11))
+    loop = graph.live("cpu")
+    blocks = dict(loop.blocks)
+    for seed, rows, kept in ((6, (5, 20), True), (7, (8,), False)):
+        got = outputs(batch(seed, rows), rows)
+        assert (graph.live("cpu") is loop) == kept
+        assert (graph.live("cpu").blocks == blocks) == kept
+        graph.clear()
+        _assert_equal(got, outputs(batch(seed, rows), rows))
+
+
+def test_sub_batches_share_one_block_per_length(monkeypatch, replays):
+    """Under micro_batch the k sub-batches run through one staging tree and
+    one recorded block per distinct length; the run equals the step loop
+    bit for bit (the reference that blocks named per (sub-batch, length)
+    equalled too, test_blocks_equal_the_step_loop), and a second batch
+    reuses every block."""
+    pot, q0, G = _morse()
+
+    def run(prop):
+        return prop.propagate(pot, 2.0, 23, chunk=10, micro_batch=8,
+                              error_bars=True)
+
+    make = lambda: _propagator("WM", pot, q0, G)
+    _same_run(make, run, 4, monkeypatch)
+    loop = graph.live("cpu")
+    lengths = {4, 2, 3}     # segments 10, 10, 3 in blocks of 4
+    assert set(loop.blocks) == lengths
+    assert loop.static[0].q.shape[0] == 8
+    blocks = dict(loop.blocks)
+    run(make())
+    assert graph.live("cpu") is loop and loop.blocks == blocks
 
 
 def test_state_is_materialised_per_segment():
@@ -637,6 +846,48 @@ def test_graphs_equal_eager_on_the_card(name, integrator, micro):
     if name == "WM":
         k5 = ("semiclassical_tpu_torch.ops.wm_diag", "LAUNCHES")
         assert launches[k5] >= 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, integrator", [("WM", "rk4"),
+                                              ("HK", "exact")])
+def test_kept_loop_replays_a_later_batch_on_the_card(name, integrator):
+    """A second propagator's batch (another draw, the same potential)
+    through the first batch's graphs: no capture and no eager block, and
+    C(t), k~ic(t) within 1e-13 of the same batch run eagerly on a fresh
+    loop, the launch counts equal (the exact Morse map with the routed
+    rows of `_routed` in both batches, so the kept loop fits them)."""
+    _card()
+    pot, q0, G = _morse(d=6, device="cuda")
+
+    def batch(seed):
+        prop = _propagator(name, pot, q0, G, ntraj=256, device="cuda",
+                           seed=seed, integrator=integrator)
+        if integrator == "exact":
+            prop = _routed(prop, pot, (3, 11) if seed == 1 else (5, 20))
+        return prop
+
+    def run(prop):
+        before, stats = graph.read_launches(), dict(graph.STATS)
+        out = prop.propagate(pot, 2.0, 50, chunk=20, error_bars=True,
+                             check_energy=integrator != "exact")
+        torch.cuda.synchronize()
+        after = graph.read_launches()
+        return (out, {k: after[k] - before.get(k, 0) for k in after},
+                {k: graph.STATS[k] - stats[k] for k in stats})
+
+    run(batch(1))
+    loop = graph.live("cuda")
+    got, launches, stats = run(batch(2))
+    assert graph.live("cuda") is loop
+    assert stats["captures"] == stats["eager_blocks"] == 0
+    assert stats["replays"] > 0
+    graph.clear()
+    with graph.eager():
+        ref, launches_eager, _ = run(batch(2))
+    for g, r in zip(got, ref):
+        assert np.abs(g - r).max() <= 1e-13 * np.abs(r).max()
+    assert launches == launches_eager
 
 
 @pytest.mark.cuda

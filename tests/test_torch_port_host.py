@@ -150,9 +150,9 @@ import semiclassical_tpu_torch as p
 for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):
     importlib.import_module(m.name)
 import bench_torch
-spec = importlib.util.spec_from_file_location(
-    "torch_pod_bench", "scripts/torch_pod_bench.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name in ("torch_pod_bench", "torch_vr_flagship_bench"):
+    spec = importlib.util.spec_from_file_location(name, f"scripts/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
              or k == "semiclassical_tpu" or k.startswith("semiclassical_tpu.")
@@ -162,7 +162,8 @@ print("ok")
 """
 # the port's entry points outside the package
 ENTRY_POINTS = (REPO / "bench_torch.py",
-                REPO / "scripts" / "torch_pod_bench.py")
+                REPO / "scripts" / "torch_pod_bench.py",
+                REPO / "scripts" / "torch_vr_flagship_bench.py")
 
 
 def test_port_imports_no_jax():
