@@ -6,7 +6,6 @@ one process, on one NVIDIA GPU.
 
     python3 bench_torch.py                  # on the card, full size
     python3 bench_torch.py --device cpu     # on the CPU, bench.py's CPU sizes
-    python3 bench_torch.py --trace 10       # + 10 steps under torch.profiler
     python3 bench_torch.py --eager          # every step launched from the host
 
 It prints one JSON line per bench in the order wm, gdml, hk (the headline
@@ -71,7 +70,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 import traceback
 from dataclasses import dataclass
 
@@ -264,35 +262,6 @@ def gdml_setup(ntraj, device, normals=None, hess_dtype="float32",
 # the run
 # ---------------------------------------------------------------------------
 
-def trace_steps(prop, pot, dt, steps, energy0_es):
-    """{busy share, kernels per step, device ms per step} of `steps` more
-    steps under torch.profiler: the kernels' summed durations over the
-    traced wall. Two untraced runs of `steps` steps come first (the first
-    block of a length runs eagerly, the second captures it), so the traced
-    steps replay."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        prop.propagate(pot, dt, steps, energy0_es=energy0_es,
-                       check_energy=False)
-    torch.cuda.synchronize(prop.device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prop.propagate(pot, dt, steps, energy0_es=energy0_es,
-                       check_energy=False)
-        torch.cuda.synchronize(prop.device)
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    return {"steps": steps, "busy": round(busy / wall, 4),
-            "kernels_per_step": round(len(kernels) / steps, 1),
-            "device_ms_per_step": round(1e3 * busy / steps, 4),
-            "ms_per_step": round(1e3 * wall / steps, 4)}
-
-
 def warm_up(prop, pot, dt, nt, energy0_es, micro=None):
     """The warm-up of a bench, as bench.py's compile run: the full `nt`
     steps with the bench's `micro_batch`. On the card that captures every
@@ -310,11 +279,10 @@ def warm_up(prop, pot, dt, nt, energy0_es, micro=None):
         prop.propagate(pot, dt, length, **kw)
 
 
-def timed_run(timer, prop, pot, redraw, dt, nt, energy0_es, micro=None,
-              trace=0):
+def timed_run(timer, prop, pot, redraw, dt, nt, energy0_es, micro=None):
     """The warm-up, the timed scan and the reduce of one bench on `timer`:
-    (C(t), k~ic(t), launches per kernel, launches by dtype, trace or None,
-    the scan's loop counters). `redraw()` draws the batch anew from its
+    (C(t), k~ic(t), launches per kernel, launches by dtype, the scan's loop
+    counters). `redraw()` draws the batch anew from its
     seed after the warm-up, so the scan starts from a fresh draw, through
     the warm-up's loop."""
     from semiclassical_tpu_torch.propagation import graph
@@ -333,14 +301,11 @@ def timed_run(timer, prop, pot, redraw, dt, nt, energy0_es, micro=None,
     with timer.phase("reduce"):
         if not (np.isfinite(cauto).all() and np.isfinite(kic).all()):
             raise FloatingPointError("C(t) or k~ic(t) is not finite")
-    traced = None
-    if trace and prop.device.type == "cuda":
-        traced = trace_steps(prop, pot, dt, trace, energy0_es)
-    return cauto, kic, totals, by_dtype, traced, loop
+    return cauto, kic, totals, by_dtype, loop
 
 
 def _line(metric, timer, ntraj, nt, config, device, launches, by_dtype,
-          traced, loop):
+          loop):
     from semiclassical_tpu_torch.propagation import graph
 
     value = timer.throughput(ntraj * nt)
@@ -353,8 +318,6 @@ def _line(metric, timer, ntraj, nt, config, device, launches, by_dtype,
             "launches": launches, "launches_by_dtype": by_dtype,
             "loop": "graph" if graph.captures(device) else "eager",
             "graph": loop}
-    if traced is not None:
-        line["trace"] = traced
     return line
 
 
@@ -366,7 +329,7 @@ def _start(device):
     return PhaseTimer(device)
 
 
-def bench_hk(device, trace=0):
+def bench_hk(device):
     """hk_as60: HK on the AS60 model at 1,048,576 x 500 comp32 on the card
     (2048 x 100 float64 on the CPU)."""
     device = torch.device(device)
@@ -383,19 +346,19 @@ def bench_hk(device, trace=0):
     with timer.phase("sample"):
         prop, pot = as60_setup(ntraj, device, "HK", dtype, traj_dtype)
     omega, _, _, _, dQ = as60_model()
-    cauto, kic, launches, by_dtype, traced, loop = timed_run(
+    cauto, kic, launches, by_dtype, loop = timed_run(
         timer, prop, pot,
         lambda: draw(prop, pot, dQ, np.diag(omega), ntraj),
-        AS60_DT, nt, 0.0, trace=trace)
+        AS60_DT, nt, 0.0)
     line = _line("hk_as60_traj_steps_per_sec_per_chip", timer, ntraj, nt, {
         "ntraj": ntraj, "nt": nt, "dim": AS60_DIM, "dtype": dtype_name,
         "device": str(device), "wall_s": round(timer.phases["scan"], 3),
         "warmup_s": round(timer.phases["warmup"], 1)},
-        device, launches, by_dtype, traced, loop)
+        device, launches, by_dtype, loop)
     return BenchResult(line, (cauto, kic), prop, pot)
 
 
-def bench_wm(device, trace=0):
+def bench_wm(device):
     """wm_as60: WM on the AS60 model at 524,288 x 500 comp32 on the card
     (2048 x 50 float64 on the CPU); micro_batch none unless BENCH_WM_MICRO
     sets it."""
@@ -410,19 +373,19 @@ def bench_wm(device, trace=0):
         prop, pot = as60_setup(ntraj, device, "WM", dtype, traj_dtype)
     omega, _, _, _, dQ = as60_model()
     en0 = float(np.sum(0.5 * omega))
-    cauto, kic, launches, by_dtype, traced, loop = timed_run(
+    cauto, kic, launches, by_dtype, loop = timed_run(
         timer, prop, pot,
         lambda: draw(prop, pot, dQ, np.diag(omega), ntraj),
-        AS60_DT, nt, en0, micro, trace)
+        AS60_DT, nt, en0, micro)
     line = _line("wm_as60_traj_steps_per_sec_per_chip", timer, ntraj, nt, {
         "ntraj": ntraj, "nt": nt, "dim": AS60_DIM,
         "dtype": "comp32" if card else "float64", "micro_batch": micro,
         "device": str(device), "wall_s": round(timer.phases["scan"], 3)},
-        device, launches, by_dtype, traced, loop)
+        device, launches, by_dtype, loop)
     return BenchResult(line, (cauto, kic), prop, pot)
 
 
-def bench_gdml(device, trace=0):
+def bench_gdml(device):
     """gdml_coumarin: sGDML HK on coumarin, mixed with a float32 Hessian,
     taylor every 32, at 32,768 x 100 on the card (256 x 8 on the CPU)."""
     device = torch.device(device)
@@ -433,9 +396,9 @@ def bench_gdml(device, trace=0):
     timer = _start(device)
     with timer.phase("sample"):
         prop, pot, x0, Gamma0, data = gdml_setup(ntraj, device)
-    cauto, kic, launches, by_dtype, traced, loop = timed_run(
+    cauto, kic, launches, by_dtype, loop = timed_run(
         timer, prop, pot, lambda: draw(prop, pot, x0, Gamma0, ntraj),
-        GDML_DT, nt, 0.0, micro, trace)
+        GDML_DT, nt, 0.0, micro)
     line = _line("gdml_coumarin_traj_steps_per_sec_per_chip", timer, ntraj,
                  nt, {
                      "ntraj": ntraj, "nt": nt, "n_cartesian": int(x0.size),
@@ -445,14 +408,14 @@ def bench_gdml(device, trace=0):
                      "device": str(device),
                      "wall_s": round(timer.phases["scan"], 3),
                      "fixtures": os.path.relpath(data, REPO)},
-                 device, launches, by_dtype, traced, loop)
+                 device, launches, by_dtype, loop)
     return BenchResult(line, (cauto, kic), prop, pot)
 
 
 BENCHES = {"hk": bench_hk, "wm": bench_wm, "gdml": bench_gdml}
 
 
-def run_benches(device, only="", trace=0, on_result=None):
+def run_benches(device, only="", on_result=None):
     """Run the benches in EXEC_ORDER (only `only` if given) and return
     {name: BenchResult, or the error line of a bench that raised}.
     `on_result(name, result)` sees each result while its propagator is
@@ -469,7 +432,7 @@ def run_benches(device, only="", trace=0, on_result=None):
         if only and name != only:
             continue
         try:
-            result = BENCHES[name](device, trace=trace)
+            result = BENCHES[name](device)
             if on_result is not None:
                 on_result(name, result)
             result.prop = result.potential = None
@@ -490,10 +453,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    ap.add_argument("--trace", type=int, default=0, metavar="STEPS",
-                    help="after each scan, trace STEPS more steps under "
-                         "torch.profiler (on the card) and add their busy "
-                         "share, kernels and device ms a step to the line")
     ap.add_argument("--eager", action="store_true",
                     help="run every bench under graph.eager(): every launch "
                          "of every step from the host, no CUDA graph")
@@ -502,8 +461,7 @@ def main(argv=None):
     from semiclassical_tpu_torch.propagation import graph
 
     with graph.eager() if args.eager else contextlib.nullcontext():
-        results = run_benches(device, os.environ.get("BENCH_ONLY", ""),
-                              args.trace)
+        results = run_benches(device, os.environ.get("BENCH_ONLY", ""))
     for name in PRINT_ORDER:
         if name in results:
             r = results[name]

@@ -189,8 +189,8 @@ K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
              per step and K3 twice per batch;
 P. the precision modes (`--precision`), each at its f64 phase's seed and
              size, with a line naming the mode, the dtypes of q, qc, Z and
-             S, the launches by dtype and the device's busy share over 10
-             traced steps of the first batch; TF32 is checked off first:
+             S after 2 steps of the first batch and the launches by dtype;
+             TF32 is checked off first:
    HK / WM methylium mixed — after 6, the first batch of the example in
              memory (10,000 x 500 steps; cut from the five batches of 2000
              steps of the CLI run to keep the script near 900 s) at f64
@@ -264,7 +264,7 @@ B. the flagship benches of `bench_torch.py` (the JAX package's bench.py
    bench   — `bench_torch.run_benches` in this process at the card
              defaults (HK AS60 1,048,576 x 500 comp32, WM AS60 524,288 x
              500 comp32, sGDML coumarin 32,768 x 100 mixed with taylor
-             every 32; 10 more steps of each traced): every value finite
+             every 32): every value finite
              and > 0, ntraj and nt as asked, |C(0) - 1| < 1e-3 on each
              curve, each scan through the warm-up's kept loop (0 captures,
              0 eager blocks, replays only), the coumarin bench again under
@@ -311,6 +311,20 @@ C. the compiled time loop (`propagation.graph`): every phase above runs
              RK4-routed rows elsewhere) through one loop, the second with
              no capture and no eager block, each within 1e-13 of itself
              under `graph.eager()` on a fresh loop, launches equal;
+   trace   — the port's tracing (`profiling`): the global timer's tick
+             from TRACE_STAMPS stamp kernels back to back in one graph (at
+             most TRACE_TICK_NS); then HK AS 98,304 x 105 (error bars) and
+             HK coumarin 2048 x 96 (taylor every 8), each the first batch
+             at seed SEED through one time loop: two warm-up runs capture
+             each block length's graph and its twin (`trace_captures`
+             equal to `captures`, one each a block length), then a run
+             untraced and a run with tracing on, of the same draw, with no
+             capture: C(t) and k~ic(t) equal bit for bit, the record's
+             steps the run's, ms a step by section printed; the sections
+             of 20 twin replays of a block within TRACE_EVENTS_GATE (2%)
+             of CUDA events around them, the plain replays timed beside;
+             one run under `torch.profiler`: no `semi.` name among its
+             device operations, its stamp kernels counted;
 12. the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -2292,38 +2306,12 @@ def check_tf32():
           "float32 matmuls would run in TF32")
 
 
-def trace_busy(prop, potential, dt, steps):
-    """(busy share, kernels per step, device ms per step) of `steps` steps
-    of `prop` under torch.profiler: the kernels' summed durations over the
-    traced wall. Two untraced runs of `steps` steps come first: the first
-    block of a length runs eagerly and the second captures it, so the
-    traced steps are replays."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        prop._run(potential, dt, steps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prop._run(potential, dt, steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    return busy / wall, len(kernels) / steps, 1e3 * busy / steps
-
-
 def mode_line(cli, label, precision, run, cls, args, by_dtype, smi,
               prop=None, expect=None):
     """The precision phase's line: the mode, the dtypes of q, qc, Z and S
     (of `prop`, or the first batch of the run's task drawn at the mode,
-    after 10 traced steps), the launches by dtype, and the device's busy
-    share over those steps; fails unless the dtypes are `expect` (a dict
-    like EXPECT_DTYPES' entries) where given."""
+    after 2 steps) and the launches by dtype; fails unless the dtypes are
+    `expect` (a dict like EXPECT_DTYPES' entries) where given."""
     import torch
 
     from semiclassical_tpu_torch import units
@@ -2336,17 +2324,14 @@ def mode_line(cli, label, precision, run, cls, args, by_dtype, smi,
     else:
         potential = run["potential"]
     dt = task["time_step_fs"] / units.autime_to_fs
-    prop._run(potential, dt, 2)                      # warm-up
-    share, kernels, device_ms = trace_busy(prop, potential, dt, 10)
+    prop._run(potential, dt, 2)
     st = prop.state
     dtypes = {name: (None if getattr(st, name) is None
                      else str(getattr(st, name).dtype).removeprefix("torch."))
               for name in ("q", "qc", "Z", "S")}
     print(f"{label} precision {precision}: dtypes {json.dumps(dtypes)}; "
           f"launches by dtype {json.dumps(by_dtype)}; dynamics "
-          f"{run['wall']:.3f} s; device busy {100 * share:.1f}% over 10 "
-          f"traced steps of the first batch ({kernels:.1f} kernels, "
-          f"{device_ms:.4f} device ms per step) [{smi}]", flush=True)
+          f"{run['wall']:.3f} s [{smi}]", flush=True)
     check(expect is None or dtypes == expect,
           f"{label} {precision}: dtypes {dtypes}, expected {expect}")
     del prop
@@ -2861,6 +2846,186 @@ def graph_phase(cli, ops, smi, model):
           f"{GRAPH_GATE:g})", flush=True)
 
 
+TRACE_STAMPS = 2000
+TRACE_TICK_NS = 1000
+TRACE_EVENTS_GATE = 0.02
+TRACE_REPLAYS = 20
+# (label, example, file, steps): steps that leave a tail block, so that
+# the loop holds two block lengths where the window allows
+TRACE_PATHS = [("HK AS", "as", "semi.json", 105),
+               ("HK coumarin", "coumarin", "semi.json", 96)]
+
+
+def stamp_tick():
+    """(the global timer's tick in ns, the median ns between stamps, the
+    stamps that read no advance): TRACE_STAMPS stamp kernels captured in
+    one CUDA graph, each into a slot of its own, replayed once, so that
+    they run one after another with no host between them; the tick is the
+    greatest common divisor of their advances."""
+    import numpy as np
+    import torch
+
+    from semiclassical_tpu_torch.ops import _build
+
+    n = TRACE_STAMPS
+    slots = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    fn = _build.entry("stamp", torch.int64)
+
+    def stamps():
+        for i in range(-1, n):
+            err = _build.launch(fn, slots.device, slots.data_ptr(), i, n)
+            check(err == 0, f"trace: stamp launch failed ({err})")
+
+    stamps()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stamps()
+    slots.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    d = slots[:n].cpu().numpy()
+    positive = d[d > 0]
+    tick = int(np.gcd.reduce(positive)) if positive.size else 0
+    return tick, float(np.median(d)), int(np.count_nonzero(d == 0))
+
+
+def _device_names(prof):
+    """{name: (launches, device seconds)} of a finished profile's device
+    operations."""
+    from torch.autograd import DeviceType
+
+    ops = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, sec = ops.get(e.name(), (0, 0.0))
+            ops[e.name()] = (n + 1, sec + (e.end_ns() - e.start_ns()) / 1e9)
+    return ops
+
+
+def trace_path(cli, smi, model, label, example, file, nsteps):
+    """One path of the trace phase (see the module's docstring)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from semiclassical_tpu_torch import profiling, units
+    from semiclassical_tpu_torch.propagation import (HermanKlukPropagator,
+                                                     graph)
+
+    task = graph_task(example, file, model, {})
+    potential, q0, p0, G, _, _, _ = cli._build_potential(task, "cuda")
+    dt = task["time_step_fs"] / units.autime_to_fs
+    error_bars = bool(task.get("error_bars", False))
+    window = int(getattr(potential, "taylor_every", 1) or 1)
+    lengths = set(graph.block_lengths(nsteps, window))
+
+    def run():
+        prop = HermanKlukPropagator(G, G, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(cli._repetition_seed(SEED, 0))
+        prop.initial_conditions(q0, p0, G, potential,
+                                ntraj=task["batch_size"], generator=gen)
+        return prop.propagate(potential, dt, nsteps, chunk=nsteps,
+                              error_bars=error_bars)
+
+    graph.clear()
+    stats = dict(graph.STATS)
+    for _ in range(2):
+        run()
+    warm = {k: graph.STATS[k] - stats[k] for k in stats}
+    check(warm["captures"] == warm["trace_captures"] == len(lengths),
+          f"trace {label}: {warm['captures']} captures and "
+          f"{warm['trace_captures']} twins for {len(lengths)} block lengths")
+    stats = dict(graph.STATS)
+    plain = run()
+    profiling.enable()
+    try:
+        traced = run()
+    finally:
+        profiling.enable(False)
+    record = profiling.records()
+    delta = {k: graph.STATS[k] - stats[k] for k in stats}
+    check(delta["captures"] == delta["trace_captures"] == 0
+          and delta["eager_blocks"] == 0,
+          f"trace {label}: the runs captured or ran eagerly: {delta}")
+    check(all(np.array_equal(a, b) for a, b in zip(plain, traced)),
+          f"trace {label}: the traced run's curves differ from the "
+          "untraced run's")
+    check(record["steps"] == nsteps,
+          f"trace {label}: the record holds {record['steps']} steps, "
+          f"{nsteps} ran")
+    ms = profiling.ms_per_step(record)
+    print(f"trace {label} {task['batch_size']} x {nsteps}: curves equal "
+          f"bit for bit traced and untraced; ms a step by section "
+          f"{json.dumps({k: round(v, 4) for k, v in ms.items()})}, sum "
+          f"{sum(ms.values()):.4f}; host reads "
+          f"{record['counters'].get('host_reads', 0)}; twins captured in "
+          f"{warm['trace_capture_s']:.3f} s, graphs in "
+          f"{warm['capture_s']:.3f} s [{smi}]", flush=True)
+
+    loop = graph.live("cuda")
+    length = max(lengths)
+    block = loop.blocks[length]
+    walls = {}
+    for name, g in (("plain", block.graph), ("twin", block.twin),
+                    ("twin again", block.twin), ("plain again", block.graph)):
+        loop.sections.take()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(TRACE_REPLAYS):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        walls[name] = start.elapsed_time(end)
+        sections_ms = 1e3 * sum(loop.sections.take().values())
+        if name.startswith("twin"):
+            gap = abs(sections_ms - walls[name]) / walls[name]
+            print(f"trace {label}: {TRACE_REPLAYS} replays of the "
+                  f"{length}-step twin: sections {sections_ms:.4f} ms, CUDA "
+                  f"events {walls[name]:.4f} ms, gap {gap:.2e} (gate "
+                  f"{TRACE_EVENTS_GATE:g})", flush=True)
+            check(gap <= TRACE_EVENTS_GATE,
+                  f"trace {label}: sections {sections_ms} ms against "
+                  f"events {walls[name]} ms")
+        else:
+            check(sections_ms == 0.0,
+                  f"trace {label}: a plain replay stamped {sections_ms} ms")
+    plain_ms = min(walls["plain"], walls["plain again"])
+    twin_ms = min(walls["twin"], walls["twin again"])
+    print(f"trace {label}: a {length}-step block {plain_ms / TRACE_REPLAYS:.4f}"
+          f" ms plain, {twin_ms / TRACE_REPLAYS:.4f} ms twin "
+          f"({100 * (twin_ms / plain_ms - 1):+.2f}%)", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    ops = _device_names(prof)
+    stamp = [n for n in ops if "stamp_kernel" in n]
+    semi = [n for n in ops if "semi." in n]
+    launches = sum(ops[n][0] for n in stamp)
+    seconds = sum(ops[n][1] for n in stamp)
+    busy = sum(sec for _, sec in ops.values())
+    print(f"trace {label} under torch.profiler: {launches} stamp kernels, "
+          f"{1e3 * seconds:.3f} ms of {1e3 * busy:.3f} device ms", flush=True)
+    check(not semi and launches > 0,
+          f"trace {label}: device operations {semi}, stamps {launches}")
+    graph.clear()
+    torch.cuda.empty_cache()
+
+
+def trace_phase(cli, smi, model):
+    """The global timer's tick, then each path of TRACE_PATHS."""
+    tick, median, zero = stamp_tick()
+    print(f"trace: the global timer's tick {tick} ns; {TRACE_STAMPS} stamps "
+          f"back to back, median {median:.0f} ns apart, {zero} read no "
+          f"advance [{smi}]", flush=True)
+    check(0 < tick <= TRACE_TICK_NS, f"trace: global timer tick {tick} ns")
+    for path in TRACE_PATHS:
+        trace_path(cli, smi, model, *path)
+
+
 BENCH_DEFAULTS = {"hk": (1048576, 500), "wm": (524288, 500),
                   "gdml": (32768, 100)}
 BENCH_C0_GATE = 1e-3
@@ -2898,7 +3063,7 @@ def bench_line_checks(name, result, smi):
           f"bench {name}: ntraj / nt {line['config']['ntraj']} / "
           f"{line['config']['nt']}, asked {ntraj} / {nt}")
     phases = line["phases"]
-    values = [line["value"], line["peak_gb"], *line["trace"].values(),
+    values = [line["value"], line["peak_gb"],
               *(phases[k] for k in ("sample", "warmup", "scan"))]
     check(all(math.isfinite(v) and v > 0 for v in values)
           and math.isfinite(phases["reduce"]) and phases["reduce"] >= 0,
@@ -2909,8 +3074,8 @@ def bench_line_checks(name, result, smi):
     c0 = abs(cauto[0] - 1)
     print(f"bench {name}: |C(0) - 1| = {c0:.3e} (limit {BENCH_C0_GATE:g}); "
           f"{line['value']:,.1f} traj-steps/s; scan "
-          f"{line['phases']['scan']:.3f} s; peak {line['peak_gb']} GB; "
-          f"trace {json.dumps(line['trace'])}", flush=True)
+          f"{line['phases']['scan']:.3f} s; peak {line['peak_gb']} GB",
+          flush=True)
     check(c0 < BENCH_C0_GATE, f"bench {name}: |C(0) - 1| = {c0}")
     loop = line["graph"]
     print(f"bench {name}: the scan's time loop: {loop['replays']} replays, "
@@ -3058,8 +3223,7 @@ def bench_phase(ops, smi):
     torch.cuda.empty_cache()
     reset_counts(ops)
     try:
-        results = bench_torch.run_benches("cuda", trace=10,
-                                          on_result=on_result)
+        results = bench_torch.run_benches("cuda", on_result=on_result)
     finally:
         for undo in restore:
             undo()
@@ -3313,7 +3477,9 @@ def main():
           f"WM coumarin: K3 launched {wm_c_launches['K3']} times for "
           f"{wm_c['nrep']} batches")
     with tempfile.TemporaryDirectory() as tmp:
-        phase("graph", graph_phase, cli, ops, smi, write_as_model(tmp))
+        model = write_as_model(tmp)
+        phase("graph", graph_phase, cli, ops, smi, model)
+        phase("trace", trace_phase, cli, smi, model)
     phase("bench", bench_phase, ops, smi)
     phase("vr", vr_phase, ops, smi)
     phase("pod bench", pod_bench_phase, smi)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 # coding: utf-8
-"""Per-step time, kernel launches and device idle share of the port's HK
-and WM steps on one NVIDIA GPU, on one of three examples:
+"""Per-step time, kernel launches and device time of the port's HK and WM
+steps on one NVIDIA GPU, on one of three examples:
 
 * `--example as` (default): the 60-mode anharmonic AS example
   (examples/as_model: make_model.py's model, rng seed 42, 60 modes, chi
@@ -21,8 +21,7 @@ with HK and with WM (cell width 1e4), and for each:
 * times `--window` steps on the host clock around a synchronised run
   (twice, in turns HK, WM, WM, HK);
 * traces `--steps` steps with torch.profiler: kernels per step, device
-  time per step (the sum of the kernels' durations), the device's busy
-  share of the traced wall and of the untraced step, and the largest
+  time per step (the sum of the kernels' durations) and the largest
   kernels by device time.
 
 With `--error-bars` each propagator also runs with the per-step second
@@ -172,13 +171,12 @@ def _trace(prop, potential, dt, steps, m2_mode=False, eager=False):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy_us = sum(by_name.values())
+    device_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         "kernels_per_step": len(kernels) / steps,
-        "device_ms_per_step": busy_us / 1e3 / steps,
+        "device_ms_per_step": device_us / 1e3 / steps,
         "traced_ms_per_step": wall * 1e3 / steps,
-        "busy_share_traced": busy_us / 1e6 / wall if kernels else None,
         "top_kernels_ms_per_step": [(name[:90], us / 1e3 / steps)
                                     for name, us in top],
         "replays_per_step": loop["replays"] / steps,
@@ -365,7 +363,6 @@ def main(argv=None):
         state = props[name].state
         trace.update(
             ms_per_step_windows=ms,
-            busy_share_untraced=trace["device_ms_per_step"] / min(ms),
             traj_steps_per_s=args.ntraj / (min(ms) / 1e3),
             dtypes={k: str(getattr(state, k).dtype).removeprefix("torch.")
                     for k in ("q", "Z", "S")},

@@ -6,6 +6,7 @@ documents of the form {"semi": [task, ...]}, the same task keywords and the
 same `.npz` accumulation semantics:
 
     python -m semiclassical_tpu_torch.cli dynamics input.json [--device cuda]
+        [--trace trace.json]
     python -m semiclassical_tpu_torch.cli rates input.json
     python -m semiclassical_tpu_torch.cli spectrum input.json
     python -m semiclassical_tpu_torch.cli plot correlations.npz [--save f.png]
@@ -29,6 +30,10 @@ Scale-out comes in two modes, as in the JAX package:
   `results.overwrite` is forced to false and the rank is folded into the
   seed of every repetition (`_repetition_seed`).
 
+`--trace FILE` runs the tasks under `torch.profiler` and writes the
+session's Chrome trace to FILE; the log then adds the time loop's ms a
+step by section and the host reads (`profiling`).
+
 `--precision` selects the numerical mode of the JAX package ("f64", the
 default on every device, "mixed", "comp32" or "f32"; see `PRECISIONS`).
 Task keywords outside the ported slice (other propagators or potential
@@ -40,6 +45,7 @@ being ignored. The checkpoints of `checkpoint` are the port's own format
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -108,6 +114,11 @@ def main(argv=None):
              "algebra, float64 trajectories), comp32 (mixed with float32 "
              "trajectories and Neumaier residuals) or f32 (float32 "
              "throughout)")
+    parser_dynamics.add_argument(
+        "--trace", type=str, default="", metavar="FILE",
+        help="run the task under torch.profiler and write its Chrome trace "
+             "to FILE (one file a rank of a group); the log then gives the "
+             "time loop's ms a step by section and the host reads")
 
     parser_rates = subparsers.add_parser(
         "rates",
@@ -166,11 +177,18 @@ def main(argv=None):
         try:
             for task in tasks:
                 check_slice(task, args.precision, group)
-            for task in tasks:
-                run_semiclassical_dynamics(
-                    task, device=args.device if group is None
-                    else group.device, precision=args.precision,
-                    group=group)
+            from semiclassical_tpu_torch import profiling
+            from semiclassical_tpu_torch.parallel import rank_path
+
+            device = args.device if group is None else group.device
+            with (profiling.trace_to(
+                    rank_path(args.trace, None if group is None
+                              else group.rank), device)
+                  if args.trace else contextlib.nullcontext()):
+                for task in tasks:
+                    run_semiclassical_dynamics(
+                        task, device=device, precision=args.precision,
+                        group=group)
         finally:
             from semiclassical_tpu_torch.parallel import destroy_group
 

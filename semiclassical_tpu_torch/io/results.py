@@ -23,6 +23,8 @@ import os
 
 import numpy as np
 
+from semiclassical_tpu_torch import profiling
+
 logger = logging.getLogger(__name__)
 
 __all__ = ["init_results", "accumulate_results", "load_results"]
@@ -111,58 +113,61 @@ def accumulate_results(filename, autocorrelation, ic_correlation, ntraj_new,
     them (or vice versa) drops the keys rather than storing a wrong value.
     """
     with _results_lock(filename):
-        data = dict(np.load(filename))
-        ntraj_old = int(data["trajectories"])
-        ntraj_tot = ntraj_old + ntraj_new
-        data["autocorrelation"] = (
-            ntraj_new * np.asarray(autocorrelation)
-            + ntraj_old * data["autocorrelation"]
-        ) / ntraj_tot
-        data["ic_correlation"] = (
-            ntraj_new * np.asarray(ic_correlation)
-            + ntraj_old * data["ic_correlation"]
-        ) / ntraj_tot
+        with profiling.span("reduce.load"):
+            data = dict(np.load(filename))
+            ntraj_old = int(data["trajectories"])
+            ntraj_tot = ntraj_old + ntraj_new
+            data["autocorrelation"] = (
+                ntraj_new * np.asarray(autocorrelation)
+                + ntraj_old * data["autocorrelation"]
+            ) / ntraj_tot
+            data["ic_correlation"] = (
+                ntraj_new * np.asarray(ic_correlation)
+                + ntraj_old * data["ic_correlation"]
+            ) / ntraj_tot
 
-        have_old = "autocorrelation_stderr" in data
-        have_new = autocorrelation_stderr is not None
-        if have_new and (have_old or ntraj_old == 0):
-            old_e2_auto = (data["autocorrelation_stderr"] ** 2
-                           if have_old else 0.0)
-            old_e2_ic = (data["ic_correlation_stderr"] ** 2
-                         if have_old else 0.0)
-            data["autocorrelation_stderr"] = np.sqrt(
-                (ntraj_new**2 * np.asarray(autocorrelation_stderr) ** 2
-                 + ntraj_old**2 * old_e2_auto) / ntraj_tot**2)
-            data["ic_correlation_stderr"] = np.sqrt(
-                (ntraj_new**2 * np.asarray(ic_correlation_stderr) ** 2
-                 + ntraj_old**2 * old_e2_ic) / ntraj_tot**2)
-        elif have_old or have_new:
-            logger.warning("error bars present for only part of the "
-                           "accumulated batches — dropping the stderr keys")
-            data.pop("autocorrelation_stderr", None)
-            data.pop("ic_correlation_stderr", None)
+            have_old = "autocorrelation_stderr" in data
+            have_new = autocorrelation_stderr is not None
+            if have_new and (have_old or ntraj_old == 0):
+                old_e2_auto = (data["autocorrelation_stderr"] ** 2
+                               if have_old else 0.0)
+                old_e2_ic = (data["ic_correlation_stderr"] ** 2
+                             if have_old else 0.0)
+                data["autocorrelation_stderr"] = np.sqrt(
+                    (ntraj_new**2 * np.asarray(autocorrelation_stderr) ** 2
+                     + ntraj_old**2 * old_e2_auto) / ntraj_tot**2)
+                data["ic_correlation_stderr"] = np.sqrt(
+                    (ntraj_new**2 * np.asarray(ic_correlation_stderr) ** 2
+                     + ntraj_old**2 * old_e2_ic) / ntraj_tot**2)
+            elif have_old or have_new:
+                logger.warning("error bars present for only part of the "
+                               "accumulated batches — dropping the stderr "
+                               "keys")
+                data.pop("autocorrelation_stderr", None)
+                data.pop("ic_correlation_stderr", None)
 
-        # C(0) = <phi(0)|phi(0)> must be 1: the initial conditions are
-        # sampled from the normalised density |<qi,pi|q0,p0>|^2
-        # (reference cli.py:460-467)
-        logger.info(f"<phi(0)|phi(0)>= {data['autocorrelation'][0]}")
-        c0 = data["autocorrelation"][0]
-        if not abs(c0 - 1.0) < 1.0e-3:
-            raise RuntimeError(f"<phi(0)|phi(0)> = {c0} is not 1 "
-                               "(|C(0) - 1| >= 1e-3)")
+            # C(0) = <phi(0)|phi(0)> must be 1: the initial conditions are
+            # sampled from the normalised density |<qi,pi|q0,p0>|^2
+            # (reference cli.py:460-467)
+            logger.info(f"<phi(0)|phi(0)>= {data['autocorrelation'][0]}")
+            c0 = data["autocorrelation"][0]
+            if not abs(c0 - 1.0) < 1.0e-3:
+                raise RuntimeError(f"<phi(0)|phi(0)> = {c0} is not 1 "
+                                   "(|C(0) - 1| >= 1e-3)")
 
-        data["trajectories"] = ntraj_tot
-        # derived spectra/rates are no longer up to date
-        data.pop("ic_rate", None)
-        data.pop("ic_rate_stderr", None)
-        data.pop("spectrum", None)
-        data.pop("spectrum_energies", None)
-        data.pop("spectrum_stderr", None)
-        # atomic replace: this file is the coarse-grained recovery unit — a
-        # crash mid-write must not corrupt the accumulator
-        tmp = filename + ".tmp.npz"
-        np.savez(tmp, **data)
-        os.replace(tmp, filename)
+            data["trajectories"] = ntraj_tot
+            # derived spectra/rates are no longer up to date
+            data.pop("ic_rate", None)
+            data.pop("ic_rate_stderr", None)
+            data.pop("spectrum", None)
+            data.pop("spectrum_energies", None)
+            data.pop("spectrum_stderr", None)
+        with profiling.span("reduce.save"):
+            # atomic replace: this file is the coarse-grained recovery
+            # unit — a crash mid-write must not corrupt the accumulator
+            tmp = filename + ".tmp.npz"
+            np.savez(tmp, **data)
+            os.replace(tmp, filename)
     return ntraj_tot
 
 

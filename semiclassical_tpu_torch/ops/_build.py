@@ -61,10 +61,13 @@ _ENTRY_POINTS = {
     # lanes, blocks, stream
     "semi_wm_diag_f64": (*(_P,) * 13, _N, *(_I,) * 4, _P),
     "semi_wm_diag_f32": (*(_P,) * 13, _N, *(_I,) * 4, _P),
+    # csrc/stamp.cu (the time loop's section clock): slots, section, last,
+    # stream
+    "semi_stamp_i64": (_P, _I, _I, _P),
 }
 
 _SUFFIX = {torch.complex128: "c128", torch.complex64: "c64",
-           torch.float64: "f64", torch.float32: "f32"}
+           torch.float64: "f64", torch.float32: "f32", torch.int64: "i64"}
 
 _lib = None
 _log = ""
@@ -149,7 +152,7 @@ def load():
 def entry(kernel, dtype):
     """The entry point `semi_<kernel>_<type>` of the loaded library for a
     tensor type (complex128: c128, complex64: c64, float64: f64, float32:
-    f32), looked up once per (kernel, dtype)."""
+    f32, int64: i64), looked up once per (kernel, dtype)."""
     fn = _entries.get((kernel, dtype))
     if fn is None:
         fn = _entries[kernel, dtype] = getattr(

@@ -53,6 +53,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from semiclassical_tpu_torch import profiling
 from semiclassical_tpu_torch.potentials.base import (ConstHessian,
                                                      DenseHessian,
                                                      DiagHessian)
@@ -240,6 +241,7 @@ def rk4_step(state: TrajState, potential, dt: float, step_map=None):
         new_q, new_p = q + inc_q, p + inc_p
         new_qc = new_pc = None
     new_S = S + sixth * (k1[2] + 2.0 * (k2[2] + k3[2]) + k4[2])
+    profiling.section("integrator")
     hs = (H1, H2, H3, H4)
 
     mdt = state.Z.dtype
@@ -268,6 +270,7 @@ def rk4_step(state: TrajState, potential, dt: float, step_map=None):
             f"rk4_step steps the dense monodromy under ConstHessian or "
             f"DenseHessian expansions; got "
             f"{', '.join(sorted({type(H).__name__ for H in hs}))}")
+    profiling.section("monodromy")
     return (TrajState(q=new_q, p=new_p, Z=new_Z, S=new_S, qc=new_qc,
                       pc=new_pc), torch.mean(e1))
 
@@ -478,9 +481,11 @@ def make_taylor_window(potential, dt, every):
             Hw = H.dense().expand(q.shape[0], q.shape[1], q.shape[1])
             Tw = (None if state.diag_monodromy
                   else _window_mono_map(Hw, inv_m, dt, state.Z.dtype))
-        return LocalQuadratic(
+        quad = LocalQuadratic(
             q_mid=qp, v0=v0, g0=g0, H=Hw, Tmono=Tw, mass=potential.masses(),
             nac0=potential.derivative_coupling_1st(qp[:1])[0])
+        profiling.section("window")
+        return quad
 
     def carry0(state):
         return expand(state), 0

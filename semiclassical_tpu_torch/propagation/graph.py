@@ -57,6 +57,17 @@ the eager loop issued every launch of every step.
   counterpart of `jax.disable_jit`), every block runs eagerly through the
   same body; a kept loop's graphs stay for the calls after. Nothing falls
   back: a failed capture or replay raises.
+* **Twin graphs: the device time by section.** Python inside a block runs
+  only at its capture, so a replay can time nothing on the host. Right
+  after each block's graph the loop captures a twin of it, in the same
+  pool and on the same stream, with the step code's section marks on
+  (`profiling.section`): each mark a stamp kernel that adds the device's
+  time since the previous stamp to its section's slot in the loop's
+  `profiling.SectionClock`. A replay runs the twin in place of the graph
+  while tracing is on (`profiling.tracing`), and an eager block runs with
+  the marks on; the clock is read once a traced `propagate`, after its
+  reads. Untraced, the marks do nothing and the graphs replayed are
+  those an untraced capture makes.
 """
 
 from __future__ import annotations
@@ -67,6 +78,8 @@ import sys
 import time
 
 import torch
+
+from semiclassical_tpu_torch import profiling
 
 __all__ = ["BLOCK_STEPS", "STATS", "SegmentGraph", "eager", "captures",
            "block_lengths", "segment_graph", "live", "clear",
@@ -85,8 +98,10 @@ BLOCK_STEPS = 10
 # What the loops of this process did, for measurements (host counters,
 # like the kernels' LAUNCHES): blocks run eagerly (warm-ups, the CPU,
 # `eager()`), graphs captured, their capture plus instantiate seconds
-# (host clock), and replays.
-STATS = {"eager_blocks": 0, "captures": 0, "capture_s": 0.0, "replays": 0}
+# (host clock), replays (of a graph or its twin), and the twins captured
+# with their seconds.
+STATS = {"eager_blocks": 0, "captures": 0, "capture_s": 0.0, "replays": 0,
+         "trace_captures": 0, "trace_capture_s": 0.0}
 
 _EAGER_DEPTH = 0
 _SIDE = {}      # device index -> (capture stream, graph memory pool)
@@ -242,6 +257,7 @@ class _Block:
     slots: object         # the block's static observable slots
     warm: bool = False    # the eager warm-up ran
     graph: object = None  # the captured graph
+    twin: object = None   # the graph with the section marks on
     launches: dict = dataclasses.field(default_factory=dict)
 
 
@@ -252,11 +268,14 @@ class SegmentGraph:
     `run(name, make)` runs the block `name` (its length): `make()` gives
     (body, slots) the first time, `body()` the steps on the static
     buffers and `slots` the tensors it writes its observables into; the
-    first call runs it eagerly, the second captures and replays it, later
-    ones replay it. Where `captures(device)` is false at the call (a CPU
-    device, or inside `eager()`) the call runs the body and leaves the
-    block's graph for later calls; `capture` True or False fixes the
-    choice instead."""
+    first call runs it eagerly, the second captures it and its twin and
+    replays one of them, later ones replay one: the twin while tracing
+    is on, the graph otherwise. Where `captures(device)` is false at the
+    call (a CPU device, or inside `eager()`) the call runs the body and
+    leaves the block's graphs for later calls; `capture` True or False
+    fixes the choice instead. A block run eagerly while tracing is on
+    runs with the section marks on. `sections` is the loop's
+    `profiling.SectionClock`, made at its first traced block or twin."""
 
     def __init__(self, key, static, device, capture=None):
         self.key = key
@@ -268,6 +287,7 @@ class SegmentGraph:
                                   else (None, None))
         self.blocks = {}
         self.stepper = None   # the owner's step functions the blocks call
+        self.sections = None
 
     def matches(self, key):
         """True when `key` names this loop's context: objects compared by
@@ -280,17 +300,31 @@ class SegmentGraph:
         block = self.blocks.get(name)
         if block is None:
             block = self.blocks[name] = _Block(*make())
+        traced = profiling.tracing()
         if not (captures(self.device) if self.capture is None
                 else self.capture):
-            block.body()
+            (self._traced(block.body) if traced else block.body)()
             STATS["eager_blocks"] += 1
         elif not block.warm:
-            self._warm_up(block)
+            self._warm_up(block, traced)
         else:
             if block.graph is None:
                 self._capture(block)
-            self._replay(block)
+            self._replay(block, traced)
         return block.slots
+
+    def _traced(self, body):
+        """`body` with the section marks on, on the loop's clock (made
+        here, outside any capture, at the first call)."""
+        if self.sections is None:
+            self.sections = profiling.SectionClock(self.device)
+        clock = self.sections
+
+        def traced():
+            with profiling.sections(clock):
+                body()
+
+        return traced
 
     @contextlib.contextmanager
     def _on_stream(self):
@@ -303,24 +337,34 @@ class SegmentGraph:
             yield
         current.wait_stream(self.stream)
 
-    def _warm_up(self, block):
+    def _warm_up(self, block, traced):
+        body = self._traced(block.body) if traced else block.body
         with self._on_stream():
-            block.body()
+            body()
         block.warm = True
         STATS["eager_blocks"] += 1
 
     def _capture(self, block):
+        block.graph, block.launches, seconds = self._counted(block.body)
+        STATS["capture_s"] += seconds
+        STATS["captures"] += 1
+        block.twin, _, seconds = self._counted(self._traced(block.body))
+        STATS["trace_capture_s"] += seconds
+        STATS["trace_captures"] += 1
+
+    def _counted(self, body):
+        """(the graph of `body`, the launch counts its capture recorded,
+        the capture's seconds)."""
         before = read_launches()
         t0 = time.perf_counter()
         try:
-            block.graph = self._record(block.body)
+            graph = self._record(body)
         finally:
             # the capture launched nothing: its counts return with each
             # replay (and not at all when it failed)
-            block.launches = _launch_delta(before, read_launches())
-            add_launches(block.launches, -1)
-        STATS["capture_s"] += time.perf_counter() - t0
-        STATS["captures"] += 1
+            launches = _launch_delta(before, read_launches())
+            add_launches(launches, -1)
+        return graph, launches, time.perf_counter() - t0
 
     def _record(self, body):
         graph = torch.cuda.CUDAGraph()
@@ -329,8 +373,8 @@ class SegmentGraph:
             body()
         return graph
 
-    def _replay(self, block):
-        block.graph.replay()
+    def _replay(self, block, traced):
+        (block.twin if traced else block.graph).replay()
         add_launches(block.launches)
         STATS["replays"] += 1
 

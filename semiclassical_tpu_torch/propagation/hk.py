@@ -67,7 +67,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from semiclassical_tpu_torch import linalg
+from semiclassical_tpu_torch import linalg, profiling
 from semiclassical_tpu_torch.coherent import (OverlapParams,
                                               WavefunctionParams,
                                               overlap_exponent_displaced,
@@ -440,7 +440,8 @@ def hk_batch_constants(params: HKParams, qi, pi, log_prob,
     return BatchConstants(qi=qi, pi=pi, log_prob=log_prob,
                           weight=torch.exp(logw_norm).to(params.dtype),
                           logw_norm=logw_norm,
-                          log_weight_scale=float(log_scale), vi=vi,
+                          log_weight_scale=float(profiling.to_host(
+                              log_scale)), vi=vi,
                           obs_re=re_i + logw_norm, obs_im=im_i, nacq=nacq)
 
 
@@ -883,37 +884,38 @@ class HermanKlukPropagator:
 
     def __init__(self, Gamma_i, Gamma_t, device, integrator="rk4",
                  dtype=torch.float64, traj_dtype=None):
-        if integrator not in ("rk4", "exact"):
-            raise ValueError(f"unknown integrator {integrator!r} "
-                             "(expected 'rk4' or 'exact')")
-        traj_dtype = dtype if traj_dtype is None else traj_dtype
-        reals = (torch.float32, torch.float64)
-        if dtype not in reals or traj_dtype not in (*reals, "comp32"):
-            raise ValueError(
-                f"dtype must be torch.float32 or torch.float64 and "
-                f"traj_dtype one of them or 'comp32', got {dtype} and "
-                f"{traj_dtype}")
-        if traj_dtype == "comp32" and dtype != torch.float32:
-            raise ValueError("comp32 trajectories require dtype=float32")
-        self.dtype = dtype
-        self.traj_dtype = traj_dtype
-        self.integrator = integrator
-        self._invalidate_map()
-        Gamma_i = np.asarray(Gamma_i, dtype=np.float64)
-        Gamma_t = np.asarray(Gamma_t, dtype=np.float64)
-        for name, G in (("Gamma_i", Gamma_i), ("Gamma_t", Gamma_t)):
-            if not linalg.is_symmetric_non_negative(G):
+        with profiling.span("sample.propagator"):
+            if integrator not in ("rk4", "exact"):
+                raise ValueError(f"unknown integrator {integrator!r} "
+                                 "(expected 'rk4' or 'exact')")
+            traj_dtype = dtype if traj_dtype is None else traj_dtype
+            reals = (torch.float32, torch.float64)
+            if dtype not in reals or traj_dtype not in (*reals, "comp32"):
                 raise ValueError(
-                    f"{name} has to be symmetric and positive semi-definite.")
-        self.Gamma_i = Gamma_i
-        self.Gamma_t = Gamma_t
-        self.device = torch.device(device)
-        self.state = None
-        self.group = None
-        self.last_energies = np.zeros(0)
-        # sub-batch size of the time loop (0: the whole batch at once)
-        self.micro_batch = 0
-        self.sampling_method = "pseudo"
+                    f"dtype must be torch.float32 or torch.float64 and "
+                    f"traj_dtype one of them or 'comp32', got {dtype} and "
+                    f"{traj_dtype}")
+            if traj_dtype == "comp32" and dtype != torch.float32:
+                raise ValueError("comp32 trajectories require dtype=float32")
+            self.dtype = dtype
+            self.traj_dtype = traj_dtype
+            self.integrator = integrator
+            self._invalidate_map()
+            Gamma_i = np.asarray(Gamma_i, dtype=np.float64)
+            Gamma_t = np.asarray(Gamma_t, dtype=np.float64)
+            for name, G in (("Gamma_i", Gamma_i), ("Gamma_t", Gamma_t)):
+                if not linalg.is_symmetric_non_negative(G):
+                    raise ValueError(f"{name} has to be symmetric and "
+                                     "positive semi-definite.")
+            self.Gamma_i = Gamma_i
+            self.Gamma_t = Gamma_t
+            self.device = torch.device(device)
+            self.state = None
+            self.group = None
+            self.last_energies = np.zeros(0)
+            # sub-batch size of the time loop (0: the whole batch at once)
+            self.micro_batch = 0
+            self.sampling_method = "pseudo"
 
     @property
     def n_local(self):
@@ -962,51 +964,59 @@ class HermanKlukPropagator:
         them), so a float32 run starts from the float64 run's points
         rounded; the log-densities stay float64.
         """
-        q0 = np.asarray(q0, dtype=np.float64)
-        p0 = np.asarray(p0, dtype=np.float64)
-        Gamma_0 = np.asarray(Gamma_0, dtype=np.float64)
-        sampling = SamplingParams.create(q0, p0, Gamma_0, self.Gamma_i,
-                                         self.device)
-        self.sampling = sampling
-        self.sampling_method = sampling_method
-        self.group = group
-        if group is not None:
-            ntraj = pad_to_multiple(
-                ntraj, group.world * (2 if sampling_method == "antithetic"
-                                      else 1))
-        self.params = self._make_params(Gamma_0, q0, p0, sampling)
-        logger.info("== Initial Conditions ==")
-        logger.info(f"number of dimensions   :  {self.params.dim}")
-        logger.info(f"zero dimensions        :  "
-                    f"{self.params.dim - self.params.rank}")
-        logger.info(f"number of trajectories :  {ntraj}")
+        with profiling.span("sample.params"):
+            q0 = np.asarray(q0, dtype=np.float64)
+            p0 = np.asarray(p0, dtype=np.float64)
+            Gamma_0 = np.asarray(Gamma_0, dtype=np.float64)
+            sampling = SamplingParams.create(q0, p0, Gamma_0, self.Gamma_i,
+                                             self.device)
+            self.sampling = sampling
+            self.sampling_method = sampling_method
+            self.group = group
+            if group is not None:
+                ntraj = pad_to_multiple(
+                    ntraj, group.world * (2 if sampling_method ==
+                                          "antithetic" else 1))
+            self.params = self._make_params(Gamma_0, q0, p0, sampling)
+            logger.info("== Initial Conditions ==")
+            logger.info(f"number of dimensions   :  {self.params.dim}")
+            logger.info(f"zero dimensions        :  "
+                        f"{self.params.dim - self.params.rank}")
+            logger.info(f"number of trajectories :  {ntraj}")
 
-        if normals is None:
-            normals = standard_normals(sampling, ntraj, sampling_method,
-                                       generator)
-        qi, pi, log_prob = sample_initial_conditions(sampling, ntraj,
-                                                     normals=normals)
-        log_sampling_statistics(sampling, qi, pi)
-        a, b = shard_rows(ntraj, group)
-        qi, pi, log_prob = qi[a:b], pi[a:b], log_prob[a:b]
-        if not self.compensated:
-            qi, pi = qi.to(self.traj_dtype), pi.to(self.traj_dtype)
-        hess = potential.local_expansion(qi[:1])[2]
-        if not isinstance(hess, (ConstHessian, DenseHessian, DiagHessian)):
-            raise NotImplementedError(
-                "the port propagates the dense monodromy under ConstHessian "
-                "or DenseHessian expansions and the diagonal monodromy under "
-                f"DiagHessian ones; this potential gives "
-                f"{type(hess).__name__}")
-        self.state = TrajState.initial(
-            qi, pi, mono_dtype=self.dtype,
-            diag_monodromy=isinstance(hess, DiagHessian),
-            compensated=self.compensated)
-        self.bc = self._make_batch_constants(qi, pi, log_prob, potential)
-        self.tracker = self._make_trackers(self.state)
-        self.ntraj = ntraj
-        self.t = 0.0
-        self._invalidate_map()
+        with profiling.span("sample.draw"):
+            if normals is None:
+                normals = standard_normals(sampling, ntraj, sampling_method,
+                                           generator)
+            qi, pi, log_prob = sample_initial_conditions(sampling, ntraj,
+                                                         normals=normals)
+        with profiling.span("sample.stats"):
+            log_sampling_statistics(sampling, qi, pi)
+        with profiling.span("sample.state"):
+            a, b = shard_rows(ntraj, group)
+            qi, pi, log_prob = qi[a:b], pi[a:b], log_prob[a:b]
+            if not self.compensated:
+                qi, pi = qi.to(self.traj_dtype), pi.to(self.traj_dtype)
+            hess = potential.local_expansion(qi[:1])[2]
+            if not isinstance(hess, (ConstHessian, DenseHessian,
+                                     DiagHessian)):
+                raise NotImplementedError(
+                    "the port propagates the dense monodromy under "
+                    "ConstHessian or DenseHessian expansions and the "
+                    "diagonal monodromy under DiagHessian ones; this "
+                    f"potential gives {type(hess).__name__}")
+            self.state = TrajState.initial(
+                qi, pi, mono_dtype=self.dtype,
+                diag_monodromy=isinstance(hess, DiagHessian),
+                compensated=self.compensated)
+        with profiling.span("sample.batch_constants"):
+            self.bc = self._make_batch_constants(qi, pi, log_prob,
+                                                 potential)
+        with profiling.span("sample.trackers"):
+            self.tracker = self._make_trackers(self.state)
+            self.ntraj = ntraj
+            self.t = 0.0
+            self._invalidate_map()
 
     # -- hooks shared with the WM subclass -----------------------------------
 
@@ -1046,10 +1056,13 @@ class HermanKlukPropagator:
         moments (`second_moment`; None unless `m2_mode`). Reads nothing of
         a propagator: a kept loop's blocks run it for every batch."""
         tracker = tracker.update(hk_prefactor_det(params, state))
+        profiling.section("prefactor")
         cauto_qp, kic_qp = hk_observables_qp(params, bc, state,
                                              tracker.sqrt(), potential)
-        return (tracker, torch.sum(cauto_qp), torch.sum(kic_qp),
-                *_moments(cauto_qp, kic_qp, m2_mode))
+        out = (tracker, torch.sum(cauto_qp), torch.sum(kic_qp),
+               *_moments(cauto_qp, kic_qp, m2_mode))
+        profiling.section("observables")
+        return out
 
     def _micro_k(self, m2_mode):
         """The number of sub-batches of the time loop: rows / micro_batch
@@ -1136,7 +1149,9 @@ class HermanKlukPropagator:
             hmap = build_harmonic_map(potential, dt, self.state)
 
             def advance(state, carry, pack):
-                return (*harmonic_step(hmap, state, potential), carry)
+                state, energy = harmonic_step(hmap, state, potential)
+                profiling.section("integrator")
+                return state, energy, carry
 
             return (lambda state, carry, pack: (state, None)), advance, 1
 
@@ -1145,7 +1160,9 @@ class HermanKlukPropagator:
 
         def advance(state, carry, pack):
             carry, energy = morse_map_advance(pack, carry, dt, potential)
-            return morse_map_state(pack, carry), energy, carry
+            state = morse_map_state(pack, carry)
+            profiling.section("integrator")
+            return state, energy, carry
 
         return fresh, advance, 1
 
@@ -1279,33 +1296,38 @@ class HermanKlukPropagator:
         else:
             segments = [chunk] * (nt // chunk) + ([nt % chunk]
                                                    if nt % chunk else [])
-        k = self._micro_k(m2_mode)
-        m = self.n_local // k
-        loop, head, bc = self._segment_graph(potential, dt, m2_mode, k)
-        window = loop.stepper[2]
-        carried = loop.static[:3]
-        whole = carried if k == 1 else graph.clone_tree(head)
-        sums = torch.empty(2, k, nt, dtype=self.cdtype, device=self.device)
-        energies = torch.empty(k, nt, dtype=self.state.q.dtype,
+        with profiling.span("scan.load"):
+            k = self._micro_k(m2_mode)
+            m = self.n_local // k
+            loop, head, bc = self._segment_graph(potential, dt, m2_mode, k)
+            window = loop.stepper[2]
+            carried = loop.static[:3]
+            whole = carried if k == 1 else graph.clone_tree(head)
+            sums = torch.empty(2, k, nt, dtype=self.cdtype,
                                device=self.device)
-        m2 = (torch.empty(2, k, nt, dtype=torch.float64, device=self.device)
-              if m2_mode else None)
+            energies = torch.empty(k, nt, dtype=self.state.q.dtype,
+                                   device=self.device)
+            m2 = (torch.empty(2, k, nt, dtype=torch.float64,
+                              device=self.device) if m2_mode else None)
         done = 0
         for seg in segments:
             for s in range(k):
                 rows = (s * m, (s + 1) * m)
                 if k > 1:
-                    graph.copy_tree(carried, _tree_rows(whole, *rows))
-                    graph.copy_tree(loop.static[4], _batch_rows(bc, *rows))
+                    with profiling.span("scan.load"):
+                        graph.copy_tree(carried, _tree_rows(whole, *rows))
+                        graph.copy_tree(loop.static[4],
+                                        _batch_rows(bc, *rows))
                 i = done
                 for length in graph.block_lengths(seg, window):
-                    obs, energy, moments = loop.run(
-                        length, lambda: self._block(loop, length, potential,
-                                                    m2_mode))
-                    sums[:, s, i:i + length] = obs
-                    energies[s, i:i + length] = energy
-                    if m2_mode:
-                        m2[:, s, i:i + length] = moments
+                    with profiling.span("scan.block"):
+                        obs, energy, moments = loop.run(
+                            length, lambda: self._block(
+                                loop, length, potential, m2_mode))
+                        sums[:, s, i:i + length] = obs
+                        energies[s, i:i + length] = energy
+                        if m2_mode:
+                            m2[:, s, i:i + length] = moments
                     i += length
                 if k > 1:
                     graph.copy_tree(_tree_rows(whole, *rows), carried)
@@ -1318,8 +1340,8 @@ class HermanKlukPropagator:
                 # the map's carry advanced with the state
                 self._morse.state, self._morse.carry = self.state, carry
             if progress is not None and chunk:
-                progress(done, nt, complex(torch.sum(sums[0, :, done - 1]))
-                         * self.bc.weight_scale)
+                progress(done, nt, complex(profiling.to_host(
+                    torch.sum(sums[0, :, done - 1]))) * self.bc.weight_scale)
         self.t += nt * float(dt)
         cauto, kic = sums
         if k == 1:
@@ -1380,26 +1402,30 @@ class HermanKlukPropagator:
         t_start = self.t
         cauto, kic, energies, m2 = self._run(potential, dt, nt, chunk,
                                              progress, m2_mode)
-        cauto = cauto.cpu().numpy().astype(np.complex128)
-        kic = kic.cpu().numpy().astype(np.complex128)
-        self.last_energies = energies.cpu().numpy()
-        if check_energy:
-            check_energy_conservation(self.last_energies)
-        ts = t_start + float(dt) * np.arange(nt)
-        phase = np.exp(1j / hbar * energy0_es * ts)
-        scale = self.bc.weight_scale
-        out = (cauto * scale * phase, kic * scale * phase)
-        if not error_bars:
-            return out
-        n = self.ntraj // 2 if m2_mode == "pairs" else self.ntraj
-        m2 = m2.cpu().numpy()
-        return (*out, *(scale * np.sqrt(np.maximum(
-            moment - np.abs(total) ** 2 / n, 0.0))
-            for moment, total in zip(m2, (cauto, kic))))
+        with profiling.span("scan.read"):
+            cauto = profiling.to_host(cauto).numpy().astype(np.complex128)
+            kic = profiling.to_host(kic).numpy().astype(np.complex128)
+            self.last_energies = profiling.to_host(energies).numpy()
+            if error_bars:
+                m2 = profiling.to_host(m2).numpy()
+            profiling.collect(getattr(self._loop, "sections", None), nt)
+            if check_energy:
+                check_energy_conservation(self.last_energies)
+            ts = t_start + float(dt) * np.arange(nt)
+            phase = np.exp(1j / hbar * energy0_es * ts)
+            scale = self.bc.weight_scale
+            out = (cauto * scale * phase, kic * scale * phase)
+            if not error_bars:
+                return out
+            n = self.ntraj // 2 if m2_mode == "pairs" else self.ntraj
+            return (*out, *(scale * np.sqrt(np.maximum(
+                moment - np.abs(total) ** 2 / n, 0.0))
+                for moment, total in zip(m2, (cauto, kic))))
 
     def step(self, potential, dt):
         """Advance one time step t -> t + dt (updates the sign tracker)."""
         self._run(potential, dt, 1)
+        profiling.collect(getattr(self._loop, "sections", None), 1)
 
     # -- granular API ---------------------------------------------------------
 

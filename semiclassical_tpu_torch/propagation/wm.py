@@ -57,7 +57,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from semiclassical_tpu_torch import linalg
+from semiclassical_tpu_torch import linalg, profiling
 from semiclassical_tpu_torch.ops import wm_diag as _wm_diag_ops
 from semiclassical_tpu_torch.propagation.hk import (BatchConstants, HKParams,
                                                     HermanKlukPropagator,
@@ -982,14 +982,18 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
     def _observe(params, state, tracker, potential, bc, m2_mode=False):
         prefactorC = tracker.prefactorC.update(
             hk_prefactor_det(params.hk, state))
+        profiling.section("prefactor")
         sd = wm_scan_derived(params, bc, state, potential)
         detA = tracker.detA.update(sd.detA)
         detM = tracker.detM.update(sd.detM)
+        profiling.section("wm_derived")
         cauto_qp, kic_qp = wm_scan_observables_qp(
             params, bc, state, sd, prefactorC.sqrt(), detA.signs,
             detM.signs)
-        return (WMTrackers(prefactorC, detA, detM), torch.sum(cauto_qp),
-                torch.sum(kic_qp), *_moments(cauto_qp, kic_qp, m2_mode))
+        out = (WMTrackers(prefactorC, detA, detM), torch.sum(cauto_qp),
+               torch.sum(kic_qp), *_moments(cauto_qp, kic_qp, m2_mode))
+        profiling.section("observables")
+        return out
 
     # -- granular API ---------------------------------------------------------
 

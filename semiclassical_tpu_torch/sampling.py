@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from semiclassical_tpu_torch import linalg
+from semiclassical_tpu_torch import linalg, profiling
 
 logger = logging.getLogger(__name__)
 
@@ -228,7 +228,7 @@ def sampling_statistics(params: SamplingParams, q, p):
     pair_live = live[:, None] & live[None, :]
     cov_dev = torch.max(torch.where(pair_live, torch.abs(cov - ana_cov), zero)
                         / (scale[:, None] * scale[None, :]))
-    both = torch.stack([mean_dev, cov_dev]).cpu()
+    both = profiling.to_host(torch.stack([mean_dev, cov_dev]))
     return float(both[0]), float(both[1])
 
 
