@@ -14,14 +14,15 @@ prints last, for last-line parsers), each
     {"metric": "<name>_traj_steps_per_sec_per_chip", "value": N,
      "unit": "traj-steps/s/chip", "config": {...}, "phases": {...},
      "device": "<card name>, <power limit>", "peak_gb": x,
-     "launches": {"K1": n, ..., "K5": n}, "launches_by_dtype": {...},
+     "launches": {"K1": n, ..., "K6": n}, "launches_by_dtype": {...},
      "loop": "graph" | "eager", "graph": {...}}
 
 1. `hk_as60` — Herman-Kluk on the 60-mode anharmonic AS model (the JAX
    package's flagship, `__graft_entry__.py`'s model), comp32 trajectories
    with float32 algebra, 1,048,576 trajectories x 500 steps of 0.25 a.u.
    One unit of the metric is one trajectory, with its monodromy, advanced
-   one RK4 step with both observables C(t), k~ic(t) accumulated.
+   one RK4 step with both observables C(t), k~ic(t) accumulated; the
+   diagonal monodromy step launches K6 once a step (as in `wm_as60`).
 2. `wm_as60` — Walton-Manolopoulos on the same model (alpha = beta = 1e4),
    comp32, 524,288 x 500; the separable WM step launches K5 once a step.
 3. `gdml_coumarin` — HK on the sGDML coumarin model (51 Cartesians, rank
@@ -91,7 +92,7 @@ GDML_FCHK = os.path.join("Gaussian16", "coumarin_s1.fchk")
 # the whole 32,768 take ~16 GB, far under the ~60 GB a sub-batch would
 # be sized to (PERF.md)
 GDML_MICRO_DEFAULT = None
-KERNELS = ("K1", "K2", "K3", "K4", "K5")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 EXEC_ORDER = ("hk", "wm", "gdml")    # the largest batch first
 PRINT_ORDER = ("wm", "gdml", "hk")   # the headline last
 # BENCH_DTYPE: (algebra dtype, trajectory dtype)
@@ -145,13 +146,15 @@ def device_line(device):
 
 def launch_counts():
     """Every kernel's launches so far, by dtype ({kernel: {dtype: n}})."""
-    from semiclassical_tpu_torch.ops import det, det_block, gj, wm_diag
+    from semiclassical_tpu_torch.ops import (det, det_block, diag_mono, gj,
+                                             wm_diag)
 
     return {"K1": dict(det.LAUNCHES_BY_DTYPE),
             "K2": dict(gj.LAUNCHES_BY_DTYPE["det_solve"]),
             "K3": dict(gj.LAUNCHES_BY_DTYPE["det_inv"]),
             "K4": dict(det_block.LAUNCHES_BY_DTYPE),
-            "K5": dict(wm_diag.LAUNCHES_BY_DTYPE)}
+            "K5": dict(wm_diag.LAUNCHES_BY_DTYPE),
+            "K6": dict(diag_mono.LAUNCHES_BY_DTYPE)}
 
 
 def launches_between(before, after):

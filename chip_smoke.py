@@ -89,6 +89,22 @@ K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
              its rule (the outputs allocated once) in turns with the
              wrapper, beside the byte bound and the share of it, in both
              types;
+4d. K6     — ptxas' registers and spills of its instantiations (the
+             script fails if one spills); the diagonal monodromy's RK4 step
+             against its plain version on the AS model's monodromy planes
+             (identity plus noise) and Morse stage Hessian diagonals at
+             four displaced geometries, at (98304, 60) in float64 and
+             float32 (the vector variant), at n = 1, at (1001, 61) (odd n
+             d: the scalar variant), on a sub-batch's view Z[:, a:b] of a
+             (4, 98304, 60) state (aligned: vector; at an odd offset:
+             scalar), with one stage tensor passed four times (the frozen
+             modes) and with a broadcast row (the harmonic model): the
+             largest difference relative to the planes' largest entry
+             within 1e-14 (float64) / 1e-5 (float32), one launch a call,
+             the variant checked; times at (98304, 60) float64 and
+             float32 in turns with the plain version, and its C entry
+             point called directly (the output allocated once), beside
+             the byte bound (12 planes) and the share of it;
 5. HK methylium — examples/methylium_AH at its own size (50,000
              trajectories x 2000 steps, batches of 10,000) through the
              port's `cli.main(["dynamics", ...])` and
@@ -114,7 +130,8 @@ K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
              finite and positive after step 0, ic_rate_stderr and
              spectrum_stderr finite, |int S(E) dE - Re C(0)| < 1e-2; then
              98,304 x 100 steps with and without error bars at the same
-             seed: the same C(t) and k~ic(t), bit for bit;
+             seed: the same C(t) and k~ic(t), bit for bit; K6 launched on
+             every step;
 8. WM AS   — semi_wm.json (cell width 1e4) at the same seed and size: the
              same gates, the rate at its maximum within 4.1e-4 of the HK AS
              run's (10x the JAX package's WM - HK gap at the same draws,
@@ -405,6 +422,30 @@ EXPECT_DTYPES = {
 STEP_GATE = 1e-12
 # flops per (trajectory, mode) of K5, counted from csrc/wm_diag.cu
 K5_FLOPS = 290
+# operations per (trajectory, mode) of K6, counted from csrc/diag_mono.cu
+# (negations included): 40 a seed, 12 for the row map
+K6_FLOPS = 92
+# K6's planes: Mqq .. Mpp and h1 .. h4 read, the four new planes written
+K6_PLANES = 12
+# (n, d, dtype name, case, limit kernel-vs-plain relative to the planes'
+# largest entry). Cases: "whole" a (4, n, d) state; "view" the sub-batch
+# Z[:, 8192:16384] of a (4, 98304, d) state, "view odd" Z[:, 1:1002];
+# "aliased" one stage tensor four times; "broadcast" h1 one row expanded
+# over the batch (the harmonic Morse model's Hessian)
+K6_CASES = [
+    (98304, 60, "float64", "whole", 1e-14),
+    (98304, 60, "float32", "whole", 1e-5),
+    (1, 60, "float64", "whole", 1e-14),
+    (1, 60, "float32", "whole", 1e-5),
+    (1001, 61, "float64", "whole", 1e-14),
+    (1001, 61, "float32", "whole", 1e-5),
+    (8192, 60, "float64", "view", 1e-14),
+    (8192, 60, "float32", "view", 1e-5),
+    (1001, 61, "float64", "view odd", 1e-14),
+    (98304, 60, "float64", "aliased", 1e-14),
+    (98304, 60, "float32", "aliased", 1e-5),
+    (1001, 60, "float64", "broadcast", 1e-14),
+]
 
 # (n, r, dtype name, limit kernel-vs-plain, limit vs the c128 oracle)
 K1_CASES = [
@@ -1019,10 +1060,12 @@ def reset_counts(ops):
     for name in ops["gj"].LAUNCHES:
         ops["gj"].LAUNCHES[name] = 0
     ops["wm_diag"].LAUNCHES = 0
+    ops["diag_mono"].LAUNCHES = 0
     for counts in (ops["det"].LAUNCHES_BY_DTYPE,
                    ops["det_block"].LAUNCHES_BY_DTYPE,
                    *ops["gj"].LAUNCHES_BY_DTYPE.values(),
-                   ops["wm_diag"].LAUNCHES_BY_DTYPE):
+                   ops["wm_diag"].LAUNCHES_BY_DTYPE,
+                   ops["diag_mono"].LAUNCHES_BY_DTYPE):
         for dtype in counts:
             counts[dtype] = 0
 
@@ -1030,7 +1073,8 @@ def reset_counts(ops):
 def read_counts(ops):
     return {"K1": ops["det"].LAUNCHES, "K2": ops["gj"].LAUNCHES["det_solve"],
             "K3": ops["gj"].LAUNCHES["det_inv"],
-            "K4": ops["det_block"].LAUNCHES, "K5": ops["wm_diag"].LAUNCHES}
+            "K4": ops["det_block"].LAUNCHES, "K5": ops["wm_diag"].LAUNCHES,
+            "K6": ops["diag_mono"].LAUNCHES}
 
 
 def read_counts_by_dtype(ops):
@@ -1039,7 +1083,8 @@ def read_counts_by_dtype(ops):
             "K2": dict(ops["gj"].LAUNCHES_BY_DTYPE["det_solve"]),
             "K3": dict(ops["gj"].LAUNCHES_BY_DTYPE["det_inv"]),
             "K4": dict(ops["det_block"].LAUNCHES_BY_DTYPE),
-            "K5": dict(ops["wm_diag"].LAUNCHES_BY_DTYPE)}
+            "K5": dict(ops["wm_diag"].LAUNCHES_BY_DTYPE),
+            "K6": dict(ops["diag_mono"].LAUNCHES_BY_DTYPE)}
 
 
 # the launches by dtype, and the time loop's counters (`graph.STATS`), of
@@ -2013,19 +2058,19 @@ def wm_norm_phase(cli, ops, smi):
     return launches, dict(block=block, n=n, d=d, r=r)
 
 
-def k5_ptxas(build_log):
-    """K5's lines of ptxas' report (registers and spills; its shared memory
-    is dynamic, the layout's `smem`) from the build's log, two per
-    instantiation; fails if one spills."""
+def kernel_ptxas(build_log, kernel, label):
+    """The lines of ptxas' report (registers and spills) of the
+    instantiations of `kernel` (a name in the mangled entry) from the
+    build's log, two per instantiation; fails if one spills."""
     entry, lines = None, []
     for line in build_log.splitlines():
         if "Compiling entry" in line:
-            entry = line.split("'")[1] if "wm_diag_kernel" in line else None
+            entry = line.split("'")[1] if kernel in line else None
         elif entry and ("spill" in line or "Used" in line):
             lines.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
             if "spill" in line:
                 check("0 bytes spill stores, 0 bytes spill loads" in line,
-                      f"K5 spills: {entry}: {line.strip()}")
+                      f"{label} spills: {entry}: {line.strip()}")
     return lines
 
 
@@ -2074,7 +2119,7 @@ def k5_phase(cli, wm_diag, model):
     from semiclassical_tpu_torch.propagation import (
         WaltonManolopoulosPropagator, wm)
 
-    for line in k5_ptxas(_build.build_log()):
+    for line in kernel_ptxas(_build.build_log(), "wm_diag_kernel", "K5"):
         print(f"K5 ptxas: {line}", flush=True)
     task = {"potential": {"type": "anharmonic AS", "model_file": model}}
     potential, q0, _, G, _, _, _ = cli._build_potential(task, "cuda")
@@ -2191,6 +2236,138 @@ def k5_direct_rows(wm_diag, inputs):
               f"(median of CUDA-event windows of 20 calls; layout "
               f"{tuple(lay)}); bound {b_ms:.4f} ms ({b_by}): the entry point "
               f"at {100 * b_ms / dms:.1f}% of it", flush=True)
+
+
+def k6_inputs(potential, n, d, dtype, case, generator):
+    """(Z, inv_m, hs) of one K6 case: the monodromy planes identity plus
+    0.3 noise, the AS potential's Morse Hessian diagonals of the first d
+    modes (wrapped round for d > 60) at four geometries 0.5 noise apart,
+    1/m of its modes; `case` as K6_CASES says."""
+    import torch
+
+    rows = 98304 if case.startswith("view") else n
+    modes = potential.omega.shape[0]
+    cols = torch.arange(d, device="cuda") % modes
+
+    def noise(*shape):
+        return torch.randn(shape, generator=generator, device="cuda",
+                           dtype=torch.float64)
+
+    Z = 0.3 * noise(4, rows, d)
+    Z[0::3] += 1.0
+    q = noise(rows, modes)
+    hs = [potential.local_expansion(q + 0.5 * noise(rows, modes))[2]
+          .diag[:, cols] for _ in range(4)]
+    inv_m = (1.0 / potential.masses())[cols]
+    Z, inv_m = Z.to(dtype), inv_m.to(dtype).contiguous()
+    hs = [h.to(dtype).contiguous() for h in hs]
+    if case == "view":
+        Z, hs = Z[:, 8192:8192 + n], [h[8192:8192 + n] for h in hs]
+    elif case == "view odd":
+        Z, hs = Z[:, 1:1 + n], [h[1:1 + n] for h in hs]
+    elif case == "aliased":
+        hs = [hs[1]] * 4
+    elif case == "broadcast":
+        hs[0] = hs[0][:1].expand(n, d)
+    return Z, inv_m, tuple(hs)
+
+
+def k6_phase(cli, diag_mono, model):
+    """K6 against its plain version at K6_CASES, its times at (98304, 60)
+    float64 and float32 in turns with the plain version, its C entry point
+    called directly, and ptxas' report of its instantiations."""
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.ops import _build
+    from semiclassical_tpu_torch.propagation import eom
+
+    for line in kernel_ptxas(_build.build_log(), "diag_mono_kernel", "K6"):
+        print(f"K6 ptxas: {line}", flush=True)
+    task = {"potential": {"type": "anharmonic AS", "model_file": model}}
+    potential = cli._build_potential(task, "cuda")[0]
+    dt = 0.005 / units.autime_to_fs
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 7)
+    main_err = None
+    for n, d, dname, case, lim in K6_CASES:
+        dtype = getattr(torch, dname)
+        Z, inv_m, hs = k6_inputs(potential, n, d, dtype, case, g)
+        w = eom._rk4_weights(dt, dtype)
+        variant = diag_mono.layout_of(Z, hs).variant
+        before = diag_mono.LAUNCHES
+        got = diag_mono.diag_mono_step(Z, inv_m, hs, w)
+        ref = diag_mono.diag_mono_step_plain(Z, inv_m, hs, w)
+        torch.cuda.synchronize()
+        launches = diag_mono.LAUNCHES - before
+        err = float((got - ref).abs().max() / ref.abs().max())
+        if (n, d, dname, case) == (98304, 60, "float64", "whole"):
+            main_err = float((got - ref).abs().max())
+        odd = n * d % 2 == 1 or case == "view odd"
+        print(f"K6 ({n}, {d}) {dname} {case}, {variant} variant: max "
+              f"|kernel - plain| / max |plain| {err:.3e} (limit {lim:g}), "
+              f"{launches} launch", flush=True)
+        check(bool(torch.isfinite(got).all()),
+              f"K6 non-finite at ({n}, {d}) {dname} {case}")
+        check(err <= lim, f"K6 kernel vs plain {err} > {lim} at ({n}, {d}) "
+              f"{dname} {case}")
+        check(launches == 1, f"K6 launched {launches} times for one call")
+        check(variant == ("scalar" if odd else "vector"),
+              f"K6 at ({n}, {d}) {dname} {case} ran the {variant} variant")
+    out = {}
+    for dname in ("float64", "float32"):
+        dtype = getattr(torch, dname)
+        n, d = 98304, 60
+        Z, inv_m, hs = k6_inputs(potential, n, d, dtype, "whole", g)
+        args = (Z, inv_m, hs, eom._rk4_weights(dt, dtype))
+        timed = in_turns(diag_mono.diag_mono_step,
+                         diag_mono.diag_mono_step_plain, None, *args)
+        b = bound(K6_PLANES * n * d * Z.element_size(), K6_FLOPS * n * d,
+                  dtype == torch.float32)
+        print(timing_line("K6", f"({n}, {d}) {dname}", timed, *b, "none"),
+              flush=True)
+        k6_direct_row(diag_mono, dname, *args)
+        if dname == "float64":
+            out = dict(timed, max_abs_err=main_err, bound_ms=b[0],
+                       bound_by=b[1])
+        del Z, hs, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def k6_direct_row(diag_mono, dname, Z, inv_m, hs, w):
+    """K6's C entry point called directly with the layout of its rule, its
+    output allocated once, in turns with the wrapper (direct, wrapper,
+    wrapper, direct), beside the byte bound and the share of it the entry
+    point reaches."""
+    import numpy as np
+    import torch
+
+    from semiclassical_tpu_torch.ops import _build
+
+    _, n, d = Z.shape
+    out = torch.empty_like(Z)
+    lay = diag_mono.layout_of(Z, hs)
+    fn = getattr(_build.load(), "semi_diag_mono_"
+                 + ("f64" if Z.dtype == torch.float64 else "f32"))
+    args = (Z.data_ptr(), Z.stride(0), *(h.data_ptr() for h in hs), 0,
+            inv_m.data_ptr(), out.data_ptr(), n * d, d, *w, lay.vec,
+            lay.blocks, torch.cuda.current_stream().cuda_stream)
+    check(fn(*args) == 0, "K6 entry point refused its own layout")
+    t = {"direct": [], "wrapper": []}
+    for name in ("direct", "wrapper", "wrapper", "direct"):
+        t[name] += (median_ms(lambda: fn(*args), loops=5, calls=20)
+                    if name == "direct" else
+                    median_ms(diag_mono.diag_mono_step, Z, inv_m, hs, w,
+                              loops=5, calls=20))
+    dms, wms = (float(np.median(t[k])) for k in ("direct", "wrapper"))
+    b_ms, b_by = bound(K6_PLANES * n * d * Z.element_size(),
+                       K6_FLOPS * n * d, Z.dtype == torch.float32)
+    print(f"K6 direct ({n}, {d}) {dname}: entry point called directly "
+          f"{dms:.4f} ms, through the wrapper {wms:.4f} ms per call "
+          f"(median of CUDA-event windows of 20 calls; layout "
+          f"{tuple(lay)}); bound {b_ms:.4f} ms ({b_by}): the entry point "
+          f"at {100 * b_ms / dms:.1f}% of it", flush=True)
 
 
 def coumarin_task(file):
@@ -2355,8 +2532,8 @@ def precision_curves(label, precision, data, ref):
 
 
 def reduced_launches(label, by_dtype, need):
-    """No complex128 launch of K1-K4 (and no float64 one of K5), and each
-    kernel of `need` ({kernel: least launches}) at its reduced type at
+    """No complex128 launch of K1-K4 (and no float64 one of K5 or K6), and
+    each kernel of `need` ({kernel: least launches}) at its reduced type at
     least that often."""
     wide = {k: v.get("complex128", v.get("float64", 0))
             for k, v in by_dtype.items()}
@@ -3353,9 +3530,11 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from semiclassical_tpu_torch import cli
-    from semiclassical_tpu_torch.ops import _build, det, det_block, gj, wm_diag
+    from semiclassical_tpu_torch.ops import (_build, det, det_block,
+                                             diag_mono, gj, wm_diag)
 
-    ops = {"det": det, "det_block": det_block, "gj": gj, "wm_diag": wm_diag}
+    ops = {"det": det, "det_block": det_block, "gj": gj, "wm_diag": wm_diag,
+           "diag_mono": diag_mono}
     t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3397,6 +3576,7 @@ def main():
         k3 = phase("K3", k3_phase, gj)
         k4 = phase("K4", k4_phase, det, det_block)
         k5 = phase("K5", k5_phase, cli, wm_diag, model)
+        k6 = phase("K6", k6_phase, cli, diag_mono, model)
         hk, hk_launches = phase("HK methylium", methylium_run, cli, ops, smi,
                                 "HK")
         phase("HK methylium group", group_methylium_phase, cli, ops, smi, hk,
@@ -3418,6 +3598,10 @@ def main():
               smi, "WM", wm, "comp32", integrator="exact")
         hk_as, hk_as_launches = phase("HK AS", as_run, cli, ops, smi, model,
                                       "HK", "semi.json")
+        steps = hk_as["nsteps"] * hk_as["nrep"]
+        check(hk_as_launches["K6"] >= steps,
+              f"HK AS: K6 launched {hk_as_launches['K6']} times for {steps} "
+              "steps")
         phase("HK AS error bars", error_bars_identity, cli, ops, model)
         wm_as, wm_as_launches = phase("WM AS", as_run, cli, ops, smi, model,
                                       "WM", "semi_wm.json")
@@ -3456,9 +3640,9 @@ def main():
     phase("accumulation mode", accumulation_phase, cli, smi)
     wm_vs_hk("AS", wm_as, hk_as, WM_HK_GATE_AS)
     steps = wm_as["nsteps"] * wm_as["nrep"]
-    check(wm_as_launches["K5"] >= steps,
-          f"WM AS: K5 launched {wm_as_launches['K5']} times for {steps} "
-          "steps")
+    check(wm_as_launches["K5"] >= steps and wm_as_launches["K6"] >= steps,
+          f"WM AS: K5 launched {wm_as_launches['K5']} times, K6 "
+          f"{wm_as_launches['K6']} times for {steps} steps")
     gap = phase("coumarin reference", reference_phase, cli)
     hk_c, hk_c_launches = phase("HK coumarin", coumarin_run, cli, ops, smi,
                                 "HK", "semi.json")
@@ -3492,20 +3676,24 @@ def main():
         measured = dict(measured, launches=launches)
         return {"name": name, "route": "cuda",
                 "source": f"semiclassical_tpu_torch/csrc/{source}",
-                "replaces": f"semiclassical_tpu/ops/{replaces}",
+                "replaces": f"semiclassical_tpu/{replaces}",
                 **{k: measured[k] for k in keys}}
 
     print(json.dumps({"kernels": [
-        entry("batched_det_lu", "det_lu.cu", "det_kernel.py:257",
+        entry("batched_det_lu", "det_lu.cu", "ops/det_kernel.py:257",
               hk_launches["K1"], k1),
-        entry("batched_det_solve_gj", "gj_det.cu", "det_kernel.py:460",
+        entry("batched_det_solve_gj", "gj_det.cu", "ops/det_kernel.py:460",
               wm_launches["K2"], k2),
-        entry("batched_det_inv_gj", "gj_det.cu", "det_kernel.py:532",
+        entry("batched_det_inv_gj", "gj_det.cu", "ops/det_kernel.py:532",
               wm_norm_launches["K3"], k3),
-        entry("batched_det_lu_block", "det_lu_block.cu", "det_kernel.py:113",
+        entry("batched_det_lu_block", "det_lu_block.cu",
+              "ops/det_kernel.py:113",
               hk_c_launches["K4"], k4),
-        entry("wm_diag_derived", "wm_diag.cu", "wm_kernel.py:273",
+        entry("wm_diag_derived", "wm_diag.cu", "ops/wm_kernel.py:273",
               wm_as_launches["K5"], k5),
+        entry("diag_mono_step", "diag_mono.cu",
+              "propagation/eom.py:263 (XLA-fused row_map)",
+              hk_as_launches["K6"], k6),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

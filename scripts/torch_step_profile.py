@@ -257,7 +257,8 @@ def main(argv=None):
         print("torch_step_profile: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from semiclassical_tpu_torch import cli, units
-    from semiclassical_tpu_torch.ops import det, det_block, gj, wm_diag
+    from semiclassical_tpu_torch.ops import (det, det_block, diag_mono, gj,
+                                             wm_diag)
     from semiclassical_tpu_torch.propagation import graph
 
     if args.ntraj is None:
@@ -350,7 +351,8 @@ def main(argv=None):
                     "K2": gj.LAUNCHES_BY_DTYPE["det_solve"],
                     "K3": gj.LAUNCHES_BY_DTYPE["det_inv"],
                     "K4": det_block.LAUNCHES_BY_DTYPE,
-                    "K5": wm_diag.LAUNCHES_BY_DTYPE}
+                    "K5": wm_diag.LAUNCHES_BY_DTYPE,
+                    "K6": diag_mono.LAUNCHES_BY_DTYPE}
         return {f"{k} {dtype}": n for k, counts in by_dtype.items()
                 for dtype, n in counts.items()}
 

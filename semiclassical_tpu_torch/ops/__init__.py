@@ -10,5 +10,7 @@ the build that compiles `csrc/` at first use.
          Gauss-Jordan (csrc/gj_det.cu; csrc/rows.cuh is shared with K1)
   wm_diag K5: the fused separable WM chain — per-mode 2x2 A/M algebra,
          mode-sum Gram forms and det planes (csrc/wm_diag.cu)
+  diag_mono K6: the RK4 step of the diagonal monodromy, one streaming
+         pass over the (n, d) planes (csrc/diag_mono.cu)
   _build nvcc -> build/kernels/*.so, bound with ctypes; the launch helper
 """

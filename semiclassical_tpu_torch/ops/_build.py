@@ -42,6 +42,7 @@ LINK_FLAGS = (*ARCH, "-shared")
 
 # entry point -> argtypes (all return int: the cudaError_t of the launch)
 _P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_D = ctypes.c_double
 _ENTRY_POINTS = {
     # csrc/det_lu.cu (K1): a, det, n, r, layout, stream
     "semi_det_lu_c128": (_P, _P, _N, _I, _I, _P),
@@ -61,6 +62,13 @@ _ENTRY_POINTS = {
     # lanes, blocks, stream
     "semi_wm_diag_f64": (*(_P,) * 13, _N, *(_I,) * 4, _P),
     "semi_wm_diag_f32": (*(_P,) * 13, _N, *(_I,) * 4, _P),
+    # csrc/diag_mono.cu (K6): z, plane stride, h1..h4, broadcast mask,
+    # inv_m, out, n d, d, the weights dt/6, dt/3, dt/2, dt, vec, blocks,
+    # stream
+    "semi_diag_mono_f64": (_P, _N, *(_P,) * 4, _I, _P, _P, _N, _I,
+                           *(_D,) * 4, _I, _I, _P),
+    "semi_diag_mono_f32": (_P, _N, *(_P,) * 4, _I, _P, _P, _N, _I,
+                           *(_D,) * 4, _I, _I, _P),
     # csrc/stamp.cu (the time loop's section clock): slots, section, last,
     # stream
     "semi_stamp_i64": (_P, _I, _I, _P),

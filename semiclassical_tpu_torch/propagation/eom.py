@@ -36,7 +36,8 @@ The monodromy step has these forms:
 * diagonal Hessians at every stage (separable PES, the diagonal monodromy
   representation): the step of mode i is the per-(trajectory, mode) 2x2
   linear map obtained by running the stage recurrence on the (1, 0) and
-  (0, 1) seeds, applied to the (n, d) planes.
+  (0, 1) seeds, applied to the (n, d) planes: one pass of the kernel K6
+  on the card (`ops.diag_mono`).
 
 `make_taylor_window` gives the `taylor_every` window: one order-2 PES
 evaluation per window of `every` steps, at the free-flight window midpoint,
@@ -47,13 +48,13 @@ every scan segment, as in the JAX package.
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from semiclassical_tpu_torch import profiling
+from semiclassical_tpu_torch.ops import diag_mono
 from semiclassical_tpu_torch.potentials.base import (ConstHessian,
                                                      DenseHessian,
                                                      DiagHessian)
@@ -337,49 +338,14 @@ def _chain_step(state, inv_m, hs, dt):
     return torch.cat([acc_a + h6 * ka, acc_b + h6 * kb], dim=1)
 
 
-@functools.lru_cache(maxsize=None)
-def _seeds(dtype, device):
-    """The seeds (1, 0) and (0, 1) of `_diag_step`, each (2, 1, 1), made
-    once per dtype and device (by the first step, which the time loop
-    runs eagerly): a step makes no tensor from host values, so a captured
-    step holds no host-to-device copy."""
-    eye = torch.eye(2, dtype=dtype, device=device)
-    return eye[:, 0].view(2, 1, 1), eye[:, 1].view(2, 1, 1)
-
-
 def _diag_step(Z, inv_m, hs, dt):
     """The RK4 step of the diagonal monodromy planes Z (4, n, d) under the
     stage Hessian diagonals `hs` (four (n, d) tensors): the per-mode 2x2
-    row map of the stage recurrence, run on the seeds (1, 0) and (0, 1) at
-    once (a leading axis of 2), then applied to the (q-row, p-row) pairs
-    (Mqq, Mpq) and (Mqp, Mpp). Everything runs at Z's dtype."""
-    u = inv_m[None, None, :]
-    h6, h3, h2, dt = _rk4_weights(dt, Z.dtype)
-    a, b = _seeds(Z.dtype, Z.device)
-    ka = u * b
-    kb = -hs[0] * a
-    acc_a = a + h6 * ka
-    acc_b = b + h6 * kb
-    sa = a + h2 * ka
-    sb = b + h2 * kb
-    ka = u * sb
-    kb = -hs[1] * sa
-    acc_a = acc_a + h3 * ka
-    acc_b = acc_b + h3 * kb
-    sa = a + h2 * ka
-    sb = b + h2 * kb
-    ka = u * sb
-    kb = -hs[2] * sa
-    acc_a = acc_a + h3 * ka
-    acc_b = acc_b + h3 * kb
-    sa = a + dt * ka
-    sb = b + dt * kb
-    ka = u * sb
-    kb = -hs[3] * sa
-    raa, rab = acc_a + h6 * ka                  # each (n, d)
-    rba, rbb = acc_b + h6 * kb
-    top, bottom = Z[:2], Z[2:]                  # [Mqq, Mqp], [Mpq, Mpp]
-    return torch.cat([raa * top + rab * bottom, rba * top + rbb * bottom])
+    row map of the stage recurrence on the seeds (1, 0) and (0, 1),
+    applied to the (q-row, p-row) pairs (Mqq, Mpq) and (Mqp, Mpp). One
+    launch of K6 on the card (`ops.diag_mono`), its plain version on the
+    CPU. Everything runs at Z's dtype."""
+    return diag_mono.diag_mono_step(Z, inv_m, hs, _rk4_weights(dt, Z.dtype))
 
 
 # ---------------------------------------------------------------------------

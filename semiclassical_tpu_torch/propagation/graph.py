@@ -110,7 +110,8 @@ _LOOPS = {}     # device ("cpu" or a CUDA index) -> its live SegmentGraph
 _COUNTER_MODULES = ("semiclassical_tpu_torch.ops.det",
                     "semiclassical_tpu_torch.ops.det_block",
                     "semiclassical_tpu_torch.ops.gj",
-                    "semiclassical_tpu_torch.ops.wm_diag")
+                    "semiclassical_tpu_torch.ops.wm_diag",
+                    "semiclassical_tpu_torch.ops.diag_mono")
 _COUNTERS = ("LAUNCHES", "LAUNCHES_BY_DTYPE")
 
 
@@ -158,7 +159,8 @@ def _flatten(out, key, value):
 def read_launches():
     """Every launch counter of the kernel wrappers as {(module, counter,
     *keys): count}: `LAUNCHES` and `LAUNCHES_BY_DTYPE` of `ops.det`,
-    `ops.det_block`, `ops.gj` and `ops.wm_diag` (those imported)."""
+    `ops.det_block`, `ops.gj`, `ops.wm_diag` and `ops.diag_mono` (those
+    imported)."""
     out = {}
     for name in _COUNTER_MODULES:
         module = sys.modules.get(name)

@@ -28,7 +28,13 @@ limits, and `linalg.batched_det` is checked to launch K1 for r <=
 blocks (bi, bj, r, r) through `linalg.batched_det_inv`, with bi bj
 matrices that fill no whole warp; and the HK and WM norms on the card
 equal the same norms on the CPU to 1e-10 relative, with one K3 launch per
-block pair of the WM norm.
+block pair of the WM norm. K6 (`ops.diag_mono.diag_mono_step`,
+csrc/diag_mono.cu, the diagonal monodromy's RK4 step) is held against its
+plain version at 1e-14 in float64 and 1e-5 in float32 of the planes'
+largest entry (it rounds each operation as the plain version does, so the
+two should agree bit for bit), in both variants of its layout rule, on a
+sub-batch's plane-strided view, with aliased and broadcast stage
+diagonals; its wrapper raises on what it does not take.
 """
 
 import numpy as np
@@ -334,6 +340,107 @@ def test_wm_diag_wrapper_raises_on_card(card, case):
     with pytest.raises(ValueError):
         wm_diag.wm_diag_derived(*planes, pack)
     assert wm_diag.LAUNCHES == before
+
+
+def _diag_mono_inputs(n, d, dtype, device, seed, rows=None):
+    """K6's inputs: Z (4, rows, d) identity plus noise, 1/m of d modes and
+    four Morse-like stage diagonals of both signs (rows = n by default)."""
+    rng = np.random.default_rng(seed)
+    rows = n if rows is None else rows
+    Z = 0.3 * rng.standard_normal((4, rows, d))
+    Z[0::3] += 1.0
+    inv_m = 1.0 / rng.uniform(0.5, 2.0, d)
+    hs = [rng.uniform(-0.2, 1.0, (rows, d)) * rng.uniform(1e-6, 1e-3, d)
+          for _ in range(4)]
+    to = lambda x: torch.from_numpy(x).to(device=device, dtype=dtype)
+    return to(Z), to(inv_m), tuple(to(h) for h in hs)
+
+
+_DIAG_MONO_RTOL = {torch.float64: 1e-14, torch.float32: 1e-5}
+
+
+def _diag_mono_check(Z, inv_m, hs, variant):
+    """One K6 launch in the `variant` of its layout rule against the plain
+    version: the largest difference within 1e-14 (float64) / 1e-5
+    (float32) of the planes' largest entry."""
+    from semiclassical_tpu_torch.ops import diag_mono
+    from semiclassical_tpu_torch.propagation import eom
+
+    w = eom._rk4_weights(0.2, Z.dtype)
+    assert diag_mono.layout_of(Z, hs).variant == variant
+    before = diag_mono.LAUNCHES
+    got = diag_mono.diag_mono_step(Z, inv_m, hs, w)
+    torch.cuda.synchronize()
+    assert diag_mono.LAUNCHES == before + 1
+    assert got.shape == (4, *Z.shape[1:]) and got.is_contiguous()
+    ref = diag_mono.diag_mono_step_plain(Z, inv_m, hs, w)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert err <= _DIAG_MONO_RTOL[Z.dtype]
+
+
+@pytest.mark.parametrize("n, d, variant", [
+    (98304, 60, "vector"), (1, 60, "vector"), (1001, 61, "scalar"),
+    (4097, 4, "vector"), (33, 1, "scalar"), (12, 1, "vector")])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_diag_mono_kernel_matches_plain(card, dtype, n, d, variant):
+    """K6 against its plain version at the AS model's shape, n = 1, odd n
+    and d (the new planes off 16 bytes: the scalar variant) and small d."""
+    if dtype == torch.float32 and n * d % 4:
+        variant = "scalar"
+    _diag_mono_check(*_diag_mono_inputs(n, d, dtype, card, seed=n + d),
+                     variant)
+
+
+@pytest.mark.parametrize("a, b, d, variant", [(8192, 16384, 60, "vector"),
+                                              (1, 1002, 61, "scalar")])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_diag_mono_kernel_on_plane_views(card, dtype, a, b, d, variant):
+    """K6 on a sub-batch's view Z[:, a:b] of a (4, 98304, d) state, as
+    `micro_batch` passes it: planes 98304 rows apart, with no copy (at an
+    odd offset of an odd d, off 16 bytes: the scalar variant)."""
+    Z, inv_m, hs = _diag_mono_inputs(b - a, d, dtype, card, seed=a,
+                                     rows=98304)
+    _diag_mono_check(Z[:, a:b], inv_m, tuple(h[a:b] for h in hs), variant)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_diag_mono_kernel_with_aliased_and_broadcast_h(card, dtype):
+    """One stage tensor passed four times (the frozen "step" and "taylor"
+    modes) and a stage diagonal that is one row expanded over the batch
+    (the harmonic Morse model's Hessian)."""
+    Z, inv_m, hs = _diag_mono_inputs(98304, 60, dtype, card, seed=5)
+    _diag_mono_check(Z, inv_m, (hs[2],) * 4, "vector")
+    row = hs[0][7:8].expand(98304, 60)
+    _diag_mono_check(Z, inv_m, (row, hs[1], row, hs[3]), "vector")
+
+
+def test_diag_mono_empty_batch_launches_nothing(card):
+    from semiclassical_tpu_torch.ops import diag_mono
+
+    Z, inv_m, hs = _diag_mono_inputs(0, 60, torch.float64, card, seed=0)
+    before = diag_mono.LAUNCHES
+    got = diag_mono.diag_mono_step(Z, inv_m, hs, (0.1, 0.2, 0.3, 0.6))
+    assert diag_mono.LAUNCHES == before and got.shape == (4, 0, 60)
+
+
+@pytest.mark.parametrize("case", ["mixed dtypes", "rows apart", "h shape",
+                                  "cpu inv_m"])
+def test_diag_mono_wrapper_raises_on_card(card, case):
+    from semiclassical_tpu_torch.ops import diag_mono
+
+    Z, inv_m, hs = _diag_mono_inputs(16, 6, torch.float64, card, seed=2)
+    if case == "mixed dtypes":
+        hs = (hs[0].float(), *hs[1:])
+    elif case == "rows apart":
+        Z = torch.zeros(4, 16, 8, dtype=Z.dtype, device=card)[:, :, :6]
+    elif case == "h shape":
+        hs = (hs[0][:15], *hs[1:])
+    elif case == "cpu inv_m":
+        inv_m = inv_m.cpu()
+    before = diag_mono.LAUNCHES
+    with pytest.raises(ValueError):
+        diag_mono.diag_mono_step(Z, inv_m, hs, (0.1, 0.2, 0.3, 0.6))
+    assert diag_mono.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype, r, n, rtol", [

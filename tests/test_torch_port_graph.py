@@ -34,11 +34,11 @@ import numpy as np
 import pytest
 import torch
 
-from semiclassical_tpu_torch.ops import det, gj
+from semiclassical_tpu_torch.ops import det, diag_mono, gj
 from semiclassical_tpu_torch.potentials import MorsePotential
 from semiclassical_tpu_torch.propagation import (HermanKlukPropagator,
                                                  WaltonManolopoulosPropagator,
-                                                 eom, graph, hk)
+                                                 graph, hk)
 from semiclassical_tpu_torch.propagation.state import TrajState
 
 NTRAJ = 32
@@ -307,7 +307,7 @@ def test_guard_catches_the_old_diagonal_seeds(monkeypatch, guarded):
                 torch.tensor([0.0, 1.0], dtype=dtype,
                              device=device).view(2, 1, 1))
 
-    monkeypatch.setattr(eom, "_seeds", seeds_from_host)
+    monkeypatch.setattr(diag_mono, "_seeds", seeds_from_host)
     with pytest.raises(HostRead, match="tensor"):
         prop.propagate(pot, 2.0, 3)
 
@@ -848,6 +848,37 @@ def test_graphs_equal_eager_on_the_card(name, integrator, micro):
     if name == "WM":
         k5 = ("semiclassical_tpu_torch.ops.wm_diag", "LAUNCHES")
         assert launches[k5] >= 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f64", "comp32"])
+def test_diag_monodromy_graphs_equal_eager_on_the_card(precision):
+    """HK RK4 on a 60-mode Morse model (the AS model's step) at 1024 x 50
+    in segments of 20, with error bars: graph replays against
+    `graph.eager()` on the same draws give C(t), k~ic(t), their errors and
+    the final monodromy planes bit for bit, and K6 launches once a step in
+    both (float64 Z, and float32 under comp32)."""
+    _card()
+    pot, q0, G = _morse(d=60, device="cuda")
+    k6 = ("semiclassical_tpu_torch.ops.diag_mono", "LAUNCHES")
+    runs = []
+    for eager in (False, True):
+        prop = _propagator("HK", pot, q0, G, ntraj=1024, device="cuda",
+                           precision=precision)
+        before, stats = graph.read_launches(), dict(graph.STATS)
+        with graph.eager() if eager else contextlib.nullcontext():
+            out = prop.propagate(pot, 2.0, 50, chunk=20, error_bars=True)
+        torch.cuda.synchronize()
+        after = graph.read_launches()
+        runs.append((out, prop.state.Z.cpu(),
+                     after.get(k6, 0) - before.get(k6, 0),
+                     graph.STATS["replays"] - stats["replays"]))
+    (got, Z, launches, replays), (ref, Z_ref, launches_eager, _) = runs
+    for g, r in zip(got, ref):
+        assert np.array_equal(g, r)
+    assert torch.equal(Z, Z_ref)
+    assert launches == launches_eager == 50
+    assert replays > 0
 
 
 @pytest.mark.cuda
