@@ -1,14 +1,15 @@
 """K6's share of its roofline (`ops.diag_mono`, `csrc/diag_mono.cu`, the
 diagonal monodromy's RK4 step): its least time, 12 (n, d) planes at Z's
 width over the card's bandwidth (Mqq, Mqp, Mpq, Mpp and the four stage
-Hessian diagonals read, the four new planes written; n the task's batch,
+Hessian diagonals read, the four new planes written; n the rows K6 steps
+on the traced card, the task's batch or a rank's share of it in a group,
 d its model's modes, Z float64 under the precision "f64" and float32
 under the others), times its launches, over its device time in the
 traced window, by kernel name. Nothing where the window holds no K6
 launch (a dense monodromy, or a port without K6) or the card is not in
 the peaks table."""
 
-from semibench import peaks
+from semibench import cell, peaks
 
 KERNEL = "diag_mono_kernel"
 PLANES = 12
@@ -31,6 +32,7 @@ def read(run):
     if not seconds:
         return None
     calls = sum(t.op_n[n] for n in names)
-    least = peaks.least_seconds({"bytes": least_bytes(run.cell.task),
+    task = cell.rank_task(run.cell.task, run.world)
+    least = peaks.least_seconds({"bytes": least_bytes(task),
                                  "flops": {}}, peak)
     return 100.0 * calls * least / seconds

@@ -10,7 +10,10 @@ with --trace 1 `breakdown`, and last `check`: each number compared with
 the plain reference beside its limit (also the last lines of standard
 error). Needs the cell's CUDA cards; without them it exits with 2 and
 prints no result. It measures `semiclassical_tpu_torch` only: with JAX or
-the JAX package loaded it exits with 3."""
+the JAX package loaded it exits with 3. A cell on several cards runs as a
+process group, one process a card (`semibench/group.py`): this process is
+rank 0 and alone prints the result; `--rank` and `--job` start the other
+ranks."""
 
 import time
 
@@ -34,12 +37,7 @@ for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
 os.environ["USE_FLAX"] = "0"
 sys.path[:0] = [str(BENCH), str(ROOT)]
 
-# the modules a run of the port may not hold, by whole top-level name
-FORBIDDEN = ("jax", "jaxlib", "flax", "semiclassical_tpu")
-
-
-def forbidden_modules():
-    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+from semibench.guard import FORBIDDEN, forbidden_modules  # noqa: E402,F401
 
 
 def power_limit():
@@ -64,20 +62,37 @@ def read_metrics(run, listed):
     return out
 
 
+def execute(cell, seed, seconds, trace, device, system=None, max_reps=None,
+            t0=T0):
+    """Set-up and window of one run, started at `t0` on the host clock: in
+    this process on `device`, or for a cell on several cards as rank 0 of
+    a group of that many ranks, one process a card of `device`'s type.
+    `system` names a Program in the port's place, the same way on both
+    paths (`semibench.program.load`); `max_reps` ends the window after
+    that many repetitions."""
+    from semibench import group, program, window
+
+    if cell.chips > 1:
+        return group.execute(cell, seed, seconds, trace, device.type, t0,
+                             system=system, max_reps=max_reps)
+    return window.execute(cell, seed, seconds, trace, device, t0,
+                          system=program.load(system), max_reps=max_reps)
+
+
 def measure(cell, seed, seconds, trace, device, system=None):
     """Set-up, window and check of one run on `device`: the result's dict,
-    or an exit code where there is none to print. `system` replaces the
-    port (the tests' faults)."""
+    or an exit code where there is none to print. `system` names a
+    Program in the port's place (the tests' faults)."""
     import torch
 
-    from semibench import check, trace as tracing, window
+    from semibench import check, trace as tracing
 
-    run = window.execute(cell, seed, seconds, trace, device, T0,
-                         system=system)
+    run = execute(cell, seed, seconds, trace, device, system=system)
     metrics = read_metrics(run, cell.metrics["per_layer" if trace
                                              else "end_to_end"])
     nums = check.numbers(run)
-    found = forbidden_modules()
+    # this process, and every other rank of a group as its window closed
+    found = sorted(set(forbidden_modules()) | set(run.found_on_ranks))
     if found:
         print(f"the run loaded {', '.join(found)}: the benchmark measures "
               "the port alone", file=sys.stderr)
@@ -113,11 +128,18 @@ def measure(cell, seed, seconds, trace, device, system=None):
             tag = " (traced)" if rec["traced"] else ""
             print(f"repetition {rec['index']}{tag}: " + ", ".join(
                 f"{k} {rec[k]:.4f}" for k in ("sample_s", "scan_s",
-                                                "reduce_s")),
-                  file=sys.stderr)
+                                                "norm_s", "reduce_s")
+                if k in rec), file=sys.stderr)
     print(f"setup_s {run.setup_s:.4f}, window_s {run.window_s:.4f}, "
           f"counters {run.counters}", file=sys.stderr)
+    if run.rank_busy_s:
+        print(f"traced window by rank: busy_s {run.rank_busy_s}, "
+              f"window_s {run.rank_window_s}", file=sys.stderr)
     print(f"card: {'; '.join(limit)}", file=sys.stderr)
+    for step, got, want in run.norm_readings or []:
+        got, want = float(got), float(want)
+        print(f"norm at step {step}: port {got!r} reference {want!r} gap "
+              f"{abs(got - want) / want!r}", file=sys.stderr)
     for n, v, lim in nums:
         print(f"check {n} {v!r} limit {lim!r} "
               f"{'ok' if v <= lim else 'FAILED'}", file=sys.stderr)
@@ -125,13 +147,33 @@ def measure(cell, seed, seconds, trace, device, system=None):
     return result
 
 
+def emit(cell, seed, seconds, trace, device, system=None):
+    """Measure one run and print its result as the last line of standard
+    output; returns the exit code."""
+    result = measure(cell, seed, seconds, trace, device, system=system)
+    if isinstance(result, int):
+        return result
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", required=True)
-    ap.add_argument("--seed", type=int, required=True)
-    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--workload")
+    ap.add_argument("--seed", type=int)
+    ap.add_argument("--seconds", type=float)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    # a rank > 0 of a cell on several cards (started by rank 0)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--job", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.job:
+        from semibench import group
+
+        return group.rank_main(args.job, args.rank, T0)
+    for name in ("workload", "seed", "seconds"):
+        if getattr(args, name) is None:
+            ap.error(f"--{name} is required")
 
     from semibench import cell as cells
 
@@ -145,12 +187,8 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     torch.set_num_threads(4)
-    result = measure(cell, args.seed, args.seconds, bool(args.trace),
-                     torch.device("cuda", 0))
-    if isinstance(result, int):
-        return result
-    print(json.dumps(result))
-    return 0
+    return emit(cell, args.seed, args.seconds, bool(args.trace),
+                torch.device("cuda", 0))
 
 
 if __name__ == "__main__":

@@ -47,6 +47,12 @@ def make_task(config, traffic):
     return task
 
 
+def rank_task(task, world=1):
+    """The task as one rank of a group of `world` runs it: its share of the
+    batch (the port shards the batch in equal parts)."""
+    return dict(task, batch_size=int(task["batch_size"]) // world)
+
+
 def _applies(metric, cell):
     return "workloads" not in metric or cell in metric["workloads"]
 

@@ -8,13 +8,15 @@ reference, number by number, each against its limit.
   of both curves, in cells with error bars: the standard error is the
   root of a difference that cancels, so its own gap swells where it is
   small, its square's does not;
+* `norm_gap`: in cells that take norms (`calc_norm_every`), the largest
+  |port - reference| / reference over the compared repetition's norms;
 * `npz_gap`: the results file against the trajectory-weighted merge of
   every repetition's curves, over the largest modulus;
 * `c0_dev`: the largest |C(0) - 1| of a repetition (the task's own limit,
   1e-3);
 * `failed`: repetitions that raised or gave NaN (limit 0).
 
-The limits of the first four are the workload file's ("limits")."""
+The limits of the gaps are the workload file's ("limits")."""
 
 import numpy as np
 
@@ -41,7 +43,9 @@ def compared_repetition(run):
 
 def numbers(run):
     """[(name, value, limit)] of the run; the reference runs on the run's
-    device at float64."""
+    device at float64. In a cell that takes norms, the compared
+    repetition's norms, the port's beside the reference's, are left in
+    `run.norm_readings`."""
     import torch
 
     cell = run.cell
@@ -63,6 +67,10 @@ def numbers(run):
         out.append(("err_gap", max(_gap(got[key] ** 2, ref[key] ** 2)
                                    for key in ("err_c", "err_k")),
                     limits["err_gap"]))
+    if "norms" in ref:
+        out.append(("norm_gap", _norm_gap(got, ref), limits["norm_gap"]))
+        run.norm_readings = list(zip(ref["norm_steps"],
+                                     got.get("norms", []), ref["norms"]))
     merged = ref_common.merge([o for o in run.outputs if o is not None],
                               "err_c" in ref)
     npz = run.results
@@ -75,6 +83,14 @@ def numbers(run):
                                     for o in run.outputs if o is not None)),
                 C0_LIMIT))
     return out
+
+
+def _norm_gap(got, ref):
+    """The largest relative gap of the norms, at the same steps."""
+    if list(got.get("norm_steps", [])) != list(ref["norm_steps"]):
+        return np.inf
+    want = np.asarray(ref["norms"], dtype=np.float64)
+    return float(np.max(np.abs(np.asarray(got["norms"]) - want) / want))
 
 
 def correct(nums):

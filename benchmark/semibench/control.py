@@ -19,7 +19,7 @@ class Control:
     def __init__(self, cell, dtype=torch.float32):
         self.cell, self.dtype = cell, dtype
 
-    def __call__(self, task, potential, results_file, device):
+    def __call__(self, task, potential, results_file, device, group=None):
         from semibench import models
 
         self.task, self.device = task, torch.device(device)
@@ -34,7 +34,7 @@ class Control:
     def sample(self, normals):
         self.normals = normals
 
-    def scan(self, nt=None):
+    def scan(self, nt=None, norm_span=None):
         return for_cell(self.cell).repetition(self.task, self.table,
                                               self.normals, self.dtype)
 

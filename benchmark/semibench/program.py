@@ -1,17 +1,39 @@
 """The system under test: the port's `dynamics` task, driven one
 repetition at a time as `semiclassical_tpu_torch.cli.run_semiclassical_
 dynamics` drives it (a new propagator, `initial_conditions`, `propagate`
-in `scan_chunk` segments, `accumulate_results`), with the normals handed
-in. The potential is built once, by the port's own `cli._build_potential`."""
+in `scan_chunk` segments, or with `calc_norm_every` in segments of that
+many steps with the norm before each, `accumulate_results`), with the
+normals handed in. The potential is built once, by the port's own
+`cli._build_potential`. Under a process group (`parallel.Group`) every
+rank runs each call with the whole batch's normals and keeps its own
+rows; rank 0 alone writes the results file."""
+
+import contextlib
+import importlib.util
+import pathlib
 
 import numpy as np
+
+
+def load(spec):
+    """The Program in the port's place that `spec` names ("<file>:<name>",
+    the tests' faults), or None for the port itself. A name, not the
+    object, so that every rank of a group loads the same one."""
+    if spec is None:
+        return None
+    path, name = spec.rsplit(":", 1)
+    loader = importlib.util.spec_from_file_location(
+        f"bench_system_{pathlib.Path(path).stem}", path)
+    module = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(module)
+    return getattr(module, name)
 
 
 class Program:
     """One cell's task on the port. `sample`, `scan` and `reduce` are the
     three phases of a repetition the harness times apart."""
 
-    def __init__(self, task, potential, results_file, device):
+    def __init__(self, task, potential, results_file, device, group=None):
         import torch
 
         from semiclassical_tpu_torch import cli, units
@@ -30,6 +52,9 @@ class Program:
         self.nt = int(task["num_steps"])
         self.chunk = int(task["scan_chunk"])
         self.error_bars = bool(task.get("error_bars", False))
+        self.norm_every = int(task.get("calc_norm_every", 0))
+        self.group = group
+        self.leader = group is None or group.rank == 0
         self.results_file = results_file
         init_results(results_file, task.get("propagator", "HK"),
                      np.linspace(0.0, self.nt * self.dt, self.nt), gap,
@@ -60,28 +85,61 @@ class Program:
         prop.initial_conditions(self.q0, self.p0, G, self.potential,
                                 ntraj=normals.shape[0], normals=normals,
                                 sampling_method=task.get("sampling",
-                                                         "pseudo"))
+                                                         "pseudo"),
+                                group=self.group)
         self.propagator = prop
 
-    def scan(self, nt=None):
+    def norm(self):
+        """|psi| of the current state (`propagator.norm()`: the ring over
+        every ordered pair under a group, a collective)."""
+        return self.propagator.norm()
+
+    def scan(self, nt=None, norm_span=contextlib.nullcontext):
         """`propagate` over the task's steps (or `nt`): a dict of the
         repetition's C(t), k~ic(t) and, with error bars, their standard
-        errors, as numpy."""
-        out = self.propagator.propagate(
-            self.potential, self.dt, self.nt if nt is None else nt,
-            energy0_es=self.e0, chunk=self.chunk,
-            error_bars=self.error_bars)
-        res = {"cauto": out[0], "kic": out[1],
-               "ntraj": self.propagator.ntraj}
-        if self.error_bars:
-            res["err_c"], res["err_k"] = out[2], out[3]
+        errors, as numpy. With `calc_norm_every` (and no `nt`) the steps
+        run in segments of that many, the norm before each, each norm
+        inside `norm_span()`; the norms and their steps come back as
+        "norms" and "norm_steps"."""
+        if nt is not None or not self.norm_every:
+            out = self._propagate(self.nt if nt is None else nt, self.chunk)
+            res = {"cauto": out[0], "kic": out[1]}
+            if self.error_bars:
+                res["err_c"], res["err_k"] = out[2], out[3]
+        else:
+            nt = self.nt
+            res = {key: np.zeros(nt, dtype=complex) for key in ("cauto",
+                                                               "kic")}
+            if self.error_bars:
+                res["err_c"], res["err_k"] = np.zeros(nt), np.zeros(nt)
+            res["norms"], res["norm_steps"] = [], []
+            for done in range(0, nt, self.norm_every):
+                seg = min(self.norm_every, nt - done)
+                with norm_span():
+                    res["norms"].append(self.norm())
+                res["norm_steps"].append(done)
+                # the CLI's norm segments: one `propagate` each, no chunk
+                out = self._propagate(seg, None)
+                for key, part in zip(("cauto", "kic", "err_c", "err_k"),
+                                     out):
+                    res[key][done:done + seg] = part
+        res["ntraj"] = self.propagator.ntraj
         if np.isnan(res["cauto"]).any() or np.isnan(res["kic"]).any():
             raise RuntimeError("encountered NaN's in correlations")
         return res
 
+    def _propagate(self, nt, chunk):
+        return self.propagator.propagate(
+            self.potential, self.dt, nt, energy0_es=self.e0, chunk=chunk,
+            error_bars=self.error_bars)
+
     def reduce(self, res):
+        """Accumulate the repetition into the results file (rank 0 of a
+        group alone, as the CLI's rank 0 writes its npz)."""
         from semiclassical_tpu_torch.io.results import accumulate_results
 
+        if not self.leader:
+            return
         accumulate_results(self.results_file, res["cauto"], res["kic"],
                            res["ntraj"],
                            autocorrelation_stderr=res.get("err_c"),
@@ -117,10 +175,12 @@ class Program:
 
 def block_lengths(program):
     """The lengths of the time loop's blocks that the task's segments run
-    (the port's `graph.block_lengths` of each `scan_chunk` segment)."""
+    (the port's `graph.block_lengths` of each `scan_chunk` segment, or of
+    each `calc_norm_every` segment)."""
     from semiclassical_tpu_torch.propagation import graph
 
-    nt, chunk = program.nt, program.chunk
+    nt = program.nt
+    chunk = program.norm_every or program.chunk
     window = int(getattr(program.potential, "taylor_every", 1) or 1)
     segments = [chunk] * (nt // chunk) + ([nt % chunk] if nt % chunk else [])
     return sorted({b for s in segments for b in graph.block_lengths(s,

@@ -16,10 +16,10 @@ KERNEL = ("void (anonymous namespace)::diag_mono_kernel<double, 2>("
 PEAK = {"bytes_per_s": 3.35e12, "flops_per_s": {"float64": 34e12}}
 
 
-def _run(op_s, op_n, name="as60_hk_f64"):
+def _run(op_s, op_n, name="as60_hk_f64", world=1):
     summary = trace.Summary(busy_s=4.0, window_s=4.1, device_ops=1000,
                             op_s=op_s, op_n=op_n, idle_s={})
-    return types.SimpleNamespace(trace=summary, device=None,
+    return types.SimpleNamespace(trace=summary, device=None, world=world,
                                  cell=cell.load(name, BENCH))
 
 
@@ -46,3 +46,12 @@ def test_nothing_to_read(monkeypatch):
                                                   device=None)) is None
     monkeypatch.setattr(peaks, "of", lambda device: None)
     assert k6_roofline.read(_run({KERNEL: 1.0}, {KERNEL: 5})) is None
+
+
+def test_a_rank_counts_its_share_of_the_batch(monkeypatch):
+    """In the four-card cell a rank's K6 steps 131,072 / 4 rows."""
+    monkeypatch.setattr(peaks, "of", lambda device: PEAK)
+    least = 12 * 32768 * 60 * 8 / 3.35e12
+    run = _run({KERNEL: 2000 * least / 0.9}, {KERNEL: 2000},
+               name="as60_hk_norm_ring4", world=4)
+    assert k6_roofline.read(run) == pytest.approx(90.0)
