@@ -57,13 +57,14 @@ __all__ = ["SECTIONS", "enable", "tracing", "span", "count", "to_host",
            "ms_per_step", "trace_to", "PhaseTimer", "RunMetrics"]
 
 # the time loop's sections, in the order of a step: the HK prefactor and
-# its sign tracker (K4 / K1), WM's scalar forms and the detA / detM
-# trackers (K2 x3, K5), the observables and their sums and moments, the
+# its sign tracker (K4 / K1), on WM's separable path the assembly of K5's
+# input planes, WM's scalar forms and the detA / detM trackers (K2 x3, or
+# K5 and what follows it), the observables and their sums and moments, the
 # taylor window's expansion (the PES Hessian and the window's monodromy
 # map), the integrator's stages and the q, p, S update (or the exact map),
 # the monodromy update, and the block-end copies
-SECTIONS = ("prefactor", "wm_derived", "observables", "window", "integrator",
-            "monodromy", "slots")
+SECTIONS = ("prefactor", "wm_inputs", "wm_derived", "observables", "window",
+            "integrator", "monodromy", "slots")
 _SLOT = {name: i for i, name in enumerate(SECTIONS)}
 
 _enabled = False

@@ -559,11 +559,14 @@ def _wm_scan_derived_diag(params: WMParams, bc: WMBatchConstants,
     basis U is orthogonal and the balancing det-preserving). The whole
     time-dependent chain is one call of `ops.wm_diag.wm_diag_derived` —
     the fused kernel K5 on the card — over the (n, d) planes; the
-    log-space mode products and the constant bilinear pieces follow."""
+    log-space mode products and the constant bilinear pieces follow. In a
+    traced block the planes' assembly is the section "wm_inputs", apart
+    from K5 and what follows it ("wm_derived")."""
     cd = params.cdtype
     c = lambda x: x.to(cd)
     dg = params.diag
     inputs, n2Q = wm_diag_inputs(params, bc, state, potential)
+    profiling.section("wm_inputs")
     _, _, _, _, dQ, _, dq, n1q, _, _ = inputs
     scal, planes = _wm_diag_ops.wm_diag_derived(*inputs, params.diag_pack)
     detA = linalg.logspace_mode_product(planes[0], planes[1])

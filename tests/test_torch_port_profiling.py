@@ -4,8 +4,9 @@
 * Tracing off records nothing, and the time loop makes no section clock.
 * Under a CPU `torch.profiler` session each path's sections appear, with
   the steps run: HK on the diagonal (AS) path, HK taylor on the vendored
-  sGDML coumarin fixture, WM on the diagonal path; every `semi.` range is
-  a `cpu_op` and none a `user_annotation`.
+  sGDML coumarin fixture, WM on the diagonal path (with the assembly of
+  K5's input planes as a section of its own) and WM taylor on the dense
+  path; every `semi.` range is a `cpu_op` and none a `user_annotation`.
 * The record starts anew with each session; `host_reads` counts a
   repetition's device-to-host reads.
 * On a loop that captures (the graph tests' `ReplayGraph`), each block's
@@ -92,9 +93,12 @@ def test_tracing_off_records_nothing(tmp_path):
     assert graph.live("cpu").sections is None
 
 
+# WM's separable path (AS) times the assembly of K5's input planes apart;
+# the dense path (taylor) has no such section
 PATHS = [("HK", "as", 12, LOOP),
          ("HK", "taylor", 16, LOOP | {"window"}),
-         ("WM", "as", 12, LOOP | {"wm_derived"})]
+         ("WM", "as", 12, LOOP | {"wm_inputs", "wm_derived"}),
+         ("WM", "taylor", 16, LOOP | {"window", "wm_derived"})]
 
 
 @pytest.mark.parametrize("name, model, nt, sections", PATHS,
