@@ -105,6 +105,21 @@ K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
              float32 in turns with the plain version, and its C entry
              point called directly (the output allocated once), beside
              the byte bound (12 planes) and the share of it;
+4e. K7     — ptxas' registers and spills of its instantiations (the
+             script fails if one spills); the separable Morse RK4 step
+             (the four stages, the RK4 sums, h1..h4 for K6) against its
+             plain version on the AS potential at classical-scale q and
+             p, at (98304, 60) in float64 and float32 (the vector
+             variant), on the rows 8192:16384 of a (98304, 60) state
+             (vector) and 1:1002 of a (98304, 61) one (scalar), at (1001,
+             61) (odd d: scalar) and at n = 1: q, p and h1..h4 bit for
+             bit, S and e1 within 1e-14 (float64) / 1e-5 (float32) of
+             their largest entry, one launch a call, the variant checked;
+             times at (98304, 60) float64 and float32 in turns with the
+             plain version, and its C entry point called directly (the
+             outputs allocated once), beside the byte bound (8 planes and
+             3 numbers a row) and the share of it; the HK and WM AS
+             phases check K7's launches >= steps;
 5. HK methylium — examples/methylium_AH at its own size (50,000
              trajectories x 2000 steps, batches of 10,000) through the
              port's `cli.main(["dynamics", ...])` and
@@ -445,6 +460,32 @@ K6_CASES = [
     (98304, 60, "float64", "aliased", 1e-14),
     (98304, 60, "float32", "aliased", 1e-5),
     (1001, 60, "float64", "broadcast", 1e-14),
+]
+
+# operations per (trajectory, mode) of K7, counted from csrc/morse_rk4.cu
+# (negations included, the four exps not): 16 a stage, 12 for the stage
+# arguments, 2 for k2 + k3, 10 for the RK4 sums of q and p
+K7_FLOPS = 88
+# K7's planes: q and p read, the new q and p and h1 .. h4 written; and its
+# rows' numbers: S read, the new S and e1 written
+K7_PLANES = 8
+K7_ROW_NUMBERS = 3
+# (n, d, dtype name, case, limit kernel-vs-plain on q, p, h1..h4 relative
+# to each output's largest entry, the same on S and e1). Cases as
+# K6_CASES: "whole" a (n, d) state; "view" the rows 8192:16384 of a (98304,
+# d) state, "view odd" its rows 1:1002. q, p and h should agree bit for
+# bit, S and e1 up to the order of the mode sums
+K7_CASES = [
+    (98304, 60, "float64", "whole", 0.0, 1e-14),
+    (98304, 60, "float32", "whole", 0.0, 1e-5),
+    (8192, 60, "float64", "view", 0.0, 1e-14),
+    (8192, 60, "float32", "view", 0.0, 1e-5),
+    (1001, 61, "float64", "view odd", 0.0, 1e-14),
+    (1001, 61, "float32", "view odd", 0.0, 1e-5),
+    (1001, 61, "float64", "whole", 0.0, 1e-14),
+    (1001, 61, "float32", "whole", 0.0, 1e-5),
+    (1, 60, "float64", "whole", 0.0, 1e-14),
+    (1, 60, "float32", "whole", 0.0, 1e-5),
 ]
 
 # (n, r, dtype name, limit kernel-vs-plain, limit vs the c128 oracle)
@@ -1061,11 +1102,13 @@ def reset_counts(ops):
         ops["gj"].LAUNCHES[name] = 0
     ops["wm_diag"].LAUNCHES = 0
     ops["diag_mono"].LAUNCHES = 0
+    ops["morse_rk4"].LAUNCHES = 0
     for counts in (ops["det"].LAUNCHES_BY_DTYPE,
                    ops["det_block"].LAUNCHES_BY_DTYPE,
                    *ops["gj"].LAUNCHES_BY_DTYPE.values(),
                    ops["wm_diag"].LAUNCHES_BY_DTYPE,
-                   ops["diag_mono"].LAUNCHES_BY_DTYPE):
+                   ops["diag_mono"].LAUNCHES_BY_DTYPE,
+                   ops["morse_rk4"].LAUNCHES_BY_DTYPE):
         for dtype in counts:
             counts[dtype] = 0
 
@@ -1074,7 +1117,8 @@ def read_counts(ops):
     return {"K1": ops["det"].LAUNCHES, "K2": ops["gj"].LAUNCHES["det_solve"],
             "K3": ops["gj"].LAUNCHES["det_inv"],
             "K4": ops["det_block"].LAUNCHES, "K5": ops["wm_diag"].LAUNCHES,
-            "K6": ops["diag_mono"].LAUNCHES}
+            "K6": ops["diag_mono"].LAUNCHES,
+            "K7": ops["morse_rk4"].LAUNCHES}
 
 
 def read_counts_by_dtype(ops):
@@ -1084,7 +1128,8 @@ def read_counts_by_dtype(ops):
             "K3": dict(ops["gj"].LAUNCHES_BY_DTYPE["det_inv"]),
             "K4": dict(ops["det_block"].LAUNCHES_BY_DTYPE),
             "K5": dict(ops["wm_diag"].LAUNCHES_BY_DTYPE),
-            "K6": dict(ops["diag_mono"].LAUNCHES_BY_DTYPE)}
+            "K6": dict(ops["diag_mono"].LAUNCHES_BY_DTYPE),
+            "K7": dict(ops["morse_rk4"].LAUNCHES_BY_DTYPE)}
 
 
 # the launches by dtype, and the time loop's counters (`graph.STATS`), of
@@ -2370,6 +2415,142 @@ def k6_direct_row(diag_mono, dname, Z, inv_m, hs, w):
           f"at {100 * b_ms / dms:.1f}% of it", flush=True)
 
 
+def k7_inputs(potential, n, d, dtype, case, generator):
+    """(q, p, S, pack) of one K7 case: q and p of the AS potential's first
+    d modes (wrapped round for d > 60) at the classical scales 2 /
+    sqrt(omega) and sqrt(omega), S 1e-2 noise, and the potential's pack
+    over those modes; `case` as K7_CASES says."""
+    import torch
+
+    from semiclassical_tpu_torch.ops import morse_rk4
+
+    rows = 98304 if case.startswith("view") else n
+    cols = torch.arange(d, device="cuda") % potential.omega.shape[0]
+    omega = potential.omega[cols]
+
+    def noise(*shape):
+        return torch.randn(shape, generator=generator, device="cuda",
+                           dtype=torch.float64)
+
+    q = (noise(rows, d) * 2.0 / omega.sqrt()).to(dtype)
+    p = (noise(rows, d) * omega.sqrt()).to(dtype)
+    S = (1e-2 * noise(rows)).to(dtype)
+    pack = morse_rk4.pack_of(potential.to_dtype(dtype))[:, cols].contiguous()
+    if case == "view":
+        q, p, S = (x[8192:8192 + n] for x in (q, p, S))
+    elif case == "view odd":
+        q, p, S = (x[1:1 + n] for x in (q, p, S))
+    return q, p, S, pack
+
+
+def k7_phase(cli, morse_rk4, model):
+    """K7 against its plain version at K7_CASES, its times at (98304, 60)
+    float64 and float32 in turns with the plain version, its C entry point
+    called directly, and ptxas' report of its instantiations."""
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.ops import _build
+    from semiclassical_tpu_torch.propagation import eom
+
+    for line in kernel_ptxas(_build.build_log(), "morse_rk4_kernel", "K7"):
+        print(f"K7 ptxas: {line}", flush=True)
+    task = {"potential": {"type": "anharmonic AS", "model_file": model}}
+    potential = cli._build_potential(task, "cuda")[0]
+    dt = 0.005 / units.autime_to_fs
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 8)
+    main_err = None
+    for n, d, dname, case, lim, lim_sums in K7_CASES:
+        dtype = getattr(torch, dname)
+        q, p, S, pack = k7_inputs(potential, n, d, dtype, case, g)
+        w = eom._stage_weights(dt, dtype)
+        variant = morse_rk4.layout_of(q, p).variant
+        before = morse_rk4.LAUNCHES
+        got = morse_rk4.morse_rk4_step(q, p, S, pack, w)
+        ref = morse_rk4.morse_rk4_step_plain(q, p, S, pack, w)
+        torch.cuda.synchronize()
+        launches = morse_rk4.LAUNCHES - before
+        errs = [float((x - y).abs().max() / y.abs().max())
+                for x, y in zip(got, ref)]
+        if (n, d, dname, case) == (98304, 60, "float64", "whole"):
+            main_err = max(float((x - y).abs().max())
+                           for x, y in zip(got, ref))
+        odd = d % 2 == 1
+        print(f"K7 ({n}, {d}) {dname} {case}, {variant} variant: max "
+              f"|kernel - plain| / max |plain| q {errs[0]:.3e}, p "
+              f"{errs[1]:.3e}, h {errs[4]:.3e} (limit {lim:g}; bit for "
+              f"bit: {all(torch.equal(got[i], ref[i]) for i in (0, 1, 4))}"
+              f"), S {errs[2]:.3e}, e1 {errs[3]:.3e} (limit {lim_sums:g}), "
+              f"{launches} launch", flush=True)
+        check(all(bool(torch.isfinite(x).all()) for x in got),
+              f"K7 non-finite at ({n}, {d}) {dname} {case}")
+        check(max(errs[0], errs[1], errs[4]) <= lim
+              and max(errs[2], errs[3]) <= lim_sums,
+              f"K7 kernel vs plain {errs} at ({n}, {d}) {dname} {case}")
+        check(launches == 1, f"K7 launched {launches} times for one call")
+        check(variant == ("scalar" if odd else "vector"),
+              f"K7 at ({n}, {d}) {dname} {case} ran the {variant} variant")
+    out = {}
+    for dname in ("float64", "float32"):
+        dtype = getattr(torch, dname)
+        n, d = 98304, 60
+        args = (*k7_inputs(potential, n, d, dtype, "whole", g),
+                eom._stage_weights(dt, dtype))
+        timed = in_turns(morse_rk4.morse_rk4_step,
+                         morse_rk4.morse_rk4_step_plain, None, *args)
+        b = bound((K7_PLANES * n * d + K7_ROW_NUMBERS * n)
+                  * args[0].element_size(), K7_FLOPS * n * d,
+                  dtype == torch.float32)
+        print(timing_line("K7", f"({n}, {d}) {dname}", timed, *b, "none"),
+              flush=True)
+        k7_direct_row(morse_rk4, dname, *args)
+        if dname == "float64":
+            out = dict(timed, max_abs_err=main_err, bound_ms=b[0],
+                       bound_by=b[1])
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def k7_direct_row(morse_rk4, dname, q, p, S, pack, w):
+    """K7's C entry point called directly with the layout of its rule, its
+    outputs allocated once, in turns with the wrapper (direct, wrapper,
+    wrapper, direct), beside the byte bound and the share of it the entry
+    point reaches."""
+    import numpy as np
+    import torch
+
+    from semiclassical_tpu_torch.ops import _build
+
+    n, d = q.shape
+    outs = [torch.empty_like(q), torch.empty_like(p), torch.empty_like(S),
+            torch.empty_like(S), torch.empty((4, n, d), dtype=q.dtype,
+                                             device=q.device)]
+    lay = morse_rk4.layout_of(q, p)
+    fn = getattr(_build.load(), "semi_morse_rk4_"
+                 + ("f64" if q.dtype == torch.float64 else "f32"))
+    args = (q.data_ptr(), p.data_ptr(), S.data_ptr(), pack.data_ptr(),
+            *(x.data_ptr() for x in outs), n, d, *w, lay.vec, lay.blocks,
+            torch.cuda.current_stream().cuda_stream)
+    check(fn(*args) == 0, "K7 entry point refused its own layout")
+    t = {"direct": [], "wrapper": []}
+    for name in ("direct", "wrapper", "wrapper", "direct"):
+        t[name] += (median_ms(lambda: fn(*args), loops=5, calls=20)
+                    if name == "direct" else
+                    median_ms(morse_rk4.morse_rk4_step, q, p, S, pack, w,
+                              loops=5, calls=20))
+    dms, wms = (float(np.median(t[k])) for k in ("direct", "wrapper"))
+    b_ms, b_by = bound((K7_PLANES * n * d + K7_ROW_NUMBERS * n)
+                       * q.element_size(), K7_FLOPS * n * d,
+                       q.dtype == torch.float32)
+    print(f"K7 direct ({n}, {d}) {dname}: entry point called directly "
+          f"{dms:.4f} ms, through the wrapper {wms:.4f} ms per call "
+          f"(median of CUDA-event windows of 20 calls; layout "
+          f"{tuple(lay)}); bound {b_ms:.4f} ms ({b_by}): the entry point "
+          f"at {100 * b_ms / dms:.1f}% of it", flush=True)
+
+
 def coumarin_task(file):
     """examples/coumarin_gdml/`file` with its paths made absolute."""
     with open(COUMARIN / file) as f:
@@ -2532,7 +2713,7 @@ def precision_curves(label, precision, data, ref):
 
 
 def reduced_launches(label, by_dtype, need):
-    """No complex128 launch of K1-K4 (and no float64 one of K5 or K6), and
+    """No complex128 launch of K1-K4 (and no float64 one of K5-K7), and
     each kernel of `need` ({kernel: least launches}) at its reduced type at
     least that often."""
     wide = {k: v.get("complex128", v.get("float64", 0))
@@ -3531,10 +3712,11 @@ def main():
         return 1
     from semiclassical_tpu_torch import cli
     from semiclassical_tpu_torch.ops import (_build, det, det_block,
-                                             diag_mono, gj, wm_diag)
+                                             diag_mono, gj, morse_rk4,
+                                             wm_diag)
 
     ops = {"det": det, "det_block": det_block, "gj": gj, "wm_diag": wm_diag,
-           "diag_mono": diag_mono}
+           "diag_mono": diag_mono, "morse_rk4": morse_rk4}
     t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3577,6 +3759,7 @@ def main():
         k4 = phase("K4", k4_phase, det, det_block)
         k5 = phase("K5", k5_phase, cli, wm_diag, model)
         k6 = phase("K6", k6_phase, cli, diag_mono, model)
+        k7 = phase("K7", k7_phase, cli, morse_rk4, model)
         hk, hk_launches = phase("HK methylium", methylium_run, cli, ops, smi,
                                 "HK")
         phase("HK methylium group", group_methylium_phase, cli, ops, smi, hk,
@@ -3599,9 +3782,9 @@ def main():
         hk_as, hk_as_launches = phase("HK AS", as_run, cli, ops, smi, model,
                                       "HK", "semi.json")
         steps = hk_as["nsteps"] * hk_as["nrep"]
-        check(hk_as_launches["K6"] >= steps,
-              f"HK AS: K6 launched {hk_as_launches['K6']} times for {steps} "
-              "steps")
+        check(hk_as_launches["K6"] >= steps and hk_as_launches["K7"] >= steps,
+              f"HK AS: K6 launched {hk_as_launches['K6']} times, K7 "
+              f"{hk_as_launches['K7']} times for {steps} steps")
         phase("HK AS error bars", error_bars_identity, cli, ops, model)
         wm_as, wm_as_launches = phase("WM AS", as_run, cli, ops, smi, model,
                                       "WM", "semi_wm.json")
@@ -3640,9 +3823,11 @@ def main():
     phase("accumulation mode", accumulation_phase, cli, smi)
     wm_vs_hk("AS", wm_as, hk_as, WM_HK_GATE_AS)
     steps = wm_as["nsteps"] * wm_as["nrep"]
-    check(wm_as_launches["K5"] >= steps and wm_as_launches["K6"] >= steps,
+    check(wm_as_launches["K5"] >= steps and wm_as_launches["K6"] >= steps
+          and wm_as_launches["K7"] >= steps,
           f"WM AS: K5 launched {wm_as_launches['K5']} times, K6 "
-          f"{wm_as_launches['K6']} times for {steps} steps")
+          f"{wm_as_launches['K6']} times, K7 {wm_as_launches['K7']} times "
+          f"for {steps} steps")
     gap = phase("coumarin reference", reference_phase, cli)
     hk_c, hk_c_launches = phase("HK coumarin", coumarin_run, cli, ops, smi,
                                 "HK", "semi.json")
@@ -3694,6 +3879,9 @@ def main():
         entry("diag_mono_step", "diag_mono.cu",
               "propagation/eom.py:263 (XLA-fused row_map)",
               hk_as_launches["K6"], k6),
+        entry("morse_rk4_step", "morse_rk4.cu",
+              "propagation/eom.py:rk4_step (XLA-fused Morse stages)",
+              hk_as_launches["K7"], k7),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

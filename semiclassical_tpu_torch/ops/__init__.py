@@ -12,5 +12,8 @@ the build that compiles `csrc/` at first use.
          mode-sum Gram forms and det planes (csrc/wm_diag.cu)
   diag_mono K6: the RK4 step of the diagonal monodromy, one streaming
          pass over the (n, d) planes (csrc/diag_mono.cu)
+  morse_rk4 K7: the RK4 trajectory step of a separable Morse PES, the four
+         stages in registers, writing the stage Hessian diagonals K6 reads
+         (csrc/morse_rk4.cu)
   _build nvcc -> build/kernels/*.so, bound with ctypes; the launch helper
 """

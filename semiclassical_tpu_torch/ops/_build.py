@@ -69,6 +69,10 @@ _ENTRY_POINTS = {
                            *(_D,) * 4, _I, _I, _P),
     "semi_diag_mono_f32": (_P, _N, *(_P,) * 4, _I, _P, _P, _N, _I,
                            *(_D,) * 4, _I, _I, _P),
+    # csrc/morse_rk4.cu (K7): q, p, S, pack, new q, new p, new S, e1, h,
+    # n, d, the weights dt/2, dt, dt/6, vec, blocks, stream
+    "semi_morse_rk4_f64": (*(_P,) * 9, _N, _I, *(_D,) * 3, _I, _I, _P),
+    "semi_morse_rk4_f32": (*(_P,) * 9, _N, _I, *(_D,) * 3, _I, _I, _P),
     # csrc/stamp.cu (the time loop's section clock): slots, section, last,
     # stream
     "semi_stamp_i64": (_P, _I, _I, _P),

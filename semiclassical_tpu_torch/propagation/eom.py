@@ -16,6 +16,11 @@ into a reduced-cost mode through its `hessian_eval` attribute (sGDML):
   expansion there, and the monodromy freezes its Hessian. The quadratic
   corrections run at the Hessian's dtype, the anchors at theirs.
 
+On a non-harmonic `MorsePotential` at "stage" with the diagonal monodromy
+(float64 or float32, no comp32 residuals) the four stages and the RK4
+sums run as one pass: the kernel K7 on the card (`ops.morse_rk4`), which
+writes the four stage Hessian diagonals that the monodromy step reads.
+
 The monodromy step has these forms:
 
 * constant Hessian (harmonic molecular PES): one RK4 step is exactly the
@@ -54,10 +59,11 @@ import numpy as np
 import torch
 
 from semiclassical_tpu_torch import profiling
-from semiclassical_tpu_torch.ops import diag_mono
+from semiclassical_tpu_torch.ops import diag_mono, morse_rk4
 from semiclassical_tpu_torch.potentials.base import (ConstHessian,
                                                      DenseHessian,
                                                      DiagHessian)
+from semiclassical_tpu_torch.potentials.model import MorsePotential
 from semiclassical_tpu_torch.propagation.state import TrajState
 
 __all__ = ["state_derivative", "const_step_map", "rk4_step",
@@ -172,15 +178,80 @@ def rk4_step(state: TrajState, potential, dt: float, step_map=None):
     """
     inv_m = 1.0 / potential.masses()                      # (d,)
     q, p, S = state.q, state.p, state.S
-    tdt = _at(dt, q.dtype)
-    half = float(_NP_DTYPE[q.dtype](0.5) * tdt)
-    full = float(tdt)
+    weights = _stage_weights(dt, q.dtype)
     inv_m_t = inv_m.to(q.dtype)
     hessian_eval = getattr(potential, "hessian_eval", "stage")
     if hessian_eval not in HESSIAN_EVAL_MODES:
         raise ValueError(f"unknown hessian_eval {hessian_eval!r} "
                          "(expected 'stage', 'step' or 'taylor')")
     frozen = hessian_eval != "stage"
+    if _k7_engages(state, potential):
+        # the separable Morse stages in one pass: K7 on the card
+        new_q, new_p, new_S, e1, h = morse_rk4.morse_rk4_step(
+            q, p, S, morse_rk4.pack_of(potential), weights)
+        new_qc = new_pc = None
+        hs = tuple(DiagHessian(diag=x) for x in h)
+    else:
+        new_q, new_p, new_qc, new_pc, new_S, e1, hs = _stages(
+            state, potential, hessian_eval, inv_m_t, weights)
+    profiling.section("integrator")
+
+    mdt = state.Z.dtype
+    if state.diag_monodromy:
+        if not all(isinstance(H, DiagHessian) for H in hs):
+            raise TypeError(
+                "diagonal-monodromy state requires a separable potential "
+                "(DiagHessian local expansions)")
+        new_Z = _diag_step(state.Z, inv_m.to(mdt),
+                           tuple(H.diag.to(mdt) for H in hs), dt)
+    elif all(isinstance(H, ConstHessian) for H in hs):
+        if step_map is None:
+            step_map = const_step_map(hs[0], potential.masses(), dt, mdt)
+        new_Z = torch.matmul(step_map, state.Z)
+    elif all(isinstance(H, DenseHessian) for H in hs):
+        Tw = getattr(potential, "Tmono", None)
+        if frozen and Tw is not None:
+            # taylor_every window: the degree-4 map of the window Hessian
+            new_Z = torch.matmul(Tw.to(mdt), state.Z)
+        elif frozen:
+            new_Z = _frozen_step(state, inv_m.to(mdt), hs[0], dt)
+        else:
+            new_Z = _chain_step(state, inv_m.to(mdt), hs, dt)
+    else:
+        raise TypeError(
+            f"rk4_step steps the dense monodromy under ConstHessian or "
+            f"DenseHessian expansions; got "
+            f"{', '.join(sorted({type(H).__name__ for H in hs}))}")
+    profiling.section("monodromy")
+    return (TrajState(q=new_q, p=new_p, Z=new_Z, S=new_S, qc=new_qc,
+                      pc=new_pc), torch.mean(e1))
+
+
+def _k7_engages(state, potential):
+    """True where `rk4_step`'s trajectory stages go to K7
+    (`ops.morse_rk4`): a non-harmonic `MorsePotential` sampled at every
+    stage, the diagonal monodromy, no comp32 residuals, and q, p, S and
+    the potential's parameters at one type, float64 or float32. Every
+    other path (NonHarmonic, the harmonic branch, "step" / "taylor" and
+    the windows, dense Hessians, mixed and comp32) runs `_stages`."""
+    if not (isinstance(potential, MorsePotential) and not potential.harmonic
+            and potential.hessian_eval == "stage"
+            and state.diag_monodromy and not state.compensated):
+        return False
+    dtype = state.q.dtype
+    return (dtype in (torch.float64, torch.float32)
+            and state.p.dtype == state.S.dtype == potential.a.dtype == dtype)
+
+
+def _stages(state, potential, hessian_eval, inv_m_t, weights):
+    """The trajectory part of `rk4_step` in PyTorch passes: the four
+    stages under `hessian_eval`, then the RK4 sums of q, p and S (the
+    comp32 residuals folded in). `weights` = (dt/2, dt, dt/6) at q's
+    dtype. Returns (new q, new p, new qc, new pc, new S, e1, the four
+    stage Hessians)."""
+    frozen = hessian_eval != "stage"
+    half, full, sixth = weights
+    q, p, S = state.q, state.p, state.S
     value_grad = getattr(potential, "value_grad", None)
     if value_grad is None:
         def value_grad(qs):
@@ -232,7 +303,6 @@ def rk4_step(state: TrajState, potential, dt: float, step_map=None):
         k2, _, H2 = stage(q + half * k1[0], p + half * k1[1])
         k3, _, H3 = stage(q + half * k2[0], p + half * k2[1])
         k4, _, H4 = stage(q + full * k3[0], p + full * k3[1])
-    sixth = float(tdt / _NP_DTYPE[q.dtype](6.0))
     inc_q = sixth * (k1[0] + 2.0 * (k2[0] + k3[0]) + k4[0])
     inc_p = sixth * (k1[1] + 2.0 * (k2[1] + k3[1]) + k4[1])
     if state.compensated:
@@ -242,38 +312,15 @@ def rk4_step(state: TrajState, potential, dt: float, step_map=None):
         new_q, new_p = q + inc_q, p + inc_p
         new_qc = new_pc = None
     new_S = S + sixth * (k1[2] + 2.0 * (k2[2] + k3[2]) + k4[2])
-    profiling.section("integrator")
-    hs = (H1, H2, H3, H4)
+    return new_q, new_p, new_qc, new_pc, new_S, e1, (H1, H2, H3, H4)
 
-    mdt = state.Z.dtype
-    if state.diag_monodromy:
-        if not all(isinstance(H, DiagHessian) for H in hs):
-            raise TypeError(
-                "diagonal-monodromy state requires a separable potential "
-                "(DiagHessian local expansions)")
-        new_Z = _diag_step(state.Z, inv_m.to(mdt),
-                           tuple(H.diag.to(mdt) for H in hs), dt)
-    elif all(isinstance(H, ConstHessian) for H in hs):
-        if step_map is None:
-            step_map = const_step_map(H1, potential.masses(), dt, mdt)
-        new_Z = torch.matmul(step_map, state.Z)
-    elif all(isinstance(H, DenseHessian) for H in hs):
-        Tw = getattr(potential, "Tmono", None)
-        if frozen and Tw is not None:
-            # taylor_every window: the degree-4 map of the window Hessian
-            new_Z = torch.matmul(Tw.to(mdt), state.Z)
-        elif frozen:
-            new_Z = _frozen_step(state, inv_m.to(mdt), H1, dt)
-        else:
-            new_Z = _chain_step(state, inv_m.to(mdt), hs, dt)
-    else:
-        raise TypeError(
-            f"rk4_step steps the dense monodromy under ConstHessian or "
-            f"DenseHessian expansions; got "
-            f"{', '.join(sorted({type(H).__name__ for H in hs}))}")
-    profiling.section("monodromy")
-    return (TrajState(q=new_q, p=new_p, Z=new_Z, S=new_S, qc=new_qc,
-                      pc=new_pc), torch.mean(e1))
+
+def _stage_weights(dt, dtype):
+    """(dt/2, dt, dt/6) at `dtype`: the stage arguments' steps and the RK4
+    sums' weight of the trajectory stages."""
+    dts = _at(dt, dtype)
+    return (float(_NP_DTYPE[dtype](0.5) * dts), float(dts),
+            float(dts / _NP_DTYPE[dtype](6.0)))
 
 
 def _horner_steps(dt, dtype):

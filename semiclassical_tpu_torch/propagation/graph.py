@@ -111,7 +111,8 @@ _COUNTER_MODULES = ("semiclassical_tpu_torch.ops.det",
                     "semiclassical_tpu_torch.ops.det_block",
                     "semiclassical_tpu_torch.ops.gj",
                     "semiclassical_tpu_torch.ops.wm_diag",
-                    "semiclassical_tpu_torch.ops.diag_mono")
+                    "semiclassical_tpu_torch.ops.diag_mono",
+                    "semiclassical_tpu_torch.ops.morse_rk4")
 _COUNTERS = ("LAUNCHES", "LAUNCHES_BY_DTYPE")
 
 
@@ -159,8 +160,8 @@ def _flatten(out, key, value):
 def read_launches():
     """Every launch counter of the kernel wrappers as {(module, counter,
     *keys): count}: `LAUNCHES` and `LAUNCHES_BY_DTYPE` of `ops.det`,
-    `ops.det_block`, `ops.gj`, `ops.wm_diag` and `ops.diag_mono` (those
-    imported)."""
+    `ops.det_block`, `ops.gj`, `ops.wm_diag`, `ops.diag_mono` and
+    `ops.morse_rk4` (those imported)."""
     out = {}
     for name in _COUNTER_MODULES:
         module = sys.modules.get(name)
