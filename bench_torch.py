@@ -14,7 +14,7 @@ prints last, for last-line parsers), each
     {"metric": "<name>_traj_steps_per_sec_per_chip", "value": N,
      "unit": "traj-steps/s/chip", "config": {...}, "phases": {...},
      "device": "<card name>, <power limit>", "peak_gb": x,
-     "launches": {"K1": n, ..., "K6": n}, "launches_by_dtype": {...},
+     "launches": {"K1": n, ..., "K7": n}, "launches_by_dtype": {...},
      "loop": "graph" | "eager", "graph": {...}}
 
 1. `hk_as60` — Herman-Kluk on the 60-mode anharmonic AS model (the JAX
@@ -38,7 +38,7 @@ bench.py's compile run, which builds the kernels, warms the allocator and
 captures the time loop's blocks, then the batch drawn again from a
 generator at the same seed), `scan` (the timed `nt` steps) and `reduce`
 (C(t) and k~ic(t) checked finite). `launches` counts the kernel launches
-of the scan phase (`ops.*.LAUNCHES`), `peak_gb` is
+of the scan phase (`ops.launch_counts()`), `peak_gb` is
 `torch.cuda.max_memory_allocated` over the bench. On the card the scan
 runs as the port runs it, in blocks of steps captured as CUDA graphs and
 replayed (`propagation.graph`); the batch drawn anew runs through the
@@ -92,7 +92,6 @@ GDML_FCHK = os.path.join("Gaussian16", "coumarin_s1.fchk")
 # the whole 32,768 take ~16 GB, far under the ~60 GB a sub-batch would
 # be sized to (PERF.md)
 GDML_MICRO_DEFAULT = None
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6")
 EXEC_ORDER = ("hk", "wm", "gdml")    # the largest batch first
 PRINT_ORDER = ("wm", "gdml", "hk")   # the headline last
 # BENCH_DTYPE: (algebra dtype, trajectory dtype)
@@ -144,25 +143,12 @@ def device_line(device):
     return out.stdout.strip().splitlines()[0]
 
 
-def launch_counts():
-    """Every kernel's launches so far, by dtype ({kernel: {dtype: n}})."""
-    from semiclassical_tpu_torch.ops import (det, det_block, diag_mono, gj,
-                                             wm_diag)
-
-    return {"K1": dict(det.LAUNCHES_BY_DTYPE),
-            "K2": dict(gj.LAUNCHES_BY_DTYPE["det_solve"]),
-            "K3": dict(gj.LAUNCHES_BY_DTYPE["det_inv"]),
-            "K4": dict(det_block.LAUNCHES_BY_DTYPE),
-            "K5": dict(wm_diag.LAUNCHES_BY_DTYPE),
-            "K6": dict(diag_mono.LAUNCHES_BY_DTYPE)}
-
-
 def launches_between(before, after):
     """(launches per kernel, launches by dtype of the kernels launched)
-    between two `launch_counts`."""
+    between two `ops.launch_counts()`."""
     by_dtype = {k: {t: after[k][t] - before[k][t] for t in after[k]}
-                for k in KERNELS}
-    totals = {k: sum(by_dtype[k].values()) for k in KERNELS}
+                for k in after}
+    totals = {k: sum(by_dtype[k].values()) for k in after}
     return totals, {k: v for k, v in by_dtype.items() if totals[k]}
 
 
@@ -288,6 +274,7 @@ def timed_run(timer, prop, pot, redraw, dt, nt, energy0_es, micro=None):
     counters). `redraw()` draws the batch anew from its
     seed after the warm-up, so the scan starts from a fresh draw, through
     the warm-up's loop."""
+    from semiclassical_tpu_torch.ops import launch_counts
     from semiclassical_tpu_torch.propagation import graph
 
     with timer.phase("warmup"):

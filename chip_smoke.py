@@ -1094,42 +1094,19 @@ def k3_phase(gj):
                 bound_by=bnd[1])
 
 
-def reset_counts(ops):
-    """Set every kernel's launch count, and its counts by dtype, to 0."""
-    ops["det"].LAUNCHES = 0
-    ops["det_block"].LAUNCHES = 0
-    for name in ops["gj"].LAUNCHES:
-        ops["gj"].LAUNCHES[name] = 0
-    ops["wm_diag"].LAUNCHES = 0
-    ops["diag_mono"].LAUNCHES = 0
-    ops["morse_rk4"].LAUNCHES = 0
-    for counts in (ops["det"].LAUNCHES_BY_DTYPE,
-                   ops["det_block"].LAUNCHES_BY_DTYPE,
-                   *ops["gj"].LAUNCHES_BY_DTYPE.values(),
-                   ops["wm_diag"].LAUNCHES_BY_DTYPE,
-                   ops["diag_mono"].LAUNCHES_BY_DTYPE,
-                   ops["morse_rk4"].LAUNCHES_BY_DTYPE):
-        for dtype in counts:
-            counts[dtype] = 0
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    from semiclassical_tpu_torch.ops import reset_launch_counts
+    reset_launch_counts()
 
 
-def read_counts(ops):
-    return {"K1": ops["det"].LAUNCHES, "K2": ops["gj"].LAUNCHES["det_solve"],
-            "K3": ops["gj"].LAUNCHES["det_inv"],
-            "K4": ops["det_block"].LAUNCHES, "K5": ops["wm_diag"].LAUNCHES,
-            "K6": ops["diag_mono"].LAUNCHES,
-            "K7": ops["morse_rk4"].LAUNCHES}
-
-
-def read_counts_by_dtype(ops):
-    """Each kernel's launches by the dtype it ran at."""
-    return {"K1": dict(ops["det"].LAUNCHES_BY_DTYPE),
-            "K2": dict(ops["gj"].LAUNCHES_BY_DTYPE["det_solve"]),
-            "K3": dict(ops["gj"].LAUNCHES_BY_DTYPE["det_inv"]),
-            "K4": dict(ops["det_block"].LAUNCHES_BY_DTYPE),
-            "K5": dict(ops["wm_diag"].LAUNCHES_BY_DTYPE),
-            "K6": dict(ops["diag_mono"].LAUNCHES_BY_DTYPE),
-            "K7": dict(ops["morse_rk4"].LAUNCHES_BY_DTYPE)}
+def read_counts(by_dtype=False):
+    """Each kernel's launches since `reset_counts`, by its label
+    (`ops.launch_counts()`): in all, or by the dtype it ran at."""
+    from semiclassical_tpu_torch.ops import launch_counts
+    counts = launch_counts()
+    return counts if by_dtype else {k: sum(n.values())
+                                    for k, n in counts.items()}
 
 
 # the launches by dtype, and the time loop's counters (`graph.STATS`), of
@@ -1167,7 +1144,7 @@ def run_path(cli, ops, config, dynamics_keys, tmp, precision="f64",
     with open(cfg, "w") as f:
         json.dump(config, f, indent=1)
 
-    reset_counts(ops)
+    reset_counts()
     stats = dict(graph.STATS)
     t0 = time.perf_counter()
     with LogLines() as log:
@@ -1175,9 +1152,9 @@ def run_path(cli, ops, config, dynamics_keys, tmp, precision="f64",
                        precision, *extra_args])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts(ops)
+    launches = read_counts()
     LAST_BY_DTYPE.clear()
-    LAST_BY_DTYPE.update(read_counts_by_dtype(ops))
+    LAST_BY_DTYPE.update(read_counts(by_dtype=True))
     LAST_LOOP.clear()
     LAST_LOOP.update({k: graph.STATS[k] - stats[k] for k in stats})
     check(rc == 0, f"dynamics returned {rc}")
@@ -1574,7 +1551,6 @@ def ring_norm_phase(cli, smi, task, prop, exact):
     segment's sums (100 steps: C, k~ic, energies), timed."""
     import torch
 
-    from semiclassical_tpu_torch.ops import gj
     from semiclassical_tpu_torch.parallel import (destroy_group, group_sum,
                                                   init_group)
     from semiclassical_tpu_torch.propagation import (
@@ -1591,13 +1567,13 @@ def ring_norm_phase(cli, smi, task, prop, exact):
         walls = {}
         for name, p in (("blocked", prop), ("ring", gprop),
                         ("ring ", gprop), ("blocked ", prop)):
-            before = gj.LAUNCHES["det_inv"]
+            before = read_counts()["K3"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             value = p.norm()
             torch.cuda.synchronize()
             walls.setdefault(name.strip(), []).append(
-                (time.perf_counter() - t0, gj.LAUNCHES["det_inv"] - before,
+                (time.perf_counter() - t0, read_counts()["K3"] - before,
                  value))
         ring = walls["ring"][0][2]
         rel = abs(ring - exact) / abs(exact)
@@ -1930,20 +1906,20 @@ class NormCalls:
     """Wraps a propagator class's `norm` while active, recording each
     call's wall seconds and K3 launches."""
 
-    def __init__(self, cls, gj):
-        self.cls, self.gj, self.calls = cls, gj, []
+    def __init__(self, cls):
+        self.cls, self.calls = cls, []
 
     def __enter__(self):
         import torch
         orig = self.orig = self.cls.norm
 
         def norm(prop, *args, **kwargs):
-            before = self.gj.LAUNCHES["det_inv"]
+            before = read_counts()["K3"]
             t0 = time.perf_counter()
             out = orig(prop, *args, **kwargs)
             torch.cuda.synchronize()
             self.calls.append((time.perf_counter() - t0,
-                               self.gj.LAUNCHES["det_inv"] - before))
+                               read_counts()["K3"] - before))
             return out
 
         self.cls.norm = norm
@@ -1997,7 +1973,7 @@ def hk_norm_phase(cli, ops, smi, model):
 
     config = as_config("semi_norm.json", model)
     with tempfile.TemporaryDirectory() as tmp, \
-            NormCalls(HermanKlukPropagator, ops["gj"]) as calls:
+            NormCalls(HermanKlukPropagator) as calls:
         data, _, task, wall, lines = run_path(cli, ops, config, {}, tmp)
     norms = norm_lines(lines)
     print(f"HK AS norm {task['num_trajectories']} x {task['num_steps']} "
@@ -2050,7 +2026,7 @@ def wm_norm_phase(cli, ops, smi):
     keys = dict(propagator="WM", cell_width=CELL_WIDTH, batch_size=10000,
                 num_trajectories=10000, calc_norm_every=1000)
     with tempfile.TemporaryDirectory() as tmp, \
-            NormCalls(WaltonManolopoulosPropagator, gj) as calls:
+            NormCalls(WaltonManolopoulosPropagator) as calls:
         data, launches, task, wall, lines = run_path(cli, ops, config, keys,
                                                      tmp)
     norms = norm_lines(lines)
@@ -2340,11 +2316,11 @@ def k6_phase(cli, diag_mono, model):
         Z, inv_m, hs = k6_inputs(potential, n, d, dtype, case, g)
         w = eom._rk4_weights(dt, dtype)
         variant = diag_mono.layout_of(Z, hs).variant
-        before = diag_mono.LAUNCHES
+        before = read_counts()["K6"]
         got = diag_mono.diag_mono_step(Z, inv_m, hs, w)
         ref = diag_mono.diag_mono_step_plain(Z, inv_m, hs, w)
         torch.cuda.synchronize()
-        launches = diag_mono.LAUNCHES - before
+        launches = read_counts()["K6"] - before
         err = float((got - ref).abs().max() / ref.abs().max())
         if (n, d, dname, case) == (98304, 60, "float64", "whole"):
             main_err = float((got - ref).abs().max())
@@ -2466,11 +2442,11 @@ def k7_phase(cli, morse_rk4, model):
         q, p, S, pack = k7_inputs(potential, n, d, dtype, case, g)
         w = eom._stage_weights(dt, dtype)
         variant = morse_rk4.layout_of(q, p).variant
-        before = morse_rk4.LAUNCHES
+        before = read_counts()["K7"]
         got = morse_rk4.morse_rk4_step(q, p, S, pack, w)
         ref = morse_rk4.morse_rk4_step_plain(q, p, S, pack, w)
         torch.cuda.synchronize()
-        launches = morse_rk4.LAUNCHES - before
+        launches = read_counts()["K7"] - before
         errs = [float((x - y).abs().max() / y.abs().max())
                 for x, y in zip(got, ref)]
         if (n, d, dname, case) == (98304, 60, "float64", "whole"):
@@ -2754,7 +2730,7 @@ def methylium_batch_phase(cli, ops, smi, label, f64_run, precision="mixed",
                                    == "exact" else "")
     runs = {}
     for mode in ("f64", precision):
-        reset_counts(ops)
+        reset_counts()
         prop, potential = first_batch(cli, task, cls, *args, precision=mode,
                                       with_potential=True)
         t0 = time.perf_counter()
@@ -2763,7 +2739,7 @@ def methylium_batch_phase(cli, ops, smi, label, f64_run, precision="mixed",
         runs[mode] = dict(autocorrelation=cauto, ic_correlation=kic,
                           wall=time.perf_counter() - t0, task=task,
                           potential=potential, prop=prop,
-                          by_dtype=read_counts_by_dtype(ops))
+                          by_dtype=read_counts(by_dtype=True))
         print(f"{name} first batch {prop.ntraj} x {nsteps} steps at {mode}: "
               f"{runs[mode]['wall']:.3f} s, "
               f"{prop.ntraj * nsteps / runs[mode]['wall']:.0f} traj-steps/s "
@@ -2896,7 +2872,7 @@ def as_step_phase(cli, ops, smi, model):
     for mode in ("stage", "step"):
         task = as_config("semi.json", model, {"hessian_eval": mode},
                          num_steps=200)["semi"][0]
-        reset_counts(ops)
+        reset_counts()
         prop, potential = first_batch(cli, task, HermanKlukPropagator,
                                       with_potential=True)
         dt = task["time_step_fs"] / units.autime_to_fs
@@ -2907,7 +2883,7 @@ def as_step_phase(cli, ops, smi, model):
         runs[mode] = dict(autocorrelation=cauto, task=task,
                           wall=time.perf_counter() - t0, prop=prop,
                           potential=potential,
-                          by_dtype=read_counts_by_dtype(ops))
+                          by_dtype=read_counts(by_dtype=True))
     a, b = runs["step"]["prop"].state, runs["stage"]["prop"].state
     errs = {name: float((getattr(a, name) - getattr(b, name)).abs().max()
                         / getattr(b, name).abs().max())
@@ -2978,12 +2954,12 @@ def wm_norm_mixed_phase(cli, ops, smi, norm_shape):
                                       precision=precision,
                                       with_potential=True)
         prop._run(potential, dt, 100)
-        reset_counts(ops)
+        reset_counts()
         t0 = time.perf_counter()
         value = prop.norm()
         torch.cuda.synchronize()
         out[precision] = (value, time.perf_counter() - t0,
-                          read_counts_by_dtype(ops)["K3"])
+                          read_counts(by_dtype=True)["K3"])
         del prop
         torch.cuda.empty_cache()
     rel = abs(out["mixed"][0] - out["f64"][0]) / abs(out["f64"][0])
@@ -3073,7 +3049,7 @@ def graph_path(cli, ops, smi, model, label, example, file, name, precision,
         prop, potential = first_batch(cli, task, cls, *args,
                                       precision=precision,
                                       with_potential=True)
-        reset_counts(ops)
+        reset_counts()
         stats = dict(graph.STATS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3083,7 +3059,7 @@ def graph_path(cli, ops, smi, model, label, example, file, name, precision,
         torch.cuda.synchronize()
         runs[mode] = dict(
             out=out, ms=1e3 * (time.perf_counter() - t0) / nsteps,
-            launches=read_counts_by_dtype(ops), ntraj=prop.ntraj,
+            launches=read_counts(by_dtype=True), ntraj=prop.ntraj,
             stats={k: graph.STATS[k] - stats[k] for k in stats})
         del prop
         torch.cuda.empty_cache()
@@ -3142,14 +3118,14 @@ def kept_loop_path(cli, ops, smi, model, nsteps=100):
         prop = HermanKlukPropagator(G, G, "cuda", integrator="exact")
         prop.initial_conditions(q0, p0, G, potential, ntraj=n,
                                 normals=normals)
-        reset_counts(ops)
+        reset_counts()
         stats = dict(graph.STATS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = prop.propagate(potential, dt, nsteps, chunk=100)
         torch.cuda.synchronize()
         return dict(out=out, ms=1e3 * (time.perf_counter() - t0) / nsteps,
-                    launches=read_counts_by_dtype(ops),
+                    launches=read_counts(by_dtype=True),
                     routed=int(prop._morse.pack.sub_idx.numel()),
                     stats={k: graph.STATS[k] - stats[k] for k in stats},
                     loop=graph.live("cuda"))
@@ -3227,12 +3203,11 @@ def stamp_tick():
 
     n = TRACE_STAMPS
     slots = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
-    fn = _build.entry("stamp", torch.int64)
 
     def stamps():
         for i in range(-1, n):
-            err = _build.launch(fn, slots.device, slots.data_ptr(), i, n)
-            check(err == 0, f"trace: stamp launch failed ({err})")
+            _build.launch("stamp", torch.int64, slots.device,
+                          slots.data_ptr(), i, n)
 
     stamps()
     graph = torch.cuda.CUDAGraph()
@@ -3579,13 +3554,13 @@ def bench_phase(ops, smi):
         recording(ops["wm_diag"], "wm_diag_derived", "K5", shapes),
         recording(ops["det_block"], "batched_det_block", "K4", shapes)]
     torch.cuda.empty_cache()
-    reset_counts(ops)
+    reset_counts()
     try:
         results = bench_torch.run_benches("cuda", on_result=on_result)
     finally:
         for undo in restore:
             undo()
-    counts, by_dtype = read_counts(ops), read_counts_by_dtype(ops)
+    counts, by_dtype = read_counts(), read_counts(by_dtype=True)
     errors = [r for r in results.values()
               if not isinstance(r, bench_torch.BenchResult)]
     check(not errors, f"bench: {errors}")
@@ -3651,12 +3626,12 @@ def vr_phase(ops, smi):
     vr = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(vr)
     graph.clear()
-    reset_counts(ops)
+    reset_counts()
     t0 = time.perf_counter()
     out = vr.run(device="cuda")
     wall = time.perf_counter() - t0
     graph.clear()
-    launches = read_counts(ops)
+    launches = read_counts()
     lines = [line for line, _ in out]
     for line in lines:
         print(f"vr: {json.dumps(line)}", flush=True)

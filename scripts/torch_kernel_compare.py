@@ -84,8 +84,8 @@ def load_side(root):
 
 
 def activate(side):
-    """Make `side`'s modules the package that imports resolve to (the
-    wrappers import `ops._build` when they are called)."""
+    """Make `side`'s modules the package that imports resolve to (each
+    side's wrappers hold that side's `ops._build` since their import)."""
     for name in [n for n in sys.modules if n.split(".")[0] == PACKAGE]:
         del sys.modules[name]
     sys.modules.update(side)

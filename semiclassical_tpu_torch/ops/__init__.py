@@ -15,5 +15,16 @@ the build that compiles `csrc/` at first use.
   morse_rk4 K7: the RK4 trajectory step of a separable Morse PES, the four
          stages in registers, writing the stage Hessian diagonals K6 reads
          (csrc/morse_rk4.cu)
-  _build nvcc -> build/kernels/*.so, bound with ctypes; the launch helper
+  _build nvcc -> build/kernels/*.so, bound with ctypes; the one launch
+         path: every launch, its CUDA error check and its count in one
+         table, read by label with `launch_counts()` and emptied with
+         `reset_launch_counts()`
+
+A new kernel is a `csrc/*.cu` source, one row of `_build._ENTRY_POINTS`
+(its label, types and argument types) and its wrapper module here.
 """
+
+from semiclassical_tpu_torch.ops._build import (LAUNCHES, launch_counts,
+                                                reset_launch_counts)
+
+__all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts"]

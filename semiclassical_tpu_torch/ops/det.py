@@ -39,20 +39,16 @@ from __future__ import annotations
 
 import torch
 
+from semiclassical_tpu_torch.ops import _build
+
 __all__ = ["batched_det", "batched_det_lu_plain", "check_det_args",
-           "det_variant", "dtype_name", "launch", "LAUNCHES",
-           "LAUNCHES_BY_DTYPE", "LAYOUT_CODES", "MAX_R", "ROWS_MAX_R"]
+           "det_variant", "LAYOUT_CODES", "MAX_R", "ROWS_MAX_R"]
 
 MAX_R = 64
 # the rows kernel takes r <= ROWS_MAX_R (a size per compiled instantiation)
 ROWS_MAX_R = 16
 # the `layout` argument of K1's entry points
 LAYOUT_CODES = {"warp": 0, "rows": 1}
-
-# kernel launches made by `batched_det` (plain Python int; one per launch),
-# and the same launches by the matrices' dtype name
-LAUNCHES = 0
-LAUNCHES_BY_DTYPE = {"complex128": 0, "complex64": 0}
 
 
 def batched_det_lu_plain(A: torch.Tensor) -> torch.Tensor:
@@ -89,12 +85,6 @@ def batched_det_lu_plain(A: torch.Tensor) -> torch.Tensor:
     return torch.complex(det_re, det_im)
 
 
-def dtype_name(dtype: torch.dtype) -> str:
-    """"complex128", "complex64", "float64", ...: the key of the
-    `LAUNCHES_BY_DTYPE` counts."""
-    return str(dtype).removeprefix("torch.")
-
-
 def check_det_args(A: torch.Tensor):
     """Raise ValueError unless the kernel takes `A`: complex128 or
     complex64, shape (n, r, r) with 1 <= r <= MAX_R, contiguous. (The
@@ -122,39 +112,17 @@ def det_variant(r: int) -> str:
     return "rows" if r <= ROWS_MAX_R else "warp"
 
 
-def launch(A: torch.Tensor, kernel: str, *layout: int) -> torch.Tensor:
-    """Launch the determinant kernel `kernel` ("det_lu": K1 here, with its
-    layout code; "det_lu_block": K4 in `ops.det_block`) on a CUDA tensor
-    that `check_det_args` accepted; returns the (n,) determinants. Nothing
-    is launched for n = 0; the caller counts its launches."""
-    from semiclassical_tpu_torch.ops import _build
-
-    n, r, _ = A.shape
-    out = torch.empty(n, dtype=A.dtype, device=A.device)
-    if n == 0:
-        return out
-    err = _build.launch(_build.entry(kernel, A.dtype), A.device,
-                        A.data_ptr(), out.data_ptr(), n, r, *layout)
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} "
-                           f"(n={n}, r={r}, {A.dtype})")
-    return out
-
-
 def batched_det(A: torch.Tensor) -> torch.Tensor:
     """Determinant of a batch of complex matrices, shape (n, r, r) -> (n,).
 
     A tensor on the card goes to the CUDA kernel (or raises if the kernel
     does not take it); a tensor on the CPU goes to the plain version."""
-    global LAUNCHES
-    if A.device.type == "cpu":
+    if _build.route("batched_det", A) == "cpu":
         return batched_det_lu_plain(A)
-    if A.device.type != "cuda":
-        raise ValueError(f"batched_det runs on cuda or cpu tensors, got "
-                         f"{A.device}")
     check_det_args(A)
-    out = launch(A, "det_lu", LAYOUT_CODES[det_variant(A.shape[1])])
-    if A.shape[0]:
-        LAUNCHES += 1
-        LAUNCHES_BY_DTYPE[dtype_name(A.dtype)] += 1
+    n, r, _ = A.shape
+    out = torch.empty(n, dtype=A.dtype, device=A.device)
+    if n:
+        _build.launch("det_lu", A.dtype, A.device, A.data_ptr(),
+                      out.data_ptr(), n, r, LAYOUT_CODES[det_variant(r)])
     return out

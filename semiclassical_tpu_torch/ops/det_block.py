@@ -31,17 +31,11 @@ from __future__ import annotations
 
 import torch
 
+from semiclassical_tpu_torch.ops import _build
 from semiclassical_tpu_torch.ops.det import (MAX_R, batched_det_lu_plain,
-                                             check_det_args, dtype_name,
-                                             launch)
+                                             check_det_args)
 
-__all__ = ["batched_det_block", "batched_det_lu_plain", "LAUNCHES",
-           "LAUNCHES_BY_DTYPE", "MAX_R"]
-
-# kernel launches made by `batched_det_block` (plain Python int)
-LAUNCHES = 0
-# the same launches by the matrices' dtype name
-LAUNCHES_BY_DTYPE = {"complex128": 0, "complex64": 0}
+__all__ = ["batched_det_block", "batched_det_lu_plain", "MAX_R"]
 
 
 def batched_det_block(A: torch.Tensor) -> torch.Tensor:
@@ -50,15 +44,12 @@ def batched_det_block(A: torch.Tensor) -> torch.Tensor:
     A tensor on the card goes to the CUDA kernel K4 (or raises if the
     kernel does not take it); a tensor on the CPU goes to the plain
     version."""
-    global LAUNCHES
-    if A.device.type == "cpu":
+    if _build.route("batched_det_block", A) == "cpu":
         return batched_det_lu_plain(A)
-    if A.device.type != "cuda":
-        raise ValueError(f"batched_det_block runs on cuda or cpu tensors, "
-                         f"got {A.device}")
     check_det_args(A)
-    out = launch(A, "det_lu_block")
-    if A.shape[0]:
-        LAUNCHES += 1
-        LAUNCHES_BY_DTYPE[dtype_name(A.dtype)] += 1
+    n, r, _ = A.shape
+    out = torch.empty(n, dtype=A.dtype, device=A.device)
+    if n:
+        _build.launch("det_lu_block", A.dtype, A.device, A.data_ptr(),
+                      out.data_ptr(), n, r)
     return out

@@ -29,20 +29,15 @@ from typing import NamedTuple
 
 import torch
 
-from semiclassical_tpu_torch.ops.det import dtype_name
+from semiclassical_tpu_torch.ops import _build
 
 __all__ = ["diag_mono_step", "diag_mono_step_plain", "check_args", "layout",
-           "layout_of", "Layout", "LAUNCHES", "LAUNCHES_BY_DTYPE"]
+           "layout_of", "Layout"]
 
 # threads of a block (csrc/diag_mono.cu kThreads)
 _THREADS = 256
 # bytes of one vector access of the kernel
 _VEC_BYTES = 16
-
-# kernel launches made by the wrapper (one per launch), and the same
-# launches by Z's dtype name
-LAUNCHES = 0
-LAUNCHES_BY_DTYPE = {"float64": 0, "float32": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,21 +84,6 @@ def diag_mono_step_plain(Z, inv_m, hs, weights):
     return torch.cat([raa * top + rab * bottom, rba * top + rbb * bottom])
 
 
-def _row_stride(x):
-    """d where element (r, j) of the (n, d) tensor x lies r d + j numbers
-    past its start (rows of d contiguous numbers, one after another), 0
-    where every row is the same row of d contiguous numbers (a broadcast),
-    None for any other layout. An empty x has every layout."""
-    n, d = x.shape
-    if x.numel() == 0:
-        return d
-    if d > 1 and x.stride(1) != 1:
-        return None
-    if n == 1 or x.stride(0) == d:
-        return d
-    return 0 if x.stride(0) == 0 else None
-
-
 def check_args(Z, inv_m, hs):
     """Raise ValueError unless K6 takes Z (4, n, d), inv_m (d,) and the four
     (n, d) stage diagonals `hs`: one float type (float64 or float32), one
@@ -133,7 +113,8 @@ def check_args(Z, inv_m, hs):
                          f"{[tuple(h.shape) for h in hs]}")
     if d > 1 and inv_m.stride(0) != 1:
         raise ValueError(f"{name} takes a contiguous inv_m")
-    if _row_stride(Z[0]) != d or any(_row_stride(h) is None for h in hs):
+    if (_build.row_stride(Z[0]) != d
+            or any(_build.row_stride(h) is None for h in hs)):
         raise ValueError(f"{name} takes planes of contiguous rows, one after "
                          f"another (a stage diagonal may be one row "
                          f"broadcast), got strides {Z.stride()} and "
@@ -162,15 +143,15 @@ def layout(total: int, dtype: torch.dtype, aligned: bool) -> Layout:
     if total < 0:
         raise ValueError(f"K6 takes n d >= 0 elements, got {total}")
     vec = 8 * _VEC_BYTES // torch.finfo(dtype).bits if aligned else 1
-    threads = -(-total // vec)
     return Layout("vector" if vec > 1 else "scalar", vec,
-                  -(-threads // _THREADS))
+                  _build.ceil_div(_build.ceil_div(total, vec), _THREADS))
 
 
 def _broadcast_mask(hs):
     """Bit s set where stage diagonal s is one row broadcast over more
     than one row."""
-    return sum(1 << s for s, h in enumerate(hs) if _row_stride(h) == 0)
+    return sum(1 << s for s, h in enumerate(hs)
+               if _build.row_stride(h) == 0)
 
 
 def layout_of(Z, hs) -> Layout:
@@ -190,24 +171,15 @@ def layout_of(Z, hs) -> Layout:
 
 
 def _launch(Z, inv_m, hs, weights):
-    from semiclassical_tpu_torch.ops import _build
-
-    global LAUNCHES
     _, n, d = Z.shape
     out = torch.empty((4, n, d), dtype=Z.dtype, device=Z.device)
     if n * d == 0:
         return out
     lay = layout_of(Z, hs)
-    err = _build.launch(
-        _build.entry("diag_mono", Z.dtype), Z.device, Z.data_ptr(),
-        Z.stride(0), *(h.data_ptr() for h in hs), _broadcast_mask(hs),
-        inv_m.data_ptr(), out.data_ptr(), n * d, d, *weights, lay.vec,
-        lay.blocks)
-    if err != 0:
-        raise RuntimeError(f"diag_mono kernel launch failed: CUDA error "
-                           f"{err} (n = {n}, d = {d}, {Z.dtype})")
-    LAUNCHES += 1
-    LAUNCHES_BY_DTYPE[dtype_name(Z.dtype)] += 1
+    _build.launch("diag_mono", Z.dtype, Z.device, Z.data_ptr(), Z.stride(0),
+                  *(h.data_ptr() for h in hs), _broadcast_mask(hs),
+                  inv_m.data_ptr(), out.data_ptr(), n * d, d, *weights,
+                  lay.vec, lay.blocks)
     return out
 
 
@@ -218,11 +190,7 @@ def diag_mono_step(Z, inv_m, hs, weights):
     Tensors on the card go to K6 (or raise if it does not take them);
     tensors on the CPU go to the plain version."""
     hs = tuple(hs)
-    kinds = {x.device.type for x in (Z, inv_m, *hs)}
-    if kinds == {"cpu"}:
+    if _build.route("diag_mono_step", Z, inv_m, *hs) == "cpu":
         return diag_mono_step_plain(Z, inv_m, hs, weights)
-    if kinds != {"cuda"}:
-        raise ValueError("diag_mono_step runs on cuda or cpu tensors (all "
-                         f"on one), got {sorted(kinds)}")
     check_args(Z, inv_m, hs)
     return _launch(Z, inv_m, hs, weights)

@@ -63,14 +63,13 @@ from typing import NamedTuple
 
 import torch
 
-from semiclassical_tpu_torch.ops.det import dtype_name
+from semiclassical_tpu_torch.ops import _build
 
 __all__ = ["batched_det_solve_gj", "batched_det_inv_gj",
            "batched_det_solve_gj_plain", "batched_det_inv_gj_plain",
            "check_solve_args", "check_inv_args", "solve_variant",
-           "inv_variant", "SolveVariant", "InvVariant", "LAUNCHES",
-           "LAUNCHES_BY_DTYPE", "MAX_M",
-           "MAX_WIDTH", "WARP_MAX_M", "WARP_MAX_WIDTH", "ROWS_MAX_M"]
+           "inv_variant", "SolveVariant", "InvVariant", "MAX_M", "MAX_WIDTH",
+           "WARP_MAX_M", "WARP_MAX_WIDTH", "ROWS_MAX_M"]
 
 MAX_M = 64        # rows (and A columns) a kernel takes
 MAX_WIDTH = 192   # m + k of K2's augmented matrix
@@ -80,12 +79,6 @@ WARP_MAX_M = 8
 WARP_MAX_WIDTH = 64
 # K3's rows kernel takes m <= ROWS_MAX_M (a size per compiled instantiation)
 ROWS_MAX_M = 16
-
-# kernel launches made by the wrappers, per kernel (one per launch)
-LAUNCHES = {"det_solve": 0, "det_inv": 0}
-# the same launches by the matrices' dtype name
-LAUNCHES_BY_DTYPE = {kind: {"complex128": 0, "complex64": 0}
-                     for kind in LAUNCHES}
 
 
 class SolveVariant(NamedTuple):
@@ -125,10 +118,6 @@ _INV_BLOCK_ROWS = ((20, 4, 5), (24, 4, 6), (28, 4, 7), (32, 4, 8),
 _LANES = 32
 
 
-def _ceil_div(a, b):
-    return -(-a // b)
-
-
 def solve_variant(m: int, k: int) -> SolveVariant:
     """The size rule of K2: the layout `csrc/gj_det.cu` runs for A (m, m),
     B (m, k), in either complex type. m <= 8 with m + k <= 64 takes the
@@ -142,10 +131,10 @@ def solve_variant(m: int, k: int) -> SolveVariant:
         return SolveVariant("warp", 1, 0, 0, 1)
     warps, tile_rows, max_cols = next(row[1:] for row in _BLOCK_ROWS
                                       if m <= row[0])
-    chunks = _ceil_div(k, _LANES * max_cols - m)
-    widest = m + _ceil_div(k, chunks)
-    return SolveVariant("block", warps, tile_rows, _ceil_div(widest, _LANES),
-                        chunks)
+    chunks = _build.ceil_div(k, _LANES * max_cols - m)
+    widest = m + _build.ceil_div(k, chunks)
+    return SolveVariant("block", warps, tile_rows,
+                        _build.ceil_div(widest, _LANES), chunks)
 
 
 def inv_variant(m: int) -> InvVariant:
@@ -159,7 +148,7 @@ def inv_variant(m: int) -> InvVariant:
         return InvVariant("rows", 0, 0, 0)
     warps, tile_rows = next(row[1:] for row in _INV_BLOCK_ROWS
                             if m <= row[0])
-    return InvVariant("block", warps, tile_rows, _ceil_div(m, _LANES))
+    return InvVariant("block", warps, tile_rows, _build.ceil_div(m, _LANES))
 
 
 def _cmul(x_re, x_im, y_re, y_im):
@@ -278,55 +267,26 @@ def check_inv_args(A: torch.Tensor):
     _check_square("batched_det_inv_gj", A)
 
 
-def _raise_on(err, kernel, A):
-    if err != 0:
-        raise RuntimeError(f"gj_{kernel} kernel launch failed: CUDA error "
-                           f"{err} (shape {tuple(A.shape)}, {A.dtype})")
-
-
 def _launch_solve(A, B):
-    from semiclassical_tpu_torch.ops import _build
-
     n, m, _ = A.shape
     det = torch.empty(n, dtype=A.dtype, device=A.device)
     sol = torch.empty_like(B)
-    if n == 0:
-        return det, sol
-    err = _build.launch(
-        _build.entry("gj_det_solve", A.dtype), A.device, A.data_ptr(),
-        B.data_ptr(), sol.data_ptr(), det.data_ptr(), n, m, B.shape[2],
-        *solve_variant(m, B.shape[2])[1:])
-    _raise_on(err, "det_solve", A)
-    LAUNCHES["det_solve"] += 1
-    LAUNCHES_BY_DTYPE["det_solve"][dtype_name(A.dtype)] += 1
+    if n:
+        _build.launch("gj_det_solve", A.dtype, A.device, A.data_ptr(),
+                      B.data_ptr(), sol.data_ptr(), det.data_ptr(), n, m,
+                      B.shape[2], *solve_variant(m, B.shape[2])[1:])
     return det, sol
 
 
 def _launch_inv(A):
-    from semiclassical_tpu_torch.ops import _build
-
     n, m, _ = A.shape
     det = torch.empty(n, dtype=A.dtype, device=A.device)
     inv = torch.empty_like(A)
-    if n == 0:
-        return det, inv
-    err = _build.launch(
-        _build.entry("gj_det_inv", A.dtype), A.device, A.data_ptr(),
-        inv.data_ptr(), det.data_ptr(), n, m, *inv_variant(m)[1:])
-    _raise_on(err, "det_inv", A)
-    LAUNCHES["det_inv"] += 1
-    LAUNCHES_BY_DTYPE["det_inv"][dtype_name(A.dtype)] += 1
+    if n:
+        _build.launch("gj_det_inv", A.dtype, A.device, A.data_ptr(),
+                      inv.data_ptr(), det.data_ptr(), n, m,
+                      *inv_variant(m)[1:])
     return det, inv
-
-
-def _route(name, *tensors):
-    """'cpu' when every tensor is on the CPU, 'cuda' when every one is on
-    the card; anything else raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"} or kinds == {"cuda"}:
-        return kinds.pop()
-    raise ValueError(f"{name} runs on cuda or cpu tensors (all on one), got "
-                     f"{', '.join(str(t.device) for t in tensors)}")
 
 
 def batched_det_solve_gj(A: torch.Tensor, B: torch.Tensor):
@@ -334,7 +294,7 @@ def batched_det_solve_gj(A: torch.Tensor, B: torch.Tensor):
 
     Tensors on the card go to K2 (or raise if it does not take them);
     tensors on the CPU go to the plain version."""
-    if _route("batched_det_solve_gj", A, B) == "cpu":
+    if _build.route("batched_det_solve_gj", A, B) == "cpu":
         return batched_det_solve_gj_plain(A, B)
     check_solve_args(A, B)
     return _launch_solve(A, B)
@@ -345,7 +305,7 @@ def batched_det_inv_gj(A: torch.Tensor):
 
     A tensor on the card goes to K3 (or raises if it does not take it); a
     tensor on the CPU goes to the plain version."""
-    if _route("batched_det_inv_gj", A) == "cpu":
+    if _build.route("batched_det_inv_gj", A) == "cpu":
         return batched_det_inv_gj_plain(A)
     check_inv_args(A)
     return _launch_inv(A)

@@ -35,11 +35,10 @@ from typing import NamedTuple
 
 import torch
 
-from semiclassical_tpu_torch.ops.det import dtype_name
-from semiclassical_tpu_torch.ops.diag_mono import _row_stride
+from semiclassical_tpu_torch.ops import _build
 
 __all__ = ["morse_rk4_step", "morse_rk4_step_plain", "pack_of", "check_args",
-           "layout", "layout_of", "Layout", "LAUNCHES", "LAUNCHES_BY_DTYPE"]
+           "layout", "layout_of", "Layout"]
 
 # threads of a block and lanes of a warp (csrc/morse_rk4.cu kThreads,
 # kWarp); a warp takes a row
@@ -47,11 +46,6 @@ _THREADS = 256
 _WARP = 32
 # the pack's rows
 PACK_ROWS = 5
-
-# kernel launches made by the wrapper (one per launch), and the same
-# launches by q's dtype name
-LAUNCHES = 0
-LAUNCHES_BY_DTYPE = {"float64": 0, "float32": 0}
 
 # id(potential) -> (weak reference to it, its pack)
 _PACKS = {}
@@ -131,7 +125,7 @@ def check_args(q, p, S, pack):
         if x.device != q.device:
             raise ValueError(f"{name} takes tensors on one device, got "
                              f"{x.device} and {q.device}")
-    if not (_row_stride(q) == d and _row_stride(p) == d
+    if not (_build.row_stride(q) == d and _build.row_stride(p) == d
             and (n <= 1 or S.stride(0) == 1) and pack.is_contiguous()):
         raise ValueError(f"{name} takes q and p as contiguous rows one after "
                          f"another, S and the pack contiguous, got strides "
@@ -162,7 +156,7 @@ def layout(n: int, d: int, dtype: torch.dtype, aligned: bool) -> Layout:
                          f"({n}, {d})")
     vec = 2 if aligned and d % 2 == 0 else 1
     return Layout("vector" if vec > 1 else "scalar", vec,
-                  -(-n // (_THREADS // _WARP)))
+                  _build.ceil_div(n, _THREADS // _WARP))
 
 
 def layout_of(q, p) -> Layout:
@@ -176,9 +170,6 @@ def layout_of(q, p) -> Layout:
 
 
 def _launch(q, p, S, pack, weights):
-    from semiclassical_tpu_torch.ops import _build
-
-    global LAUNCHES
     n, d = q.shape
     new = functools.partial(torch.empty, dtype=q.dtype, device=q.device)
     new_q, new_p, new_S, e1, h = (new(n, d), new(n, d), new(n), new(n),
@@ -186,16 +177,10 @@ def _launch(q, p, S, pack, weights):
     if n == 0:
         return new_q, new_p, new_S, e1, h
     lay = layout_of(q, p)
-    err = _build.launch(
-        _build.entry("morse_rk4", q.dtype), q.device, q.data_ptr(),
-        p.data_ptr(), S.data_ptr(), pack.data_ptr(), new_q.data_ptr(),
-        new_p.data_ptr(), new_S.data_ptr(), e1.data_ptr(), h.data_ptr(), n,
-        d, *weights, lay.vec, lay.blocks)
-    if err != 0:
-        raise RuntimeError(f"morse_rk4 kernel launch failed: CUDA error "
-                           f"{err} (n = {n}, d = {d}, {q.dtype})")
-    LAUNCHES += 1
-    LAUNCHES_BY_DTYPE[dtype_name(q.dtype)] += 1
+    _build.launch("morse_rk4", q.dtype, q.device, q.data_ptr(), p.data_ptr(),
+                  S.data_ptr(), pack.data_ptr(), new_q.data_ptr(),
+                  new_p.data_ptr(), new_S.data_ptr(), e1.data_ptr(),
+                  h.data_ptr(), n, d, *weights, lay.vec, lay.blocks)
     return new_q, new_p, new_S, e1, h
 
 
@@ -205,11 +190,7 @@ def morse_rk4_step(q, p, S, pack, weights):
 
     Tensors on the card go to K7 (or raise if it does not take them);
     tensors on the CPU go to the plain version."""
-    kinds = {x.device.type for x in (q, p, S, pack)}
-    if kinds == {"cpu"}:
+    if _build.route("morse_rk4_step", q, p, S, pack) == "cpu":
         return morse_rk4_step_plain(q, p, S, pack, weights)
-    if kinds != {"cuda"}:
-        raise ValueError("morse_rk4_step runs on cuda or cpu tensors (all "
-                         f"on one), got {sorted(kinds)}")
     check_args(q, p, S, pack)
     return _launch(q, p, S, pack, weights)

@@ -41,13 +41,12 @@ from typing import NamedTuple
 
 import torch
 
-from semiclassical_tpu_torch.ops.det import dtype_name
+from semiclassical_tpu_torch.ops import _build
 from semiclassical_tpu_torch.units import hbar
 
 __all__ = ["wm_diag_derived", "wm_diag_derived_plain", "wm_diag_core_plain",
            "build_const_pack", "scal_col", "check_args", "layout", "layout_of",
-           "Layout", "CONSTS", "GRAM_PAIRS", "N_SCAL", "MAX_D", "MAX_SMEM",
-           "LAUNCHES", "LAUNCHES_BY_DTYPE"]
+           "Layout", "CONSTS", "GRAM_PAIRS", "N_SCAL", "MAX_D", "MAX_SMEM"]
 
 # rows of the per-mode constant pack (csrc/wm_diag.cu reads them in this
 # order)
@@ -69,11 +68,6 @@ MAX_SMEM = 48 * 1024
 # it is built for
 _THREADS = 256
 _LANES = (4, 8, 16)
-
-# kernel launches made by the wrapper (one per launch), and the same
-# launches by the planes' dtype name
-LAUNCHES = 0
-LAUNCHES_BY_DTYPE = {"float64": 0, "float32": 0}
 
 
 def scal_col(name: str) -> int:
@@ -203,10 +197,6 @@ class Layout(NamedTuple):
     blocks: int
 
 
-def _ceil_div(a, b):
-    return -(-a // b)
-
-
 @functools.lru_cache(maxsize=64)
 def layout(n: int, d: int, dtype: torch.dtype, aligned: bool) -> Layout:
     """The layout rule of K5 for n rows of d modes of `dtype` (float64 or
@@ -224,12 +214,12 @@ def layout(n: int, d: int, dtype: torch.dtype, aligned: bool) -> Layout:
     if n < 0:
         raise ValueError(f"K5 takes n >= 0 rows, got n = {n}")
     vec = 2 if aligned and d % 2 == 0 else 1
-    chunks = _ceil_div(d, vec)
+    chunks = _build.ceil_div(d, vec)
     lanes = next((w for w in _LANES if w >= chunks), _LANES[-1])
     rows = _THREADS // lanes
     smem = len(CONSTS) * d * torch.finfo(dtype).bits // 8
     return Layout("vector" if vec > 1 else "scalar", rows, lanes, vec, smem,
-                  _ceil_div(n, rows))
+                  _build.ceil_div(n, rows))
 
 
 def layout_of(planes) -> Layout:
@@ -243,9 +233,6 @@ def layout_of(planes) -> Layout:
 
 
 def _launch(planes, pack):
-    from semiclassical_tpu_torch.ops import _build
-
-    global LAUNCHES
     n, d = planes[0].shape
     scal = torch.empty((n, N_SCAL), dtype=pack.dtype, device=pack.device)
     det_planes = torch.empty((4, n, d), dtype=pack.dtype, device=pack.device)
@@ -253,15 +240,9 @@ def _launch(planes, pack):
         return scal, det_planes
     ptrs = [x.data_ptr() for x in planes]
     lay = layout(n, d, pack.dtype, not any(p % 16 for p in ptrs))
-    err = _build.launch(
-        _build.entry("wm_diag", pack.dtype), pack.device, *ptrs,
-        pack.data_ptr(), scal.data_ptr(), det_planes.data_ptr(), n, d,
-        lay.vec, lay.lanes, lay.blocks)
-    if err != 0:
-        raise RuntimeError(f"wm_diag kernel launch failed: CUDA error {err} "
-                           f"(n = {n}, d = {d}, {pack.dtype})")
-    LAUNCHES += 1
-    LAUNCHES_BY_DTYPE[dtype_name(pack.dtype)] += 1
+    _build.launch("wm_diag", pack.dtype, pack.device, *ptrs,
+                  pack.data_ptr(), scal.data_ptr(), det_planes.data_ptr(), n,
+                  d, lay.vec, lay.lanes, lay.blocks)
     return scal, det_planes
 
 
@@ -271,12 +252,8 @@ def wm_diag_derived(Mqq, Mqp, Mpq, Mpp, dQ, dp, dq, n1q, n1Q, v0c, pack):
     Tensors on the card go to K5 (or raise if it does not take them);
     tensors on the CPU go to the plain version."""
     planes = (Mqq, Mqp, Mpq, Mpp, dQ, dp, dq, n1q, n1Q, v0c)
-    kinds = {x.device.type for x in (*planes, pack)}
-    if kinds == {"cpu"}:
+    if _build.route("wm_diag_derived", *planes, pack) == "cpu":
         return wm_diag_derived_plain(*planes, pack)
-    if kinds != {"cuda"}:
-        raise ValueError("wm_diag_derived runs on cuda or cpu tensors (all "
-                         f"on one), got {sorted(kinds)}")
     if hbar != 1.0:
         raise ValueError("the wm_diag kernel assumes hbar = 1 (atomic units)")
     check_args(planes, pack)

@@ -50,6 +50,8 @@ import numpy as np
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+from semiclassical_tpu_torch.ops import _build
+
 logger = logging.getLogger(__name__)
 
 __all__ = ["SECTIONS", "enable", "tracing", "span", "count", "to_host",
@@ -176,10 +178,6 @@ class SectionClock:
         self.device = torch.device(device)
         self._last = len(SECTIONS)
         if self.device.type == "cuda":
-            from semiclassical_tpu_torch.ops import _build
-
-            self._build = _build
-            self._entry = _build.entry("stamp", torch.int64)
             self._slots = torch.zeros(self._last + 1, dtype=torch.int64,
                                       device=self.device)
             self.start()
@@ -202,11 +200,8 @@ class SectionClock:
                 self._slots[slot] += now - self._slots[self._last]
             self._slots[self._last] = now
             return
-        err = self._build.launch(self._entry, self.device,
-                                 self._slots.data_ptr(), slot, self._last)
-        if err != 0:
-            raise RuntimeError(f"stamp kernel launch failed: CUDA error "
-                               f"{err}")
+        _build.launch("stamp", torch.int64, self.device,
+                      self._slots.data_ptr(), slot, self._last)
 
     def take(self):
         """{section: seconds} since the last take (sections that ran), the

@@ -49,10 +49,11 @@ the eager loop issued every launch of every step.
   relaxed mode and with eager module loading. A read of the host still
   fails a capture (it synchronises the capturing stream), and the CPU
   tests hold every block body free of them.
-* **Launch counts.** The kernel wrappers count launches on the host
-  (`ops.*.LAUNCHES`, `LAUNCHES_BY_DTYPE`), which a replay does not run. A
-  capture records each counter's change, takes it back (the capture ran
-  nothing), and every replay adds it.
+* **Launch counts.** Every kernel launch is counted on the host, in the
+  one table `ops.LAUNCHES` (read by label with `ops.launch_counts()`),
+  and a replay runs no host code. A capture records the table's change
+  and takes it back (the capture ran nothing); every replay of the graph,
+  or of its twin, adds that graph's change.
 * **Eager.** On a CPU tensor, and on the card inside `eager()` (the
   counterpart of `jax.disable_jit`), every block runs eagerly through the
   same body; a kept loop's graphs stay for the calls after. Nothing falls
@@ -72,19 +73,19 @@ the eager loop issued every launch of every step.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
-import sys
 import time
 
 import torch
 
 from semiclassical_tpu_torch import profiling
+from semiclassical_tpu_torch.ops import LAUNCHES
 
 __all__ = ["BLOCK_STEPS", "STATS", "SegmentGraph", "eager", "captures",
-           "block_lengths", "segment_graph", "live", "clear",
-           "read_launches", "add_launches", "clone_tree", "copy_tree",
-           "signature"]
+           "block_lengths", "segment_graph", "live", "clear", "clone_tree",
+           "copy_tree", "signature"]
 
 # The block length B away from a taylor_every window. Measured on an H100
 # at the most host-bound path, HK methylium at 10,000 trajectories
@@ -96,7 +97,7 @@ __all__ = ["BLOCK_STEPS", "STATS", "SegmentGraph", "eager", "captures",
 BLOCK_STEPS = 10
 
 # What the loops of this process did, for measurements (host counters,
-# like the kernels' LAUNCHES): blocks run eagerly (warm-ups, the CPU,
+# like the kernels' launch counts): blocks run eagerly (warm-ups, the CPU,
 # `eager()`), graphs captured, their capture plus instantiate seconds
 # (host clock), replays (of a graph or its twin), and the twins captured
 # with their seconds.
@@ -106,14 +107,6 @@ STATS = {"eager_blocks": 0, "captures": 0, "capture_s": 0.0, "replays": 0,
 _EAGER_DEPTH = 0
 _SIDE = {}      # device index -> (capture stream, graph memory pool)
 _LOOPS = {}     # device ("cpu" or a CUDA index) -> its live SegmentGraph
-
-_COUNTER_MODULES = ("semiclassical_tpu_torch.ops.det",
-                    "semiclassical_tpu_torch.ops.det_block",
-                    "semiclassical_tpu_torch.ops.gj",
-                    "semiclassical_tpu_torch.ops.wm_diag",
-                    "semiclassical_tpu_torch.ops.diag_mono",
-                    "semiclassical_tpu_torch.ops.morse_rk4")
-_COUNTERS = ("LAUNCHES", "LAUNCHES_BY_DTYPE")
 
 
 @contextlib.contextmanager
@@ -143,51 +136,6 @@ def block_lengths(steps, window=1):
     block = window * -(-BLOCK_STEPS // window)
     return [block] * (steps // block) + ([steps % block] if steps % block
                                          else [])
-
-
-# ---------------------------------------------------------------------------
-# the kernels' launch counters
-# ---------------------------------------------------------------------------
-
-def _flatten(out, key, value):
-    if isinstance(value, dict):
-        for k, v in value.items():
-            _flatten(out, (*key, k), v)
-    else:
-        out[key] = value
-
-
-def read_launches():
-    """Every launch counter of the kernel wrappers as {(module, counter,
-    *keys): count}: `LAUNCHES` and `LAUNCHES_BY_DTYPE` of `ops.det`,
-    `ops.det_block`, `ops.gj`, `ops.wm_diag`, `ops.diag_mono` and
-    `ops.morse_rk4` (those imported)."""
-    out = {}
-    for name in _COUNTER_MODULES:
-        module = sys.modules.get(name)
-        if module is not None:
-            for counter in _COUNTERS:
-                _flatten(out, (name, counter), getattr(module, counter))
-    return out
-
-
-def add_launches(delta, sign=1):
-    """Add `sign` times the counts of `delta` (a `read_launches`
-    difference) to the counters, in place."""
-    for (name, counter, *keys), n in delta.items():
-        module = sys.modules[name]
-        if not keys:
-            setattr(module, counter, getattr(module, counter) + sign * n)
-            continue
-        table = getattr(module, counter)
-        for k in keys[:-1]:
-            table = table[k]
-        table[keys[-1]] += sign * n
-
-
-def _launch_delta(before, after):
-    return {k: n - before.get(k, 0) for k, n in after.items()
-            if n != before.get(k, 0)}
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +209,8 @@ class _Block:
     warm: bool = False    # the eager warm-up ran
     graph: object = None  # the captured graph
     twin: object = None   # the graph with the section marks on
-    launches: dict = dataclasses.field(default_factory=dict)
+    launches: dict = None       # the launches a replay of the graph makes
+    twin_launches: dict = None  # and of the twin
 
 
 class SegmentGraph:
@@ -351,22 +300,23 @@ class SegmentGraph:
         block.graph, block.launches, seconds = self._counted(block.body)
         STATS["capture_s"] += seconds
         STATS["captures"] += 1
-        block.twin, _, seconds = self._counted(self._traced(block.body))
+        block.twin, block.twin_launches, seconds = self._counted(
+            self._traced(block.body))
         STATS["trace_capture_s"] += seconds
         STATS["trace_captures"] += 1
 
     def _counted(self, body):
         """(the graph of `body`, the launch counts its capture recorded,
         the capture's seconds)."""
-        before = read_launches()
+        before = collections.Counter(LAUNCHES)
         t0 = time.perf_counter()
         try:
             graph = self._record(body)
         finally:
             # the capture launched nothing: its counts return with each
             # replay (and not at all when it failed)
-            launches = _launch_delta(before, read_launches())
-            add_launches(launches, -1)
+            launches = LAUNCHES - before
+            LAUNCHES.subtract(launches)
         return graph, launches, time.perf_counter() - t0
 
     def _record(self, body):
@@ -378,7 +328,7 @@ class SegmentGraph:
 
     def _replay(self, block, traced):
         (block.twin if traced else block.graph).replay()
-        add_launches(block.launches)
+        LAUNCHES.update(block.twin_launches if traced else block.launches)
         STATS["replays"] += 1
 
 

@@ -41,10 +41,15 @@ import numpy as np
 import pytest
 import torch
 
-from semiclassical_tpu_torch import linalg
+from semiclassical_tpu_torch import linalg, ops
 from semiclassical_tpu_torch.ops import det, gj
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches(label):
+    """The launches of kernel `label` so far, in either type."""
+    return sum(ops.launch_counts()[label].values())
 
 
 @pytest.fixture()
@@ -77,20 +82,20 @@ def _well_conditioned(n, r, dtype, device, seed):
     (torch.complex128, linalg.DET_WARP_MAX_R + 1, 1001, 1e-12)])
 def test_kernel_matches_plain(card, dtype, r, n, rtol):
     A = _well_conditioned(n, r, dtype, card, seed=r)
-    before = det.LAUNCHES
+    before = _launches("K1")
     got = det.batched_det(A)
     torch.cuda.synchronize()
-    assert det.LAUNCHES == before + 1
+    assert _launches("K1") == before + 1
     assert got.dtype == dtype and got.shape == (n,)
     ref = det.batched_det_lu_plain(A)
     assert float(((got - ref).abs() / ref.abs()).max()) <= rtol
 
 
 def test_empty_batch_launches_nothing(card):
-    before = det.LAUNCHES
+    before = _launches("K1")
     got = det.batched_det(torch.empty((0, 6, 6), dtype=torch.complex128,
                                       device=card))
-    assert got.shape == (0,) and det.LAUNCHES == before
+    assert got.shape == (0,) and _launches("K1") == before
 
 
 @pytest.mark.parametrize("make", [
@@ -99,10 +104,10 @@ def test_empty_batch_launches_nothing(card):
     lambda d: torch.zeros((4, 6, 6), dtype=torch.float64, device=d),
 ], ids=["r65", "non-contiguous", "float64"])
 def test_wrapper_raises_on_card(card, make):
-    before = det.LAUNCHES
+    before = _launches("K1")
     with pytest.raises(ValueError):
         det.batched_det(make(card))
-    assert det.LAUNCHES == before
+    assert _launches("K1") == before
 
 
 def _rel(got, ref):
@@ -131,10 +136,10 @@ def test_solve_kernel_matches_plain(card, dtype, m, k, n, rtol):
     B = B.contiguous()
     assert gj.solve_variant(m, k).kind == (
         "warp" if m <= 8 and m + k <= 64 else "block")
-    before = gj.LAUNCHES["det_solve"]
+    before = _launches("K2")
     det, sol = gj.batched_det_solve_gj(A, B)
     torch.cuda.synchronize()
-    assert gj.LAUNCHES["det_solve"] == before + 1
+    assert _launches("K2") == before + 1
     assert det.shape == (n,) and sol.shape == (n, m, k)
     det_p, sol_p = gj.batched_det_solve_gj_plain(A, B)
     assert float(((det - det_p).abs() / det_p.abs()).max()) <= rtol
@@ -162,10 +167,10 @@ def test_solve_kernel_matches_plain(card, dtype, m, k, n, rtol):
 def test_inv_kernel_matches_plain(card, dtype, m, n, rtol):
     A = _well_conditioned(n, m, dtype, card, seed=m)
     assert gj.inv_variant(m).kind == ("rows" if m <= 16 else "block")
-    before = gj.LAUNCHES["det_inv"]
+    before = _launches("K3")
     det, inv = gj.batched_det_inv_gj(A)
     torch.cuda.synchronize()
-    assert gj.LAUNCHES["det_inv"] == before + 1
+    assert _launches("K3") == before + 1
     det_p, inv_p = gj.batched_det_inv_gj_plain(A)
     assert float(((det - det_p).abs() / det_p.abs()).max()) <= rtol
     assert _rel(inv, inv_p) <= rtol
@@ -181,13 +186,13 @@ def test_inv_kernel_matches_plain(card, dtype, m, n, rtol):
 ], ids=["m65", "width193", "mixed-devices"])
 def test_gj_wrappers_raise_on_card(card, make):
     A, B = make(card)
-    before = dict(gj.LAUNCHES)
+    before = ops.launch_counts()
     with pytest.raises(ValueError):
         gj.batched_det_solve_gj(A, B)
     if A.shape[1] > gj.MAX_M:
         with pytest.raises(ValueError):
             gj.batched_det_inv_gj(A)
-    assert gj.LAUNCHES == before
+    assert ops.launch_counts() == before
 
 
 def _wm_diag_inputs(n, d, dtype, device, seed):
@@ -221,10 +226,10 @@ def test_wm_diag_kernel_matches_plain(card, dtype, n, d, rtol):
     from semiclassical_tpu_torch.ops import wm_diag
 
     planes, pack = _wm_diag_inputs(n, d, dtype, card, seed=d)
-    before = wm_diag.LAUNCHES
+    before = _launches("K5")
     scal, det_planes = wm_diag.wm_diag_derived(*planes, pack)
     torch.cuda.synchronize()
-    assert wm_diag.LAUNCHES == before + 1
+    assert _launches("K5") == before + 1
     assert scal.shape == (n, wm_diag.N_SCAL) and det_planes.shape == (4, n, d)
     scal_p, det_p = wm_diag.wm_diag_derived_plain(*planes, pack)
     err = ((scal - scal_p).abs().amax(0) / scal_p.abs().amax(0)).max()
@@ -240,10 +245,10 @@ def _wm_diag_check(planes, pack, rtol):
     from semiclassical_tpu_torch.ops import wm_diag
 
     n, d = planes[0].shape
-    before = wm_diag.LAUNCHES
+    before = _launches("K5")
     scal, det_planes = wm_diag.wm_diag_derived(*planes, pack)
     torch.cuda.synchronize()
-    assert wm_diag.LAUNCHES == before + 1
+    assert _launches("K5") == before + 1
     assert scal.shape == (n, wm_diag.N_SCAL) and det_planes.shape == (4, n, d)
     assert bool(torch.isfinite(scal).all() and torch.isfinite(det_planes).all())
     scal_p, det_p = wm_diag.wm_diag_derived_plain(*planes, pack)
@@ -320,9 +325,9 @@ def test_wm_diag_empty_batch_launches_nothing(card):
     from semiclassical_tpu_torch.ops import wm_diag
 
     planes, pack = _wm_diag_inputs(0, 60, torch.float64, card, seed=0)
-    before = wm_diag.LAUNCHES
+    before = _launches("K5")
     scal, det_planes = wm_diag.wm_diag_derived(*planes, pack)
-    assert wm_diag.LAUNCHES == before
+    assert _launches("K5") == before
     assert scal.shape == (0, wm_diag.N_SCAL) and det_planes.shape == (4, 0, 60)
 
 
@@ -336,10 +341,10 @@ def test_wm_diag_wrapper_raises_on_card(card, case):
         pack = pack.float()
     if case == "non-contiguous":
         planes[4] = planes[4].T.contiguous().T
-    before = wm_diag.LAUNCHES
+    before = _launches("K5")
     with pytest.raises(ValueError):
         wm_diag.wm_diag_derived(*planes, pack)
-    assert wm_diag.LAUNCHES == before
+    assert _launches("K5") == before
 
 
 def _diag_mono_inputs(n, d, dtype, device, seed, rows=None):
@@ -368,10 +373,10 @@ def _diag_mono_check(Z, inv_m, hs, variant):
 
     w = eom._rk4_weights(0.2, Z.dtype)
     assert diag_mono.layout_of(Z, hs).variant == variant
-    before = diag_mono.LAUNCHES
+    before = _launches("K6")
     got = diag_mono.diag_mono_step(Z, inv_m, hs, w)
     torch.cuda.synchronize()
-    assert diag_mono.LAUNCHES == before + 1
+    assert _launches("K6") == before + 1
     assert got.shape == (4, *Z.shape[1:]) and got.is_contiguous()
     ref = diag_mono.diag_mono_step_plain(Z, inv_m, hs, w)
     err = float((got - ref).abs().max() / ref.abs().max())
@@ -418,9 +423,9 @@ def test_diag_mono_empty_batch_launches_nothing(card):
     from semiclassical_tpu_torch.ops import diag_mono
 
     Z, inv_m, hs = _diag_mono_inputs(0, 60, torch.float64, card, seed=0)
-    before = diag_mono.LAUNCHES
+    before = _launches("K6")
     got = diag_mono.diag_mono_step(Z, inv_m, hs, (0.1, 0.2, 0.3, 0.6))
-    assert diag_mono.LAUNCHES == before and got.shape == (4, 0, 60)
+    assert _launches("K6") == before and got.shape == (4, 0, 60)
 
 
 @pytest.mark.parametrize("case", ["mixed dtypes", "rows apart", "h shape",
@@ -437,10 +442,10 @@ def test_diag_mono_wrapper_raises_on_card(card, case):
         hs = (hs[0][:15], *hs[1:])
     elif case == "cpu inv_m":
         inv_m = inv_m.cpu()
-    before = diag_mono.LAUNCHES
+    before = _launches("K6")
     with pytest.raises(ValueError):
         diag_mono.diag_mono_step(Z, inv_m, hs, (0.1, 0.2, 0.3, 0.6))
-    assert diag_mono.LAUNCHES == before
+    assert _launches("K6") == before
 
 
 @pytest.mark.parametrize("dtype, r, n, rtol", [
@@ -458,10 +463,10 @@ def test_block_kernel_matches_plain(card, dtype, r, n, rtol):
     from semiclassical_tpu_torch.ops import det_block
 
     A = _well_conditioned(n, r, dtype, card, seed=100 + r)
-    before = det_block.LAUNCHES
+    before = _launches("K4")
     got = det_block.batched_det_block(A)
     torch.cuda.synchronize()
-    assert det_block.LAUNCHES == before + 1
+    assert _launches("K4") == before + 1
     assert got.dtype == dtype and got.shape == (n,)
     ref = det_block.batched_det_lu_plain(A)
     assert float(((got - ref).abs() / ref.abs()).max()) <= rtol
@@ -474,12 +479,10 @@ def test_block_kernel_matches_plain(card, dtype, r, n, rtol):
     (6, "K1"), (16, "K1"), (17, "K1"), (linalg.DET_WARP_MAX_R, "K1"),
     (linalg.DET_WARP_MAX_R + 1, "K4"), (32, "K4"), (45, "K4"), (64, "K4")])
 def test_size_rule_launches(card, r, kernel):
-    from semiclassical_tpu_torch.ops import det_block
-
     A = _well_conditioned(40, r, torch.complex128, card, seed=r)
-    k1, k4 = det.LAUNCHES, det_block.LAUNCHES
+    k1, k4 = _launches("K1"), _launches("K4")
     linalg.batched_det(A)
-    assert (det.LAUNCHES - k1, det_block.LAUNCHES - k4) == (
+    assert (_launches("K1") - k1, _launches("K4") - k4) == (
         (1, 0) if kernel == "K1" else (0, 1))
 
 
@@ -493,19 +496,19 @@ def test_size_rule_launches(card, r, kernel):
 def test_block_wrapper_raises_on_card(card, make):
     from semiclassical_tpu_torch.ops import det_block
 
-    before = det_block.LAUNCHES
+    before = _launches("K4")
     with pytest.raises(ValueError):
         det_block.batched_det_block(make(card))
-    assert det_block.LAUNCHES == before
+    assert _launches("K4") == before
 
 
 def test_block_empty_batch_launches_nothing(card):
     from semiclassical_tpu_torch.ops import det_block
 
-    before = det_block.LAUNCHES
+    before = _launches("K4")
     got = det_block.batched_det_block(
         torch.empty((0, 45, 45), dtype=torch.complex128, device=card))
-    assert got.shape == (0,) and det_block.LAUNCHES == before
+    assert got.shape == (0,) and _launches("K4") == before
 
 
 @pytest.mark.parametrize("bi, bj, r", [(37, 41, 6), (37, 43, 12)],
@@ -516,10 +519,10 @@ def test_inv_kernel_at_pair_blocks(card, bi, bj, r):
     = 1517 matrices at r = 6 (5 to a warp) and 1591 at r = 12 (2 to a
     warp) leave the last warp part-filled."""
     A = _well_conditioned(bi * bj, r, torch.complex128, card, seed=bi + r)
-    before = gj.LAUNCHES["det_inv"]
+    before = _launches("K3")
     det, inv = linalg.batched_det_inv(A.view(bi, bj, r, r))
     torch.cuda.synchronize()
-    assert gj.LAUNCHES["det_inv"] == before + 1
+    assert _launches("K3") == before + 1
     assert det.shape == (bi, bj) and inv.shape == (bi, bj, r, r)
     det_p, inv_p = gj.batched_det_inv_gj_plain(A)
     assert float(((det.reshape(-1) - det_p).abs() / det_p.abs()).max()) \
@@ -554,9 +557,9 @@ def test_norm_on_card_equals_cpu(card, name):
         prop.initial_conditions(q0, 0 * q0, G, pot, ntraj=200,
                                 normals=normals.to(device))
         prop.propagate(pot, 20.0, 5)
-        before = gj.LAUNCHES["det_inv"]
+        before = _launches("K3")
         exact = prop.norm(block=64)
-        launched = gj.LAUNCHES["det_inv"] - before
+        launched = _launches("K3") - before
         norms.append((exact, prop.norm(sample_pairs=6, key=2, block=50)))
     (cpu, cpu_sub), (gpu, gpu_sub) = norms
     assert np.isfinite(gpu) and abs(gpu - cpu) < 1e-10 * cpu

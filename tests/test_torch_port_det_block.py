@@ -26,7 +26,7 @@ import torch
 import jax.numpy as jnp
 
 from semiclassical_tpu.ops import pallas_batched_det
-from semiclassical_tpu_torch import linalg
+from semiclassical_tpu_torch import linalg, ops
 from semiclassical_tpu_torch.ops import det, det_block
 
 
@@ -60,9 +60,9 @@ def test_plain_version_is_k1s():
 
 def test_cpu_tensor_takes_the_plain_version():
     A = torch.from_numpy(_well_conditioned(np.random.default_rng(3), 9, 45))
-    before = det_block.LAUNCHES
+    before = ops.launch_counts()
     got = det_block.batched_det_block(A)
-    assert det_block.LAUNCHES == before
+    assert ops.launch_counts() == before
     assert torch.equal(got, det.batched_det_lu_plain(A))
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from semiclassical_tpu_torch import ops
 from semiclassical_tpu_torch.ops import diag_mono
 from semiclassical_tpu_torch.potentials import MorsePotential
 from semiclassical_tpu_torch.propagation import eom
@@ -134,10 +135,10 @@ def test_rk4_step_goes_through_the_wrapper(monkeypatch):
         return wrapper(*args)
 
     monkeypatch.setattr(diag_mono, "diag_mono_step", counted)
-    launches = diag_mono.LAUNCHES, dict(diag_mono.LAUNCHES_BY_DTYPE)
+    launches = ops.launch_counts()
     new, _ = eom.rk4_step(state, pot, DT)
     assert len(calls) == 1
-    assert (diag_mono.LAUNCHES, diag_mono.LAUNCHES_BY_DTYPE) == launches
+    assert ops.launch_counts() == launches
     Z, inv_m, hs, w = calls[0]
     assert Z is state.Z and w == eom._rk4_weights(DT, torch.float64)
     assert _same_bits(new.Z, diag_step_before(Z, inv_m, hs, DT))
@@ -146,10 +147,10 @@ def test_rk4_step_goes_through_the_wrapper(monkeypatch):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
 def test_wrapper_on_the_cpu_launches_nothing(dtype):
     Z, inv_m, hs = _inputs(17, 5, dtype)
-    before = diag_mono.LAUNCHES, dict(diag_mono.LAUNCHES_BY_DTYPE)
+    before = ops.launch_counts()
     w = eom._rk4_weights(DT, dtype)
     got = diag_mono.diag_mono_step(Z, inv_m, hs, w)
-    assert (diag_mono.LAUNCHES, diag_mono.LAUNCHES_BY_DTYPE) == before
+    assert ops.launch_counts() == before
     assert _same_bits(got, diag_mono.diag_mono_step_plain(Z, inv_m, hs, w))
 
 

@@ -18,7 +18,9 @@ the card (marker `cuda`).
   `_wm_scan_jit`, `_hk_scan_micro_jit` through its `propagate`) at float64
   to the parity tests' tolerances: C(t) and k~ic(t) 1e-8 of their largest
   modulus, the stderr 1e-10 (tests/test_torch_port_stats.py).
-* The launch counters on a stub graph, the cache's context and its drops.
+* The launch table on a stub graph (a block that bumps it, and one that
+  launches through stubbed entry points of `ops._build`), the cache's
+  context and its drops.
 * On the card: graph against eager at 1e-13 of the largest modulus with
   equal launch counts, and a capture that reads the host raises.
 
@@ -34,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from semiclassical_tpu_torch.ops import det, diag_mono, gj
+from semiclassical_tpu_torch import ops
+from semiclassical_tpu_torch.ops import _build, diag_mono
 from semiclassical_tpu_torch.potentials import MorsePotential
 from semiclassical_tpu_torch.propagation import (HermanKlukPropagator,
                                                  WaltonManolopoulosPropagator,
@@ -495,23 +498,45 @@ class StubGraph(graph.SegmentGraph):
         self.replays += 1
 
 
-def test_counters_count_replays(monkeypatch):
-    monkeypatch.setattr(det, "LAUNCHES", 0)
-    monkeypatch.setattr(det, "LAUNCHES_BY_DTYPE",
-                        {"complex128": 0, "complex64": 0})
-    monkeypatch.setattr(gj, "LAUNCHES", {"det_solve": 0, "det_inv": 0})
-    monkeypatch.setattr(gj, "LAUNCHES_BY_DTYPE", {
-        "det_solve": {"complex128": 0, "complex64": 0},
-        "det_inv": {"complex128": 0, "complex64": 0}})
+def _stub_entries(monkeypatch):
+    """Entry points of K1 and K2 at complex64 that record their calls, and
+    a current device and stream for a CUDA device the CPU does not have:
+    `_build.launch` then runs as on the card, the ctypes call aside."""
+    calls = []
+    for kernel in ("det_lu", "gj_det_solve"):
+        monkeypatch.setitem(_build._bound, (kernel, torch.complex64), (
+            lambda *args, kernel=kernel: calls.append(kernel) or 0,
+            (kernel, "complex64")))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("how", ["table", "launch"])
+def test_counters_count_replays(monkeypatch, how):
+    """One step's launches, K1 once and K2 three times, counted once for
+    every run of a block: the eager warm-up and each replay, never a
+    capture. The block bumps the table itself, or launches through
+    `_build.launch` with stubbed entry points (which a capture calls, as
+    it records the launches)."""
+    ops.reset_launch_counts()
+    entries = _stub_entries(monkeypatch) if how == "launch" else None
+    card = torch.device("cuda", 0)
     ran = []
 
     def body():
-        # what one step's wrappers count: K1 once, K2 three times
         ran.append(1)
-        det.LAUNCHES += 1
-        det.LAUNCHES_BY_DTYPE["complex64"] += 1
-        gj.LAUNCHES["det_solve"] += 3
-        gj.LAUNCHES_BY_DTYPE["det_solve"]["complex64"] += 3
+        if how == "table":
+            ops.LAUNCHES["det_lu", "complex64"] += 1
+            ops.LAUNCHES["gj_det_solve", "complex64"] += 3
+            return
+        _build.launch("det_lu", torch.complex64, card, 0, 0, 1, 6, 1)
+        for _ in range(3):
+            _build.launch("gj_det_solve", torch.complex64, card, 0)
+
+    def counts():
+        return {k: sum(n.values()) for k, n in ops.launch_counts().items()}
 
     stats = dict(graph.STATS)
     loop = StubGraph((), (), "cpu", capture=True)
@@ -520,11 +545,11 @@ def test_counters_count_replays(monkeypatch):
         # the warm-up, the capture and its twin's capture ran the body;
         # every call counts once
         assert len(ran) == min(2 * calls - 1, 3)
-        assert det.LAUNCHES == det.LAUNCHES_BY_DTYPE["complex64"] == calls
-        assert gj.LAUNCHES["det_solve"] == 3 * calls
-        assert gj.LAUNCHES_BY_DTYPE["det_solve"]["complex64"] == 3 * calls
-        assert det.LAUNCHES_BY_DTYPE["complex128"] == 0
-        assert gj.LAUNCHES["det_inv"] == 0
+        by_dtype = ops.launch_counts()
+        assert by_dtype["K1"] == {"complex128": 0, "complex64": calls}
+        assert by_dtype["K2"] == {"complex128": 0, "complex64": 3 * calls}
+        assert counts() == {**dict.fromkeys(_build.KERNELS, 0),
+                            "K1": calls, "K2": 3 * calls}
     assert loop.replays == 4
     assert graph.STATS["replays"] - stats["replays"] == 4
     assert graph.STATS["captures"] - stats["captures"] == 1
@@ -534,7 +559,21 @@ def test_counters_count_replays(monkeypatch):
     eager = StubGraph((), (), "cpu", capture=False)
     for _ in range(3):
         eager.run("b", lambda: (body, None))
-    assert len(ran) == 6 and det.LAUNCHES == 8 and eager.replays == 0
+    assert len(ran) == 6 and counts()["K1"] == 8 and eager.replays == 0
+    if how == "launch":
+        # the entry points ran at every run of the body's Python
+        assert entries == ["det_lu", *["gj_det_solve"] * 3] * 6
+        # each label reads a kernel of the entry-point table, at the
+        # types it is built for
+        assert _build.KERNELS == {
+            "K1": "det_lu", "K2": "gj_det_solve", "K3": "gj_det_inv",
+            "K4": "det_lu_block", "K5": "wm_diag", "K6": "diag_mono",
+            "K7": "morse_rk4"}
+        for label, types_ in ops.launch_counts().items():
+            kernel = _build.KERNELS[label]
+            assert kernel in _build._ENTRY_POINTS
+            assert len(types_) == len(_build._ENTRY_POINTS[kernel][1])
+            assert set(types_) <= set(map(_build.dtype_name, _build._SUFFIX))
 
 
 def test_eager_context_and_capture_choice():
@@ -817,6 +856,13 @@ def _card():
         pytest.skip("needs an NVIDIA GPU")
 
 
+def _launches_since(before):
+    """Each kernel's launches by label and dtype since `before`, an
+    `ops.launch_counts()`."""
+    return {k: {t: n - before[k][t] for t, n in by_dtype.items()}
+            for k, by_dtype in ops.launch_counts().items()}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name, integrator, micro", [
     ("HK", "rk4", 0), ("WM", "rk4", 0), ("WM", "rk4", 64),
@@ -832,13 +878,12 @@ def test_graphs_equal_eager_on_the_card(name, integrator, micro):
     for eager in (False, True):
         prop = _propagator(name, pot, q0, G, ntraj=256, device="cuda",
                            integrator=integrator)
-        before, stats = graph.read_launches(), dict(graph.STATS)
+        before, stats = ops.launch_counts(), dict(graph.STATS)
         with graph.eager() if eager else contextlib.nullcontext():
             out = prop.propagate(pot, 2.0, 50, chunk=20, micro_batch=micro,
                                  error_bars=True)
         torch.cuda.synchronize()
-        after = graph.read_launches()
-        runs.append((out, {k: after[k] - before.get(k, 0) for k in after},
+        runs.append((out, _launches_since(before),
                      graph.STATS["replays"] - stats["replays"]))
     (got, launches, replays), (ref, launches_eager, replays_eager) = runs
     for g, r in zip(got, ref):
@@ -846,8 +891,7 @@ def test_graphs_equal_eager_on_the_card(name, integrator, micro):
     assert launches == launches_eager
     assert replays > 0 and replays_eager == 0
     if name == "WM":
-        k5 = ("semiclassical_tpu_torch.ops.wm_diag", "LAUNCHES")
-        assert launches[k5] >= 50
+        assert launches["K5"]["float64"] >= 50
 
 
 @pytest.mark.cuda
@@ -860,18 +904,19 @@ def test_diag_monodromy_graphs_equal_eager_on_the_card(precision):
     both (float64 Z, and float32 under comp32)."""
     _card()
     pot, q0, G = _morse(d=60, device="cuda")
-    k6 = ("semiclassical_tpu_torch.ops.diag_mono", "LAUNCHES")
+
+    def k6():
+        return sum(ops.launch_counts()["K6"].values())
+
     runs = []
     for eager in (False, True):
         prop = _propagator("HK", pot, q0, G, ntraj=1024, device="cuda",
                            precision=precision)
-        before, stats = graph.read_launches(), dict(graph.STATS)
+        before, stats = k6(), dict(graph.STATS)
         with graph.eager() if eager else contextlib.nullcontext():
             out = prop.propagate(pot, 2.0, 50, chunk=20, error_bars=True)
         torch.cuda.synchronize()
-        after = graph.read_launches()
-        runs.append((out, prop.state.Z.cpu(),
-                     after.get(k6, 0) - before.get(k6, 0),
+        runs.append((out, prop.state.Z.cpu(), k6() - before,
                      graph.STATS["replays"] - stats["replays"]))
     (got, Z, launches, replays), (ref, Z_ref, launches_eager, _) = runs
     for g, r in zip(got, ref):
@@ -901,12 +946,11 @@ def test_kept_loop_replays_a_later_batch_on_the_card(name, integrator):
         return prop
 
     def run(prop):
-        before, stats = graph.read_launches(), dict(graph.STATS)
+        before, stats = ops.launch_counts(), dict(graph.STATS)
         out = prop.propagate(pot, 2.0, 50, chunk=20, error_bars=True,
                              check_energy=integrator != "exact")
         torch.cuda.synchronize()
-        after = graph.read_launches()
-        return (out, {k: after[k] - before.get(k, 0) for k in after},
+        return (out, _launches_since(before),
                 {k: graph.STATS[k] - stats[k] for k in stats})
 
     run(batch(1))

@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from semiclassical_tpu_torch.ops import diag_mono, morse_rk4
+from semiclassical_tpu_torch import ops
+from semiclassical_tpu_torch.ops import morse_rk4
 from semiclassical_tpu_torch.potentials import (MorsePotential,
                                                 NonHarmonicPotential)
 from semiclassical_tpu_torch.propagation import eom
@@ -141,10 +142,10 @@ def test_rk4_step_goes_through_the_wrapper(monkeypatch, dtype):
     pot = _potential(6, dtype)
     state = _state(pot, 9, dtype)
     calls = _count_calls(monkeypatch)
-    launches = morse_rk4.LAUNCHES, dict(morse_rk4.LAUNCHES_BY_DTYPE)
+    launches = ops.launch_counts()
     new, energy = eom.rk4_step(state, pot, DT)
     assert len(calls) == 1
-    assert (morse_rk4.LAUNCHES, morse_rk4.LAUNCHES_BY_DTYPE) == launches
+    assert ops.launch_counts() == launches
     q, p, S, pack, w = calls[0]
     assert q is state.q and p is state.p and S is state.S
     assert pack is morse_rk4.pack_of(pot) and w == _weights(dtype)
@@ -205,9 +206,9 @@ def test_wrapper_on_the_cpu_launches_nothing(dtype):
     state = _state(pot, 17, dtype)
     args = (state.q, state.p, state.S, morse_rk4.pack_of(pot),
             _weights(dtype))
-    before = morse_rk4.LAUNCHES, dict(morse_rk4.LAUNCHES_BY_DTYPE)
+    before = ops.launch_counts()
     got = morse_rk4.morse_rk4_step(*args)
-    assert (morse_rk4.LAUNCHES, morse_rk4.LAUNCHES_BY_DTYPE) == before
+    assert ops.launch_counts() == before
     for g, r in zip(got, morse_rk4.morse_rk4_step_plain(*args)):
         assert _same_bits(g, r)
 
@@ -364,6 +365,11 @@ def _card():
     return torch.device("cuda")
 
 
+def _k7():
+    """K7's launches so far, in either type."""
+    return sum(ops.launch_counts()["K7"].values())
+
+
 # S and e1 differ from the plain version only by the order of the mode sums
 _SUM_RTOL = {torch.float64: 1e-14, torch.float32: 1e-5}
 
@@ -374,10 +380,10 @@ def _kernel_check(q, p, S, pack, variant):
     entry."""
     w = _weights(q.dtype)
     assert morse_rk4.layout_of(q, p).variant == variant
-    before = morse_rk4.LAUNCHES
+    before = _k7()
     got = morse_rk4.morse_rk4_step(q, p, S, pack, w)
     torch.cuda.synchronize()
-    assert morse_rk4.LAUNCHES == before + 1
+    assert _k7() == before + 1
     ref = morse_rk4.morse_rk4_step_plain(q, p, S, pack, w)
     for g, r in (got[0], ref[0]), (got[1], ref[1]), (got[4], ref[4]):
         assert g.is_contiguous() and _same_bits(g, r)
@@ -415,11 +421,11 @@ def test_empty_batch_launches_nothing_on_the_card():
     card = _card()
     pot = _potential(60, device=card)
     state = _state(pot, 0, device=card)
-    before = morse_rk4.LAUNCHES
+    before = _k7()
     got = morse_rk4.morse_rk4_step(state.q, state.p, state.S,
                                    morse_rk4.pack_of(pot),
                                    _weights(torch.float64))
-    assert morse_rk4.LAUNCHES == before and got[4].shape == (4, 0, 60)
+    assert _k7() == before and got[4].shape == (4, 0, 60)
 
 
 @pytest.mark.cuda
@@ -435,10 +441,10 @@ def test_wrapper_raises_on_the_card(case):
         q = torch.zeros(16, 8, dtype=q.dtype, device=card)[:, :6]
     elif case == "cpu pack":
         pack = pack.cpu()
-    before = morse_rk4.LAUNCHES
+    before = _k7()
     with pytest.raises(ValueError):
         morse_rk4.morse_rk4_step(q, p, S, pack, _weights(torch.float64))
-    assert morse_rk4.LAUNCHES == before
+    assert _k7() == before
 
 
 @pytest.mark.cuda
@@ -454,18 +460,16 @@ def test_graphs_equal_eager_on_the_card(name):
     from semiclassical_tpu_torch.propagation import graph
 
     pot, q0, G = _morse(d=60, device="cuda")
-    k7 = ("semiclassical_tpu_torch.ops.morse_rk4", "LAUNCHES")
     runs = []
     for eager in (False, True):
         prop = _propagator(name, pot, q0, G, ntraj=1024, device="cuda")
-        before, stats = graph.read_launches(), dict(graph.STATS)
+        before, stats = _k7(), dict(graph.STATS)
         with graph.eager() if eager else contextlib.nullcontext():
             out = prop.propagate(pot, 2.0, 50, chunk=20)
         torch.cuda.synchronize()
-        after = graph.read_launches()
         runs.append((out, [getattr(prop.state, k).cpu()
                            for k in ("q", "p", "S", "Z")],
-                     after.get(k7, 0) - before.get(k7, 0),
+                     _k7() - before,
                      graph.STATS["replays"] - stats["replays"]))
     (got, fields, launches, replays), (ref, fields_ref, launches_eager,
                                        _) = runs
@@ -475,4 +479,4 @@ def test_graphs_equal_eager_on_the_card(name):
         assert torch.equal(g, r)
     assert launches == launches_eager == 50
     assert replays > 0
-    assert diag_mono.LAUNCHES > 0
+    assert sum(ops.launch_counts()["K6"].values()) > 0
