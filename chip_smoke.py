@@ -120,6 +120,21 @@ K2 (10^4, 6, 6 | 12) and coumarin's leaves, K3 (10^4, 12, 12), (2048, 45,
              outputs allocated once), beside the byte bound (8 planes and
              3 numbers a row) and the share of it; the HK and WM AS
              phases check K7's launches >= steps;
+4f. K8     — ptxas' registers and spills of its instantiations (the
+             script fails if one spills); the separable step's observe against the PyTorch chain it
+             replaces (`hk.hk_observe`; for WM `hk_prefactor_det` and
+             `SignTracker`) on the same rows of AS model batches moved 50
+             steps, at (98304, 60) and at the four-card cell's (32768,
+             60): HK mode (the prefactor, its tracker, C(t), k~ic(t) and
+             their moments, error bars off, on and "pairs") and WM mode
+             (the prefactor, its tracker and c): C^2 and c within 1e-14 of
+             their largest modulus, the signs equal, the sums within 1e-14
+             and the moments 2e-14, one launch a call; times of its C
+             entry point called directly (the outputs allocated once),
+             the wrapper and the chain in turns, beside the byte
+             bound (HK: 6 planes and 11 numbers a row, WM: 4 and 8) and
+             the share of it; the HK and WM AS phases check K8's launches
+             >= steps, the methylium and coumarin phases 0;
 5. HK methylium — examples/methylium_AH at its own size (50,000
              trajectories x 2000 steps, batches of 10,000) through the
              port's `cli.main(["dynamics", ...])` and
@@ -487,6 +502,23 @@ K7_CASES = [
     (1, 60, "float64", "whole", 0.0, 1e-14),
     (1, 60, "float32", "whole", 0.0, 1e-5),
 ]
+
+# K8's planes of (n, d) and numbers a row, by mode (HK: q, p and the four
+# monodromy planes read; S, obs_re, obs_im, nacq (2) read, the tracker's
+# C^2 (2) and sign read and written. WM: the four planes; the tracker read
+# and written, c (2) written), and its operations per (trajectory, mode),
+# counted from csrc/observe.cu (the mode term 8, its product 6, HK's six
+# mode sums 22)
+K8_PLANES = {"HK": 6, "WM": 4}
+K8_ROW_NUMBERS = {"HK": 11, "WM": 8}
+K8_FLOPS = {"HK": 36, "WM": 14}
+# (n, mode) of the K8 phase: the AS cells' batch and the four-card cell's
+# rows a card
+K8_SHAPES = [(98304, "HK"), (32768, "HK"), (98304, "WM"), (32768, "WM")]
+# K8 against the PyTorch chain: C^2 and c relative to their largest
+# modulus, the sums relative to their modulus (the moments twice that: a
+# square doubles a term's relative error)
+K8_RTOL = 1e-14
 
 # (n, r, dtype name, limit kernel-vs-plain, limit vs the c128 oracle)
 K1_CASES = [
@@ -2527,6 +2559,131 @@ def k7_direct_row(morse_rk4, dname, q, p, S, pack, w):
           f"at {100 * b_ms / dms:.1f}% of it", flush=True)
 
 
+def k8_inputs(cli, model, mode, n, steps=50):
+    """K8's arguments on an AS model batch of n drawn at SEED and moved
+    `steps` steps by the time loop, and the PyTorch chain K8 replaces on
+    them, returning what the wrapper returns: HK (q, p, Z, S, obs_re,
+    obs_im, nacq, previous, signs, diag_k, consts) and `chain(m2_mode)`
+    (`hk.hk_observe`); WM (Z, previous, signs, diag_k) and `chain()`
+    (`hk_prefactor_det`, `SignTracker.update` and `.sqrt()`)."""
+    import torch
+
+    from semiclassical_tpu_torch import units
+    from semiclassical_tpu_torch.propagation import (
+        HermanKlukPropagator, WaltonManolopoulosPropagator, hk)
+
+    task = {"potential": {"type": "anharmonic AS", "model_file": model}}
+    potential, q0, p0, G0, *_ = cli._build_potential(task, "cuda")
+    prop = (HermanKlukPropagator(G0, G0, "cuda") if mode == "HK" else
+            WaltonManolopoulosPropagator(G0, G0, 1e4, 1e4, "cuda"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 9)
+    prop.initial_conditions(q0, p0, G0, potential, ntraj=n, generator=g)
+    prop.propagate(potential, 0.005 / units.autime_to_fs, steps,
+                   check_energy=False)
+    params, st, bc = prop._loop_params(potential), prop.state, prop.bc
+    if mode == "WM":
+        params, tr = params.hk, prop.tracker.prefactorC
+
+        def chain():
+            ref = tr.update(hk.hk_prefactor_det(params, st))
+            return ref.previous, ref.signs, ref.sqrt()
+        return (st.Z, tr.previous, tr.signs, params.diag_k), chain
+    tr = prop.tracker
+
+    def chain(m2_mode):
+        ref, *sums = hk.hk_observe(params, st, tr, potential, bc, m2_mode)
+        return (ref.previous, ref.signs, *sums)
+    return (st.q, st.p, st.Z, st.S, bc.obs_re, bc.obs_im, bc.nacq,
+            tr.previous, tr.signs, params.diag_k,
+            hk._k8_consts(params, st)), chain
+
+
+def k8_phase(cli, observe, model):
+    """K8 against the PyTorch chain it replaces at K8_SHAPES (HK with
+    error bars off, on and "pairs"; WM), its C entry point called
+    directly, the wrapper and the chain timed in turns beside the byte
+    bound, and ptxas' report of its instantiations."""
+    import torch
+
+    from semiclassical_tpu_torch.ops import _build
+
+    for line in kernel_ptxas(_build.build_log(), "observe_kernel", "K8"):
+        print(f"K8 ptxas: {line}", flush=True)
+
+    def rel(got, ref):
+        got, ref = (torch.view_as_real(x) if x.is_complex() else x
+                    for x in (got, ref))
+        return float((got - ref).abs().max() / ref.abs().max())
+
+    out = {}
+    for n, mode in K8_SHAPES:
+        args, chain = k8_inputs(cli, model, mode, n)
+        main = (n, mode) == (98304, "HK")
+        for m2 in ((False, True, "pairs") if mode == "HK" else (None,)):
+            kernel = observe.observe if mode == "HK" else observe.prefactor
+            extra = (m2,) if mode == "HK" else ()
+            before = read_counts()["K8"]
+            got = kernel(*args, *extra)
+            torch.cuda.synchronize()
+            launches = read_counts()["K8"] - before
+            ref = chain(*extra)
+            flips = int((ref[1] != args[-3 if mode == "HK" else 2]).sum())
+            # (error, limit) of each output against the chain
+            errs = {"C^2": (rel(got[0], ref[0]), K8_RTOL)}
+            if mode == "WM":
+                errs["c"] = (rel(got[2], ref[2]), K8_RTOL)
+            else:
+                errs.update(C=(rel(got[2], ref[2]), K8_RTOL),
+                            k=(rel(got[3], ref[3]), K8_RTOL))
+                if m2:
+                    errs.update(m2C=(rel(got[4], ref[4]), 2 * K8_RTOL),
+                                m2k=(rel(got[5], ref[5]), 2 * K8_RTOL))
+            same = torch.equal(got[1], ref[1])
+            print(f"K8 {mode} ({n}, 60) m2_mode {m2}: "
+                  + ", ".join(f"{k} {e:.2e} (limit {lim:g})"
+                              for k, (e, lim) in errs.items())
+                  + f", signs equal {same} ({flips} rows flipped this "
+                  f"step), {launches} launch", flush=True)
+            check(same and all(e <= lim for e, lim in errs.values()),
+                  f"K8 {mode} ({n}, 60) m2_mode {m2} vs the chain: {errs}, "
+                  f"signs equal {same}")
+            check(launches == 1, f"K8 launched {launches} times for a call")
+            if main and m2 is True:
+                out["max_abs_err"] = max(
+                    float((torch.view_as_real(got[i])
+                           - torch.view_as_real(ref[i])).abs().max())
+                    for i in (0, 2, 3))
+        if mode == "HK":
+            z_args = (args[2], args[7], args[8], args[9])
+            hk_args = (*args[:2], *args[3:7], args[10], True)
+            wrapper = lambda: observe.observe(*args, True)
+            plain = lambda: chain(True)
+        else:
+            z_args, hk_args = args, None
+            wrapper = lambda: observe.prefactor(*args)
+            plain = chain
+        entry, keep = observe.entry_args(*z_args, hk_args)
+        fn = _build.load().semi_observe_f64
+        stream = torch.cuda.current_stream().cuda_stream
+        check(fn(*entry, stream) == 0, "K8 entry point refused its layout")
+        timed = in_turns(lambda: fn(*entry, stream), plain, None,
+                         others={"wrapper": wrapper},
+                         plain_windows=(3, 5))
+        b = bound((K8_PLANES[mode] * n * 60 + K8_ROW_NUMBERS[mode] * n) * 8,
+                  K8_FLOPS[mode] * n * 60)
+        print(timing_line(f"K8 {mode} direct", f"({n}, 60)", timed, *b,
+                          "none")
+              + f"; the wrapper {timed['wrapper_ms']:.4f} ms a call (its "
+              f"host checks)", flush=True)
+        if main:
+            out.update(ms=timed["ms"], plain_ms=timed["plain_ms"],
+                       library_ms=None, bound_ms=b[0], bound_by=b[1])
+        del args, chain, entry, keep
+        torch.cuda.empty_cache()
+    return out
+
+
 def coumarin_task(file):
     """examples/coumarin_gdml/`file` with its paths made absolute."""
     with open(COUMARIN / file) as f:
@@ -3688,10 +3845,11 @@ def main():
     from semiclassical_tpu_torch import cli
     from semiclassical_tpu_torch.ops import (_build, det, det_block,
                                              diag_mono, gj, morse_rk4,
-                                             wm_diag)
+                                             observe, wm_diag)
 
     ops = {"det": det, "det_block": det_block, "gj": gj, "wm_diag": wm_diag,
-           "diag_mono": diag_mono, "morse_rk4": morse_rk4}
+           "diag_mono": diag_mono, "morse_rk4": morse_rk4,
+           "observe": observe}
     t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3735,6 +3893,7 @@ def main():
         k5 = phase("K5", k5_phase, cli, wm_diag, model)
         k6 = phase("K6", k6_phase, cli, diag_mono, model)
         k7 = phase("K7", k7_phase, cli, morse_rk4, model)
+        k8 = phase("K8", k8_phase, cli, observe, model)
         hk, hk_launches = phase("HK methylium", methylium_run, cli, ops, smi,
                                 "HK")
         phase("HK methylium group", group_methylium_phase, cli, ops, smi, hk,
@@ -3757,9 +3916,11 @@ def main():
         hk_as, hk_as_launches = phase("HK AS", as_run, cli, ops, smi, model,
                                       "HK", "semi.json")
         steps = hk_as["nsteps"] * hk_as["nrep"]
-        check(hk_as_launches["K6"] >= steps and hk_as_launches["K7"] >= steps,
+        check(hk_as_launches["K6"] >= steps and hk_as_launches["K7"] >= steps
+              and hk_as_launches["K8"] >= steps,
               f"HK AS: K6 launched {hk_as_launches['K6']} times, K7 "
-              f"{hk_as_launches['K7']} times for {steps} steps")
+              f"{hk_as_launches['K7']} times, K8 {hk_as_launches['K8']} "
+              f"times for {steps} steps")
         phase("HK AS error bars", error_bars_identity, cli, ops, model)
         wm_as, wm_as_launches = phase("WM AS", as_run, cli, ops, smi, model,
                                       "WM", "semi_wm.json")
@@ -3799,10 +3960,10 @@ def main():
     wm_vs_hk("AS", wm_as, hk_as, WM_HK_GATE_AS)
     steps = wm_as["nsteps"] * wm_as["nrep"]
     check(wm_as_launches["K5"] >= steps and wm_as_launches["K6"] >= steps
-          and wm_as_launches["K7"] >= steps,
+          and wm_as_launches["K7"] >= steps and wm_as_launches["K8"] >= steps,
           f"WM AS: K5 launched {wm_as_launches['K5']} times, K6 "
-          f"{wm_as_launches['K6']} times, K7 {wm_as_launches['K7']} times "
-          f"for {steps} steps")
+          f"{wm_as_launches['K6']} times, K7 {wm_as_launches['K7']} times, "
+          f"K8 {wm_as_launches['K8']} times for {steps} steps")
     gap = phase("coumarin reference", reference_phase, cli)
     hk_c, hk_c_launches = phase("HK coumarin", coumarin_run, cli, ops, smi,
                                 "HK", "semi.json")
@@ -3813,6 +3974,13 @@ def main():
           "semi.json", hk_c)
     phase("WM coumarin mixed", coumarin_mixed_phase, cli, ops, smi, "WM",
           "semi_wm.json", wm_c)
+    # K8 takes the separable observe only: none on a dense prefactor
+    for label, counts in (("HK methylium", hk_launches),
+                          ("WM methylium", wm_launches),
+                          ("HK coumarin", hk_c_launches),
+                          ("WM coumarin", wm_c_launches)):
+        check(counts["K8"] == 0,
+              f"{label}: K8 launched {counts['K8']} times")
     steps = wm_c["nsteps"] * wm_c["nrep"]
     check(wm_c_launches["K2"] >= 3 * steps,
           f"WM coumarin: K2 launched {wm_c_launches['K2']} times for "
@@ -3857,6 +4025,10 @@ def main():
         entry("morse_rk4_step", "morse_rk4.cu",
               "propagation/eom.py:rk4_step (XLA-fused Morse stages)",
               hk_as_launches["K7"], k7),
+        entry("observe", "observe.cu",
+              "propagation/hk.py:hk_prefactor_det, hk_observables_qp "
+              "(XLA-fused separable observe)",
+              hk_as_launches["K8"], k8),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,10 @@ the build that compiles `csrc/` at first use.
   morse_rk4 K7: the RK4 trajectory step of a separable Morse PES, the four
          stages in registers, writing the stage Hessian diagonals K6 reads
          (csrc/morse_rk4.cu)
+  observe K8: the separable step's observe — the diagonal prefactor, its
+         sign tracker, C(t), k~ic(t) and their moments in one pass over
+         the rows (HK), or the prefactor and its tracker alone (WM)
+         (csrc/observe.cu)
   _build nvcc -> build/kernels/*.so, bound with ctypes; the one launch
          path: every launch, its CUDA error check and its count in one
          table, read by label with `launch_counts()` and emptied with

@@ -18,7 +18,7 @@ the device context is entered only for a tensor that is not on the
 current device, a non-zero CUDA error raises, and the launch is counted in
 the one table `LAUNCHES`, so that a call costs the host one lookup and
 one increment beside the ctypes call. `launch_counts()` reads the table by
-each kernel's label (K1..K7, beside its entry points in `_ENTRY_POINTS`)
+each kernel's label (K1..K8, beside its entry points in `_ENTRY_POINTS`)
 and `reset_launch_counts()` empties it; the time loop's graphs credit
 their replays to it (`propagation.graph`). The wrappers also share the
 device rule (`route`) and the layout helpers here, so that no kernel
@@ -76,6 +76,13 @@ _ENTRY_POINTS = {
     # the weights dt/2, dt, dt/6, vec, blocks, stream
     "morse_rk4": ("K7", ("f64", "f32"), (*(_P,) * 9, _N, _I, *(_D,) * 3, _I,
                                          _I, _P)),
+    # csrc/observe.cu: q, p, z, S, obs_re, obs_im, nacq, previous, signs,
+    # diag_k, diag_w, R, shift, q0, p0, n1, fac_t, fac_i, the new previous
+    # and signs, c, partial, counter, out, n, d, the row strides of q and
+    # p, Z's plane and row strides, hk, moments, vec, rows_per_warp,
+    # blocks, stream
+    "observe": ("K8", ("f64",), (*(_P,) * 24, _N, _I, *(_N,) * 4,
+                                 *(_I,) * 5, _P)),
     # csrc/stamp.cu (the time loop's section clock): slots, section, last,
     # stream
     "stamp": (None, ("i64",), (_P, _I, _I, _P)),
@@ -206,7 +213,7 @@ def launch(kernel, dtype, device, *args):
 
 
 def launch_counts():
-    """{label: {dtype name: launches}} of K1..K7 since the last
+    """{label: {dtype name: launches}} of K1..K8 since the last
     `reset_launch_counts`, each with every type it is built for."""
     return {label: {_TYPE_NAMES[t]: LAUNCHES[kernel, _TYPE_NAMES[t]]
                     for t in _ENTRY_POINTS[kernel][1]}

@@ -89,6 +89,11 @@ class NonHarmonicPotential:
     def derivative_coupling_2nd(self, q):
         return torch.zeros_like(q)
 
+    def constant_coupling(self):
+        """tau1 (d,): the first-order coupling, the same at every q, with
+        tau2 = 0 (what the separable observe reads, `ops.observe`)."""
+        return torch.ones_like(self.eps)
+
 
 @dataclass(frozen=True)
 class MorsePotential:
@@ -185,3 +190,8 @@ class MorsePotential:
 
     def derivative_coupling_2nd(self, q):
         return torch.zeros_like(q)
+
+    def constant_coupling(self):
+        """tau1 (d,): the first-order coupling, the same at every q, with
+        tau2 = 0 (what the separable observe reads, `ops.observe`)."""
+        return self.nac

@@ -75,6 +75,7 @@ from semiclassical_tpu_torch.coherent import (OverlapParams,
                                               overlap_exponent_vector,
                                               overlap_matrix, overlap_vector,
                                               wavefunction_log)
+from semiclassical_tpu_torch.ops import observe as _observe_ops
 from semiclassical_tpu_torch.potentials.base import (ConstHessian,
                                                      DenseHessian,
                                                      DiagHessian)
@@ -110,6 +111,7 @@ __all__ = [
     "hk_batch_constants",
     "hk_observables",
     "hk_observables_qp",
+    "hk_observe",
     "second_moment",
     "hk_coefficients",
     "hk_log_coefficients",
@@ -165,6 +167,9 @@ class HKParams:
     diag_k: torch.Tensor | None = None
     R_diag: torch.Tensor | None = None      # (d,) diagonal of R, if diagonal
     shift_diag: torch.Tensor | None = None  # (d,) diagonal of shift, ditto
+    # the time loop's pack (`_loop_params`): n1 = -hbar^2 tau1/m (d,) of a
+    # potential with constant couplings (`constant_nac`), which K8 reads
+    nac_n1: torch.Tensor | None = None
     # the norm and the grid wavefunction
     csott: OverlapParams | None = None      # <.,Gt | .,Gt>
     wf: WavefunctionParams | None = None    # Gamma_t
@@ -515,6 +520,66 @@ def _moments(cauto_qp, kic_qp, m2_mode):
     if not m2_mode:
         return None, None
     return second_moment(cauto_qp, m2_mode), second_moment(kic_qp, m2_mode)
+
+
+def hk_observe(params: HKParams, state: TrajState, tracker: SignTracker,
+               potential, bc: BatchConstants, m2_mode=False):
+    """One step's observables in PyTorch passes: the tracker advanced to
+    `state`'s prefactor, the (C_auto, k~ic) batch sums as 0-d tensors and
+    their second moments (None unless `m2_mode`), each section marked.
+    `HermanKlukPropagator._observe` runs it wherever K8 does not take the
+    step; on the card K8 is held against it."""
+    tracker = tracker.update(hk_prefactor_det(params, state))
+    profiling.section("prefactor")
+    cauto_qp, kic_qp = hk_observables_qp(params, bc, state, tracker.sqrt(),
+                                         potential)
+    out = (tracker, torch.sum(cauto_qp), torch.sum(kic_qp),
+           *_moments(cauto_qp, kic_qp, m2_mode))
+    profiling.section("observables")
+    return out
+
+
+def constant_nac(potential, dtype):
+    """n1 = -hbar^2 tau1/m (d,) at `dtype`, as `_nac_factor` forms it, of a
+    potential whose couplings are constant (its `constant_coupling()`:
+    tau1, with tau2 = 0); None for any other potential (the sGDML and
+    molecular ones). The time loop's pack holds it (`nac_n1`) for K8."""
+    coupling = getattr(potential, "constant_coupling", None)
+    if coupling is None:
+        return None
+    return (-(hbar**2) * coupling() * (1.0 / potential.masses())).to(dtype)
+
+
+def _k8_prefactor_engages(params: HKParams, state: TrajState):
+    """True where K8 takes the diagonal prefactor and its tracker
+    (`ops.observe.prefactor`), for tensors on the card: the separable
+    factors at full rank (`diag_k`), the diagonal monodromy at float64 (no
+    comp32 residuals), at most `ops.observe.MAX_D` modes. Every other path
+    (dense widths and factors, the dense monodromy, the reduced-precision
+    modes, and every path on the CPU) runs `hk_prefactor_det` and
+    `SignTracker`."""
+    return (params.diag_k is not None and state.diag_monodromy
+            and not state.compensated and state.dim <= _observe_ops.MAX_D
+            and params.dtype == state.Z.dtype == torch.float64)
+
+
+def _k8_consts(params: HKParams, state: TrajState):
+    """The HK observe's constants for K8 (`ops.observe.HkConsts`, the
+    buffers of `params`, the time loop's pack), or None where K8 does not
+    take the whole observe: beyond `_k8_prefactor_engages`, diagonal
+    overlap weights, R and shift, the state and the centre at float64,
+    and the constant NAC vector `nac_n1` (a pack whose potential has
+    constant couplings, `constant_nac`)."""
+    if not (_k8_prefactor_engages(params, state)
+            and params.nac_n1 is not None
+            and params.csot0.diag_w is not None
+            and params.R_diag is not None and params.shift_diag is not None
+            and state.q.dtype == state.p.dtype == state.S.dtype
+            == params.q0.dtype == torch.float64):
+        return None
+    return _observe_ops.HkConsts(
+        params.csot0.diag_w, params.R_diag, params.shift_diag, params.q0,
+        params.p0, params.nac_n1, params.csot0.fac, params.csoi0.fac)
 
 
 def hk_coefficients(params: HKParams, bc: BatchConstants, state: TrajState,
@@ -1042,27 +1107,35 @@ class HermanKlukPropagator:
         the host after the loop."""
         return _only(bc, ("obs_re", "obs_im", "nacq"))
 
-    def _loop_params(self):
+    def _loop_params(self, potential):
         """The parameter pack as the time loop's blocks read it: the
         overlap prefactors `fac` as 0-d device tensors, so that a pack of
         another Gamma_0 loads into a kept loop instead of being baked into
-        its graphs."""
-        return _device_facs(self.params)
+        its graphs, and `potential`'s constant NAC vector `nac_n1` (None
+        where its couplings vary)."""
+        return dataclasses.replace(
+            _device_facs(self.params),
+            nac_n1=constant_nac(potential, self.params.dtype))
 
     @staticmethod
     def _observe(params, state, tracker, potential, bc, m2_mode=False):
         """One step's observables: the tracker advanced to `state`, the
         (C_auto, k~ic) batch sums as 0-d device tensors, and their second
         moments (`second_moment`; None unless `m2_mode`). Reads nothing of
-        a propagator: a kept loop's blocks run it for every batch."""
-        tracker = tracker.update(hk_prefactor_det(params, state))
+        a propagator: a kept loop's blocks run it for every batch. On the
+        card, on the separable path with constant couplings (`_k8_consts`),
+        all of it is one K8 launch (`ops.observe.observe`), in the section
+        "observables"; elsewhere `hk_observe`."""
+        consts = _k8_consts(params, state) if state.Z.is_cuda else None
+        if consts is None:
+            return hk_observe(params, state, tracker, potential, bc, m2_mode)
         profiling.section("prefactor")
-        cauto_qp, kic_qp = hk_observables_qp(params, bc, state,
-                                             tracker.sqrt(), potential)
-        out = (tracker, torch.sum(cauto_qp), torch.sum(kic_qp),
-               *_moments(cauto_qp, kic_qp, m2_mode))
+        previous, signs, c, k, m2c, m2k = _observe_ops.observe(
+            state.q, state.p, state.Z, state.S, bc.obs_re, bc.obs_im,
+            bc.nacq, tracker.previous, tracker.signs, params.diag_k, consts,
+            m2_mode)
         profiling.section("observables")
-        return out
+        return SignTracker(previous, signs), c, k, m2c, m2k
 
     def _micro_k(self, m2_mode):
         """The number of sub-batches of the time loop: rows / micro_batch
@@ -1209,7 +1282,7 @@ class HermanKlukPropagator:
                 None if self._window(potential) > 1 else carry)
         bc = self._loop_constants(self.bc)
         m = self.n_local // k
-        inputs = (self._loop_params(),
+        inputs = (self._loop_params(potential),
                   bc if k == 1 else _batch_rows(bc, 0, m), pack)
         static = (*(head if k == 1 else _tree_rows(head, 0, m)), *inputs)
         key = (potential, type(self), self.integrator, self.dtype,

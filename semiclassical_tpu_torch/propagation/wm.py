@@ -58,11 +58,14 @@ import numpy as np
 import torch
 
 from semiclassical_tpu_torch import linalg, profiling
+from semiclassical_tpu_torch.ops import observe as _observe_ops
 from semiclassical_tpu_torch.ops import wm_diag as _wm_diag_ops
 from semiclassical_tpu_torch.propagation.hk import (BatchConstants, HKParams,
                                                     HermanKlukPropagator,
                                                     _device_facs,
-                                                    _divisor_block, _moments,
+                                                    _divisor_block,
+                                                    _k8_prefactor_engages,
+                                                    _moments,
                                                     _no_sampled_ring, _only,
                                                     _pair_sum, _sqrt_norm,
                                                     hk_batch_constants,
@@ -977,22 +980,32 @@ class WaltonManolopoulosPropagator(HermanKlukPropagator):
         return dataclasses.replace(
             bc, base=_only(bc.base, ("qi", "pi", "logw_norm")))
 
-    def _loop_params(self):
+    def _loop_params(self, potential):
+        """The parameter pack as the time loop's blocks read it (see
+        `HermanKlukPropagator._loop_params`; WM's observables read no
+        constant NAC vector)."""
         return dataclasses.replace(self.params,
                                    hk=_device_facs(self.params.hk))
 
     @staticmethod
     def _observe(params, state, tracker, potential, bc, m2_mode=False):
-        prefactorC = tracker.prefactorC.update(
-            hk_prefactor_det(params.hk, state))
+        if state.Z.is_cuda and _k8_prefactor_engages(params.hk, state):
+            # the prefactor and its tracker in one K8 launch
+            previous, signs, c_signed = _observe_ops.prefactor(
+                state.Z, tracker.prefactorC.previous,
+                tracker.prefactorC.signs, params.hk.diag_k)
+            prefactorC = SignTracker(previous, signs)
+        else:
+            prefactorC = tracker.prefactorC.update(
+                hk_prefactor_det(params.hk, state))
+            c_signed = prefactorC.sqrt()
         profiling.section("prefactor")
         sd = wm_scan_derived(params, bc, state, potential)
         detA = tracker.detA.update(sd.detA)
         detM = tracker.detM.update(sd.detM)
         profiling.section("wm_derived")
         cauto_qp, kic_qp = wm_scan_observables_qp(
-            params, bc, state, sd, prefactorC.sqrt(), detA.signs,
-            detM.signs)
+            params, bc, state, sd, c_signed, detA.signs, detM.signs)
         out = (WMTrackers(prefactorC, detA, detM), torch.sum(cauto_qp),
                torch.sum(kic_qp), *_moments(cauto_qp, kic_qp, m2_mode))
         profiling.section("observables")

@@ -34,7 +34,16 @@ plain version at 1e-14 in float64 and 1e-5 in float32 of the planes'
 largest entry (it rounds each operation as the plain version does, so the
 two should agree bit for bit), in both variants of its layout rule, on a
 sub-batch's plane-strided view, with aliased and broadcast stage
-diagonals; its wrapper raises on what it does not take.
+diagonals; its wrapper raises on what it does not take. K8
+(`ops.observe.observe` / `prefactor`, csrc/observe.cu, the separable
+step's observe) is held against the PyTorch chain it replaces
+(`hk.hk_observe`; for WM's prefactor `hk_prefactor_det`, `SignTracker`)
+on the same rows of a 60-mode Morse batch moved 20 steps: C^2 and c
+within 1e-14 of their largest modulus, the signs equal, the sums within
+1e-14 (the moments 2e-14), in both variants of its layout rule, on
+sub-batch views, on planes one number off 16 bytes, at odd d and at
+batches that fill no whole block; two launches agree bit for bit, and the
+time loop's graphs equal its eager runs bit for bit.
 """
 
 import numpy as np
@@ -528,6 +537,205 @@ def test_inv_kernel_at_pair_blocks(card, bi, bj, r):
     assert float(((det.reshape(-1) - det_p).abs() / det_p.abs()).max()) \
         <= 1e-12
     assert _rel(inv.reshape(-1, r, r), inv_p) <= 1e-12
+
+
+def _k8_inputs(card, name, n, d, case, steps=20):
+    """K8's arguments on the card and the PyTorch chain's results on the
+    same rows: a Morse model of d modes, a batch moved `steps` steps
+    through the time loop, and then `case`: "whole" the batch's n rows;
+    "view" rows 8192:8192 + n of a 98,304-row batch, "view odd" rows 1:1 +
+    n; "misaligned" the planes copied one number past a 16-byte boundary.
+    HK: (q, p, Z, S, obs_re, obs_im, nacq, previous, signs, diag_k,
+    consts) and `chain(m2_mode)`, `hk.hk_observe` as the wrapper returns
+    it (C^2, signs, the sums, the moments); WM: (Z, previous, signs,
+    diag_k) and `chain()`, `hk_prefactor_det`, `SignTracker.update` and
+    `.sqrt()` (C^2, signs, c)."""
+    from test_torch_port_graph import _morse, _propagator
+
+    from semiclassical_tpu_torch.propagation import hk
+
+    rows = 98304 if case.startswith("view") else n
+    pot, q0, G = _morse(d=d, device=card)
+    prop = _propagator(name, pot, q0, G, ntraj=rows, device=card)
+    prop.propagate(pot, 2.0, steps, check_energy=False)
+    params = prop._loop_params(pot)
+    params = params if name == "HK" else params.hk
+    a = {"view": 8192, "view odd": 1}.get(case, 0)
+    st = hk._batch_rows(prop.state, a, a + n)
+    tr = hk._batch_rows(prop.tracker if name == "HK"
+                        else prop.tracker.prefactorC, a, a + n)
+    bc = hk._batch_rows(prop.bc, a, a + n) if name == "HK" else None
+    planes = [st.Z, st.q, st.p]
+    if case == "misaligned":
+        def off(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=card)
+            y = buf[1:].view(x.shape)
+            y.copy_(x)
+            return y
+        planes = [off(x) for x in planes]
+    Z, q, p = planes
+    if name == "WM":
+        def chain():
+            ref = tr.update(hk.hk_prefactor_det(params, st))
+            return ref.previous, ref.signs, ref.sqrt()
+        return (Z, tr.previous, tr.signs, params.diag_k), chain
+
+    def chain(m2_mode):
+        ref, *sums = hk.hk_observe(params, st, tr, pot, bc, m2_mode)
+        return (ref.previous, ref.signs, *sums)
+    return (q, p, Z, st.S, bc.obs_re, bc.obs_im, bc.nacq, tr.previous,
+            tr.signs, params.diag_k, hk._k8_consts(params, st)), chain
+
+
+# K8 against the chain: C^2 (the tracker's new value) within 1e-14 of its
+# largest modulus (K8 multiplies the mode terms where the chain sums their
+# logs and angles), the signs equal, the sums within 1e-14 of their
+# modulus (the batch sums run in another order too), the moments within
+# twice that (a square doubles the relative error of a row's term, which
+# is the whole sum in a batch of one row)
+_K8_RTOL = 1e-14
+
+
+def _k8_rel(got, ref):
+    got, ref = (torch.view_as_real(x) if x.is_complex() else x
+                for x in (got, ref))
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+K8_CASES = [(98304, 60, "whole", "vector"), (8192, 60, "view", "vector"),
+            (1000, 61, "view odd", "scalar"), (1001, 61, "whole", "scalar"),
+            (1001, 60, "misaligned", "scalar"), (1, 60, "whole", "vector"),
+            (130, 130, "whole", "vector")]
+
+
+@pytest.mark.parametrize("m2_mode", [False, True, "pairs"], ids=str)
+@pytest.mark.parametrize("n, d, case, variant", K8_CASES,
+                         ids=[f"{c[0]}x{c[1]}-{c[2]}" for c in K8_CASES])
+def test_observe_kernel_matches_plain(card, n, d, case, variant, m2_mode):
+    """K8's HK observe against the PyTorch chain it replaces
+    (`hk.hk_observe`) at the AS model's shape, on a sub-batch's rows of a
+    larger batch (at an odd row of an odd d: the scalar variant), at odd
+    d, with rows that fill no whole block (1001, 1, 130), on planes one
+    number off 16 bytes, and at d = 130 (two passes of a warp over a row):
+    one launch a call."""
+    from semiclassical_tpu_torch.ops import observe as ob
+
+    if m2_mode == "pairs" and n % 2:
+        n -= 1 if n > 1 else -1
+    args, chain = _k8_inputs(card, "HK", n, d, case)
+    assert ob.layout_of(args[2], args[0], args[1]).variant == variant
+    before = _launches("K8")
+    got = ob.observe(*args, m2_mode)
+    torch.cuda.synchronize()
+    assert _launches("K8") == before + 1
+    ref = chain(m2_mode)
+    assert torch.equal(got[1], ref[1])
+    assert _k8_rel(got[0], ref[0]) <= _K8_RTOL
+    for i in (2, 3, 4, 5):
+        if ref[i] is None:
+            assert got[i] is None
+        else:
+            assert _k8_rel(got[i], ref[i]) <= _K8_RTOL * (1 + (i > 3))
+
+
+@pytest.mark.parametrize("n, d, case, variant", K8_CASES,
+                         ids=[f"{c[0]}x{c[1]}-{c[2]}" for c in K8_CASES])
+def test_prefactor_kernel_matches_plain(card, n, d, case, variant):
+    """K8's WM prefactor and tracker against the chain it replaces on the
+    same cases: C^2 and c within 1e-14 of their largest modulus, the signs
+    equal."""
+    from semiclassical_tpu_torch.ops import observe as ob
+
+    args, chain = _k8_inputs(card, "WM", n, d, case)
+    assert ob.layout_of(args[0]).variant == variant
+    before = _launches("K8")
+    got = ob.prefactor(*args)
+    torch.cuda.synchronize()
+    assert _launches("K8") == before + 1
+    ref = chain()
+    assert torch.equal(got[1], ref[1])
+    assert _k8_rel(got[0], ref[0]) <= _K8_RTOL
+    assert _k8_rel(got[2], ref[2]) <= _K8_RTOL
+
+
+def test_observe_kernel_twice_gives_the_same_sums(card):
+    """Two launches on the same inputs give the same bits: the blocks'
+    counter is back at 0 after each, and the last block's sum of the
+    partials runs in a fixed order."""
+    from semiclassical_tpu_torch.ops import observe as ob
+
+    args, _ = _k8_inputs(card, "HK", 98304, 60, "whole", steps=5)
+    first = ob.observe(*args, True)
+    second = ob.observe(*args, True)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_observe_empty_batch_launches_nothing(card):
+    from semiclassical_tpu_torch.ops import observe as ob
+
+    args, _ = _k8_inputs(card, "HK", 2, 6, "whole", steps=0)
+    args = tuple(x[:, :0] if i == 2 else x[:0] if i < 9 else x
+                 for i, x in enumerate(args))
+    before = _launches("K8")
+    got = ob.observe(*args, True)
+    assert _launches("K8") == before
+    assert got[0].shape == (0,) and float(got[4]) == 0.0
+    assert complex(got[2]) == 0
+
+
+@pytest.mark.parametrize("case", ["host facs", "cpu signs", "signs apart"])
+def test_observe_wrapper_raises_on_card(card, case):
+    from semiclassical_tpu_torch.ops import observe as ob
+
+    args = list(_k8_inputs(card, "HK", 16, 6, "whole", steps=0)[0])
+    if case == "host facs":
+        args[10] = args[10]._replace(fac_i=complex(args[10].fac_i))
+    elif case == "cpu signs":
+        args[8] = args[8].cpu()
+    elif case == "signs apart":
+        args[8] = torch.ones(32, dtype=torch.float64, device=card)[::2]
+    before = _launches("K8")
+    with pytest.raises(ValueError):
+        ob.observe(*args, True)
+    assert _launches("K8") == before
+
+
+@pytest.mark.parametrize("name", ["HK", "WM"])
+def test_k8_graphs_equal_eager(card, name):
+    """HK (with error bars) and WM on a 60-mode Morse model at 1024 x 50
+    in segments of 20: graph replays against `graph.eager()` on the same
+    draws give C(t), k~ic(t), the stderr and the final tracker bit for bit
+    (K8 sums the blocks' partials in a fixed order, with no floating-point
+    atomics), and K8 launches once a step in both."""
+    import contextlib
+
+    from test_torch_port_graph import _morse, _propagator
+
+    from semiclassical_tpu_torch.propagation import graph
+
+    pot, q0, G = _morse(d=60, device="cuda")
+    runs = []
+    for eager in (False, True):
+        graph.clear()
+        prop = _propagator(name, pot, q0, G, ntraj=1024, device="cuda")
+        before, stats = _launches("K8"), dict(graph.STATS)
+        with graph.eager() if eager else contextlib.nullcontext():
+            out = prop.propagate(pot, 2.0, 50, chunk=20,
+                                 error_bars=name == "HK")
+        torch.cuda.synchronize()
+        tracker = prop.tracker if name == "HK" else prop.tracker.prefactorC
+        runs.append((out, [tracker.previous.cpu(), tracker.signs.cpu()],
+                     _launches("K8") - before,
+                     graph.STATS["replays"] - stats["replays"]))
+    graph.clear()
+    (got, fields, launches, replays), (ref, fields_ref, launches_eager,
+                                       _) = runs
+    for g, r in zip(got, ref, strict=True):
+        assert np.array_equal(g, r)
+    for g, r in zip(fields, fields_ref):
+        assert torch.equal(g, r)
+    assert launches == launches_eager == 50
+    assert replays > 0
 
 
 @pytest.mark.parametrize("name", ["HK", "WM"])

@@ -568,7 +568,7 @@ def test_counters_count_replays(monkeypatch, how):
         assert _build.KERNELS == {
             "K1": "det_lu", "K2": "gj_det_solve", "K3": "gj_det_inv",
             "K4": "det_lu_block", "K5": "wm_diag", "K6": "diag_mono",
-            "K7": "morse_rk4"}
+            "K7": "morse_rk4", "K8": "observe"}
         for label, types_ in ops.launch_counts().items():
             kernel = _build.KERNELS[label]
             assert kernel in _build._ENTRY_POINTS
